@@ -1,0 +1,335 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one CUDA card and check it.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with an NVIDIA H100.  Phases,
+in order; any failure ends the run with a nonzero exit and no result line:
+
+1. environment: card name and power limit, torch, CUDA and nvcc versions;
+2. build: every kernel under ``se_tpu_torch/csrc`` into ``build/kernels``,
+   one nvcc per source, all started together;
+3. each kernel against its plain PyTorch version on the card at the main
+   path's shapes, with CUDA-event times of the kernel, the plain version
+   and a library call computing the same function, and the kernel's bound;
+4. the slice at full width: the default-config DCCRN with seeded random
+   weights carried over from the JAX tree layout enhances 8 three-second
+   utterances with ``enhance_batch`` (the kernel launch count is read
+   around that run), runs the validation forward, matches the same
+   weights on the CPU, and runs the enhance CLI as a subprocess;
+5. report: one JSON line of kernel numbers, then the result line.
+
+TF32 is off throughout (``resolve_device`` sets it): the reference is f32.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parent
+SEED = 0
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): f32 outside the tensor
+# cores and HBM3 bandwidth
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+KERNEL_TOL = 1e-4  # kernel vs plain on the card, f32 over 483 steps
+SLICE_TOL = 1e-3  # enhanced waveform, card vs CPU plain path
+CLI_TOL = 2 / 32768  # CLI output vs in-process, int16 LSBs
+
+
+def _cuda_ms(fn, iters: int, warmup: int) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _max_err(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _profile(fn, steps: int, top: int = 12):
+    """Device time per call of ``fn`` by kernel, from torch.profiler, and
+    the device's busy share of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    # kernel rows only: the aten rows repeat the time of the kernels they launch
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    print(f"[profile] per call: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"[profile] {e.self_device_time_total / 1e3 / steps:9.3f} ms "
+              f"x{e.count // steps:<4d} {e.key[:90]}")
+
+
+def phase_environment() -> str:
+    if not (REPO / "se_tpu_torch").is_dir():
+        sys.exit("chip_smoke.py must run from a checkout holding se_tpu_torch/")
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device: torch.cuda.is_available() is false")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(f"[env] nvidia-smi: {smi}")
+    print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]} devices {torch.cuda.device_count()}")
+    from se_tpu_torch.ops import build
+
+    nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip().splitlines()
+    print(f"[env] nvcc: {nvcc[-1]}")
+    return smi
+
+
+def phase_build():
+    from se_tpu_torch.ops import build
+
+    t0 = time.perf_counter()
+    logs = build.build()
+    print(f"[build] {build.kernel_names()} in {time.perf_counter() - t0:.2f} s")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+
+
+def phase_lstm_kernel() -> dict:
+    """fused_lstm_scan at the main path's shapes: T=483 frames (3 s at hop
+    100 with the conv-STFT's 300-sample pads), L=2 stacks, Bb=16 rows
+    (B=8 doubled), H=128 (rnn_units=256 halved)."""
+    from se_tpu_torch.device import resolve_device
+    from se_tpu_torch.ops.fused_lstm import fused_lstm_scan, fused_lstm_scan_reference
+
+    dev = resolve_device("cuda")
+    rng = np.random.default_rng(SEED)
+
+    def inputs(T, L, Bb, H):
+        """x_proj, w_hh_t (torch's init range), nonzero h0 and c0."""
+        host = [
+            rng.standard_normal((T, L, Bb, 4 * H)),
+            rng.uniform(-1 / np.sqrt(H), 1 / np.sqrt(H), (L, H, 4 * H)),
+            rng.standard_normal((L, Bb, H)) * 0.5,
+            rng.standard_normal((L, Bb, H)) * 0.5,
+        ]
+        return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in host]
+
+    T, L, Bb, H = 483, 2, 16, 128
+    xp, w, h0, c0 = inputs(T, L, Bb, H)
+    with torch.inference_mode():
+        ys, (hT, cT) = fused_lstm_scan(xp, w, h0, c0)
+        ys_p, (hT_p, cT_p) = fused_lstm_scan_reference(xp, w, h0, c0)
+        torch.cuda.synchronize()
+        errs = {"ys": _max_err(ys, ys_p), "hT": _max_err(hT, hT_p), "cT": _max_err(cT, cT_p)}
+        print(f"[lstm] max |kernel - plain| {errs} (tolerance {KERNEL_TOL})")
+        assert all(np.isfinite(v) and v <= KERNEL_TOL for v in errs.values()), errs
+
+        # a ragged shape: Bb not a multiple of the kernel's 4-row tile
+        ragged = inputs(7, 3, 5, 32)
+        got = fused_lstm_scan(*ragged)
+        want = fused_lstm_scan_reference(*ragged)
+        r_err = max(_max_err(got[0], want[0]), _max_err(got[1][0], want[1][0]),
+                    _max_err(got[1][1], want[1][1]))
+        print(f"[lstm] ragged T=7 L=3 Bb=5: max |kernel - plain| {r_err}")
+        assert r_err <= KERNEL_TOL, r_err
+
+        # yardstick only, never called by the port: cuDNN's LSTM with an
+        # identity input projection and zero biases is the same function
+        lib = []
+        for l in range(L):
+            m = torch.nn.LSTM(4 * H, H).to(dev)
+            with torch.no_grad():
+                m.weight_ih_l0.copy_(torch.eye(4 * H, device=dev))
+                m.weight_hh_l0.copy_(w[l].T)
+                m.bias_ih_l0.zero_()
+                m.bias_hh_l0.zero_()
+            lib.append(m)
+
+        def library():
+            return [lib[l](xp[:, l], (h0[l : l + 1], c0[l : l + 1])) for l in range(L)]
+
+        lib_err = max(_max_err(out[0], ys[:, l]) for l, out in enumerate(library()))
+        print(f"[lstm] max |cuDNN LSTM - kernel| {lib_err}")
+
+        kernel_ms = _cuda_ms(lambda: fused_lstm_scan(xp, w, h0, c0), iters=50, warmup=3)
+        plain_ms = _cuda_ms(lambda: fused_lstm_scan_reference(xp, w, h0, c0), iters=5, warmup=1)
+        library_ms = _cuda_ms(library, iters=50, warmup=3)
+
+    n_bytes = 4 * (xp.numel() + w.numel() + h0.numel() + c0.numel()
+                   + ys.numel() + hT.numel() + cT.numel())
+    flops = 2 * T * L * Bb * H * 4 * H + T * L * Bb * 4 * H  # h @ W_hh, + x_proj
+    bytes_ms, flops_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
+    bound_ms = max(bytes_ms, flops_ms)
+    bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
+    print(f"[lstm] kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+          f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}: {n_bytes} B, {flops} FLOP)")
+    return {
+        "name": "fused_lstm_scan_fwd",
+        "route": "cuda",
+        "source": "se_tpu_torch/csrc/lstm_scan.cu",
+        "replaces": "se_tpu/ops/pallas_lstm.py:200::fused_lstm_scan",
+        "max_abs_err": max(errs.values()),
+        "ms": kernel_ms,
+        "kernel_ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
+
+
+def _utterances(n: int, seconds: int, fs: int) -> tuple:
+    """(noisy, clean) [n, seconds * fs]: amplitude-modulated harmonic
+    stacks plus white noise, from SEED."""
+    rng = np.random.default_rng(SEED)
+    t = np.arange(seconds * fs) / fs
+    clean = []
+    for _ in range(n):
+        f0 = rng.uniform(100, 250)
+        sig = sum(np.sin(2 * np.pi * k * f0 * t + rng.uniform(0, 2 * np.pi)) / k
+                  for k in range(1, 8))
+        env = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(2, 5) * t)
+        clean.append(0.3 * env * sig / np.abs(sig).max())
+    clean = np.stack(clean).astype(np.float32)
+    noisy = (clean + 0.05 * rng.standard_normal(clean.shape)).astype(np.float32)
+    return noisy, clean
+
+
+def phase_slice(workdir: Path) -> int:
+    from se_tpu_torch.config import Config
+    from se_tpu_torch.data.wav import read_wav, write_wav
+    from se_tpu_torch.enhance import enhance_batch
+    from se_tpu_torch.models import build_model
+    from se_tpu_torch.ops.fused_lstm import fused_lstm_scan
+    from se_tpu_torch.train.steps import eval_step
+    from se_tpu_torch.utils.weights import (
+        dccrn_state_dict_from_jax,
+        random_dccrn_params,
+        save_reference_checkpoint,
+    )
+
+    cfg = Config()
+    fs, B, seconds = cfg.stft.fs, 8, 3
+    sd = dccrn_state_dict_from_jax(*random_dccrn_params(cfg, seed=SEED), cfg)
+    model = build_model(cfg, device="cuda")
+    model.load_state_dict(sd, strict=True)
+    noisy, clean = _utterances(B, seconds, fs)
+
+    # the main path: counts read around one enhance_batch call
+    fused_lstm_scan.launches = 0
+    wav = enhance_batch(model, noisy)
+    torch.cuda.synchronize()
+    launches = fused_lstm_scan.launches
+    print(f"[slice] enhance_batch [{B}, {seconds * fs}] -> {list(wav.shape)}, "
+          f"fused_lstm_scan launches {launches}")
+    assert launches == cfg.dccrn.rnn_layers, launches
+    assert tuple(wav.shape) == noisy.shape and torch.isfinite(wav).all()
+    assert wav.abs().max().item() <= 1.0
+
+    fused_lstm_scan.launches = 0
+    metrics, eval_wav = eval_step(cfg, model, noisy, clean)
+    torch.cuda.synchronize()
+    assert fused_lstm_scan.launches == cfg.dccrn.rnn_layers, fused_lstm_scan.launches
+    # cuDNN need not repeat its sums bit for bit from one call to the next
+    rerun_err = _max_err(eval_wav, wav)
+    print(f"[slice] eval_step wav vs enhance_batch wav: max |diff| {rerun_err}")
+    assert rerun_err <= 1e-5, rerun_err
+
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_model.load_state_dict(sd, strict=True)
+    cpu_wav = enhance_batch(cpu_model, noisy, device="cpu")
+    cpu_metrics, _ = eval_step(cfg, cpu_model, noisy, clean)
+    err = _max_err(wav.cpu(), cpu_wav)
+    loss, cpu_loss = metrics["loss"].item(), cpu_metrics["loss"].item()
+    print(f"[slice] max |card - cpu| wav {err} (tolerance {SLICE_TOL}); "
+          f"SDR loss card {loss} cpu {cpu_loss}")
+    assert err <= SLICE_TOL, err
+    assert np.isfinite(loss) and abs(loss - cpu_loss) <= 1e-3 * max(1.0, abs(cpu_loss))
+
+    reps = 10
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        enhance_batch(model, noisy)
+    torch.cuda.synchronize()
+    per_batch = (time.perf_counter() - t0) / reps
+    print(f"[slice] {B * reps} utterances in {per_batch * reps:.4f} s: "
+          f"{B / per_batch:.2f} utt/s, real-time factor {per_batch / (B * seconds):.6f}, "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    _profile(lambda: enhance_batch(model, noisy), steps=3)
+
+    # the enhance CLI on the card, against the same weights in process
+    ckpt = save_reference_checkpoint(str(workdir / "chkpt.pt"), sd)
+    lengths = {"a.wav": 48000, "b.wav": 40000, "c.wav": 20000}
+    for i, (name, L) in enumerate(lengths.items()):
+        write_wav(str(workdir / name), noisy[i, :L], fs)
+    out_dir = workdir / "enhanced"
+    cmd = [sys.executable, "-m", "se_tpu_torch.enhance", "--checkpoint", ckpt,
+           "--model", "DCCRN", "--batch", "2", "--device", "cuda",
+           *[str(workdir / n) for n in lengths], "--out-dir", str(out_dir)]
+    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    print(r.stdout.strip())
+    assert r.returncode == 0, r.stderr[-3000:]
+    worst = 0.0
+    for name, L in lengths.items():
+        x = read_wav(str(workdir / name))[0].astype(np.float32)
+        padded = np.pad(x, (0, -(-L // fs) * fs - L))[None]
+        want = enhance_batch(model, padded)[0, :L].cpu().numpy()
+        want = np.clip(want * 32768, -32768, 32767).astype(np.int16) / 32768.0
+        got = read_wav(str(out_dir / name))[0]
+        assert got.shape == (L,), got.shape
+        worst = max(worst, float(np.abs(got - want).max()))
+    print(f"[cli] max |CLI - in-process| {worst * 32768:.1f} LSB (tolerance 2 LSB)")
+    assert worst <= CLI_TOL, worst
+    return launches
+
+
+def main() -> int:
+    smi = phase_environment()
+    phase_build()
+    kernel = phase_lstm_kernel()
+    build_dir = REPO / "build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        launches = phase_slice(Path(tmp))
+    kernel.update(launches=launches, launches_per_forward=launches)
+    print(smi)
+    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,147 @@
+"""Frozen, validated configuration for the PyTorch port.
+
+An own copy of the JAX package's config dataclasses (``se_tpu/config.py``):
+the same fields, defaults and validity rules for the model families, the
+STFT geometry and training, so a ``Config`` built with the same arguments
+in either package describes the same model.  The JAX package's
+accelerator-specific switches (Pallas kernels, conv space-to-depth,
+rematerialisation, mesh axes) have no meaning here and are not copied.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+MODEL_LIST = ("DCCRN", "CRN", "FullSubNet")
+LOSS_LIST = ("MSE", "SDR", "SI-SNR", "SI-SDR")
+PERCEPTUAL_LIST = (False, "LMS", "PMSQE")
+LSTM_TYPES = ("real", "complex")
+MAIN_NETS = ("LSTM", "GRU")
+MASK_TYPES = ("Direct(None make)", "E", "C", "R")
+NORM_TYPES = (
+    "offline_laplace_norm",
+    "cumulative_laplace_norm",
+    "offline_gaussian_norm",
+    "cumulative_layer_norm",
+)
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
+@dataclass(frozen=True)
+class StftConfig:
+    """STFT geometry.  ``conv_hop`` is the conv-STFT hop of DCCRN/CRN,
+    ``torch_hop`` the framework-STFT hop of FullSubNet (a reference quirk:
+    the two paths use different hops)."""
+
+    fs: int = 16000
+    win_len: int = 400
+    win_inc: int = 100
+    ola_ratio: float = 0.75
+    fft_len: int = 512
+    window: str = "hanning"
+
+    @property
+    def num_freqs(self) -> int:
+        return self.fft_len // 2 + 1
+
+    @property
+    def conv_hop(self) -> int:
+        return self.win_inc
+
+    @property
+    def torch_hop(self) -> int:
+        return int(self.win_len * self.ola_ratio)
+
+
+@dataclass(frozen=True)
+class DccrnConfig:
+    rnn_layers: int = 2
+    rnn_units: int = 256
+    kernel_num: Tuple[int, ...] = (32, 64, 128, 256, 256, 256)
+    kernel_size: int = 5
+    use_cbn: bool = False
+
+
+@dataclass(frozen=True)
+class CrnConfig:
+    rnn_layers: int = 2
+    rnn_input_size: int = 512
+    rnn_units: int = 256
+    kernel_size: int = 5
+
+
+@dataclass(frozen=True)
+class FullSubNetConfig:
+    sb_num_neighbors: int = 15
+    fb_num_neighbors: int = 0
+    look_ahead: int = 2
+    fb_output_activate_function: Optional[str] = "ReLU"
+    sb_output_activate_function: Optional[str] = None
+    fb_model_hidden_size: int = 512
+    sb_model_hidden_size: int = 384
+    weight_init: bool = False
+    norm_type: str = "offline_laplace_norm"
+    num_groups_in_drop_band: int = 2
+    dropout: float = 0.8
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    max_epochs: int = 100
+    learning_rate: float = 1e-3
+    batch: int = 10
+    seed: int = 0
+    grad_accum: int = 1
+    adam_mu_dtype: Optional[str] = None
+    job_dir: str = "./models/"
+    logs_dir: str = "./logs/"
+    chkpt_model: Optional[str] = None
+    chkpt: str = "EPOCH"
+    expr_num: str = "EXPERIMENT_NUMBER"
+    train_data_path: Optional[str] = None
+    valid_data_path: Optional[str] = None
+    test_data_path: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class Config:
+    model: str = "DCCRN"
+    loss: str = "SDR"
+    perceptual: object = False  # False | 'LMS' | 'PMSQE'
+    lstm: str = "complex"
+    sequence_model: str = "LSTM"
+    masking_mode: str = "E"
+    skip_type: bool = True
+
+    stft: StftConfig = field(default_factory=StftConfig)
+    dccrn: DccrnConfig = field(default_factory=DccrnConfig)
+    crn: CrnConfig = field(default_factory=CrnConfig)
+    fullsubnet: FullSubNetConfig = field(default_factory=FullSubNetConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+
+    # Activation dtype of the network path; f32 matches the reference.
+    compute_dtype: str = "float32"
+
+    def __post_init__(self):
+        checks = (
+            ("model", self.model, MODEL_LIST),
+            ("loss", self.loss, LOSS_LIST),
+            ("perceptual", self.perceptual, PERCEPTUAL_LIST),
+            ("lstm", self.lstm, LSTM_TYPES),
+            ("sequence_model", self.sequence_model, MAIN_NETS),
+            ("masking_mode", self.masking_mode, MASK_TYPES),
+            ("norm_type", self.fullsubnet.norm_type, NORM_TYPES),
+            ("compute_dtype", self.compute_dtype, COMPUTE_DTYPES),
+        )
+        for name, value, allowed in checks:
+            if value not in allowed:
+                raise ValueError(f"{name} must be one of {allowed}, got {value!r}")
+        if self.masking_mode == "Direct(None make)" and self.perceptual is not False:
+            raise ValueError("This setting is not created (Direct + perceptual)")
+        if self.model == "FullSubNet" and self.perceptual is not False:
+            raise ValueError("This setting is not created (FullSubNet + perceptual)")
+
+    def replace(self, **kwargs) -> "Config":
+        return dataclasses.replace(self, **kwargs)

@@ -1,0 +1,173 @@
+"""DCCRN: deep complex convolution recurrent network (counterpart of
+``se_tpu/models/dccrn.py``).
+
+Conv-STFT -> complex conv encoder -> complex LSTM bottleneck -> complex
+transposed-conv decoder with skip connections -> mask on the noisy
+spectrum -> conv-iSTFT -> clip to +-1.  This slice ports the default
+variant (complex LSTM, skip connections, real BatchNorm) with the E, C and
+R masks.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..config import Config
+from ..dsp.stft import conv_stft_bases, conv_istft, conv_stft
+from ..ops.magnitude import complex_mag, safe_arctan2
+from .layers import (
+    ComplexConv2d,
+    ComplexConvTranspose2d,
+    NavieComplexLSTM,
+    PReLU,
+    TorchBatchNorm2d,
+    complex_cat,
+)
+
+NOT_PORTED = (
+    "is not ported yet (ROADMAP.md, Queue 1: DCCRN's other variants)"
+)
+
+
+class ConvSTFT(nn.Module):
+    """Holds the analysis basis as the reference's ``stft.weight`` buffer,
+    ``[fft_len + 2, 1, win_len]``."""
+
+    def __init__(self, win_len: int, hop: int, fft_len: int, window: str):
+        super().__init__()
+        fwd, _, _ = conv_stft_bases(win_len, fft_len, window)
+        self.win_len, self.hop = win_len, hop
+        self.register_buffer("weight", torch.from_numpy(fwd.T.copy())[:, None, :])
+
+    def forward(self, x):
+        return conv_stft(x, self.weight[:, 0, :].T, self.win_len, self.hop)
+
+
+class ConviSTFT(nn.Module):
+    """Holds the synthesis basis, the window and the identity ``enframe``
+    kernel as the reference's ``istft.*`` buffers.  ``enframe`` is kept for
+    loading only: the overlap-add needs no kernel."""
+
+    def __init__(self, win_len: int, hop: int, fft_len: int, window: str):
+        super().__init__()
+        _, inv, win = conv_stft_bases(win_len, fft_len, window)
+        self.hop = hop
+        self.register_buffer("weight", torch.from_numpy(inv.T.copy())[:, None, :])
+        self.register_buffer("window", torch.from_numpy(win)[None, :, None])
+        self.register_buffer("enframe", torch.eye(win_len)[:, None, :])
+
+    def forward(self, spec):
+        return conv_istft(spec, self.weight[:, 0, :].T, self.window[0, :, 0], self.hop)
+
+
+class DCCRN(nn.Module):
+    def __init__(self, cfg: Config, *, generator: torch.Generator):
+        super().__init__()
+        c = cfg
+        if c.lstm != "complex":
+            raise NotImplementedError(f"DCCRN lstm={c.lstm!r} {NOT_PORTED}")
+        if c.dccrn.use_cbn:
+            raise NotImplementedError(f"DCCRN use_cbn=True {NOT_PORTED}")
+        if not c.skip_type:
+            raise NotImplementedError(f"DCCRN skip_type=False {NOT_PORTED}")
+        if c.masking_mode not in ("E", "C", "R"):
+            raise NotImplementedError(f"DCCRN masking_mode={c.masking_mode!r} {NOT_PORTED}")
+        if c.compute_dtype != "float32":
+            raise NotImplementedError(
+                "compute_dtype='bfloat16' is not ported yet (ROADMAP.md, Queue 1: bf16 streams)"
+            )
+        self.masking_mode = c.masking_mode
+        self.fft_len = c.stft.fft_len
+        s = c.stft
+        self.stft = ConvSTFT(s.win_len, s.win_inc, s.fft_len, s.window)
+        self.istft = ConviSTFT(s.win_len, s.win_inc, s.fft_len, s.window)
+
+        kernel_num = (2,) + tuple(c.dccrn.kernel_num)
+        ks = c.dccrn.kernel_size
+        n_stage = len(kernel_num) - 1
+        self.encoder = nn.ModuleList(
+            nn.Sequential(
+                ComplexConv2d(kernel_num[i], kernel_num[i + 1], kernel_size=(ks, 2),
+                              stride=(2, 1), padding=(2, 1), generator=generator),
+                TorchBatchNorm2d(kernel_num[i + 1]),
+                PReLU(),
+            )
+            for i in range(n_stage)
+        )
+
+        hidden_dim = self.fft_len // (2 ** len(kernel_num))
+        units, layers = c.dccrn.rnn_units, c.dccrn.rnn_layers
+        self.enhance = nn.ModuleList(
+            NavieComplexLSTM(
+                input_size=hidden_dim * kernel_num[-1] if idx == 0 else units,
+                hidden_size=units,
+                projection_dim=hidden_dim * kernel_num[-1] if idx == layers - 1 else None,
+                generator=generator,
+            )
+            for idx in range(layers)
+        )
+
+        decoder = []
+        for idx in range(n_stage, 0, -1):
+            stage = [
+                ComplexConvTranspose2d(
+                    kernel_num[idx] * 2, kernel_num[idx - 1], kernel_size=(ks, 2),
+                    stride=(2, 1), padding=(2, 0), output_padding=(1, 0),
+                    generator=generator,
+                )
+            ]
+            if idx != 1:  # the last stage has no BN or PReLU
+                stage += [TorchBatchNorm2d(kernel_num[idx - 1]), PReLU()]
+            decoder.append(nn.Sequential(*stage))
+        self.decoder = nn.ModuleList(decoder)
+
+    def forward(self, inputs):
+        """``inputs [B, L]`` -> ``(out_real, out_imag, out_wav)``."""
+        specs = self.stft(inputs)  # [B, fft_len + 2, T]
+        dim = self.fft_len // 2 + 1
+        real, imag = specs[:, :dim], specs[:, dim:]
+        spec_mags = torch.sqrt(real**2 + imag**2 + 1e-8)
+        spec_phase = torch.atan2(imag, real)
+        out = torch.stack([real, imag], dim=1)[:, :, 1:]  # drop the DC bin
+
+        encoder_out = []
+        for stage in self.encoder:
+            out = stage(out)
+            encoder_out.append(out)
+
+        B, C, D, T = out.shape
+        out = out.permute(3, 0, 1, 2)  # [T, B, C, D]
+        r_in = out[:, :, : C // 2].reshape(T, B, C // 2 * D)
+        i_in = out[:, :, C // 2 :].reshape(T, B, C // 2 * D)
+        for rnn in self.enhance:
+            r_in, i_in = rnn([r_in, i_in])
+        out = torch.cat(
+            [r_in.reshape(T, B, C // 2, D), i_in.reshape(T, B, C // 2, D)], dim=2
+        ).permute(1, 2, 3, 0)  # [B, C, D, T]
+
+        for idx, stage in enumerate(self.decoder):
+            out = complex_cat([out, encoder_out[-1 - idx]], 1)
+            out = stage(out)[..., 1:]  # causal time trim per stage
+
+        mask_real = F.pad(out[:, 0], (0, 0, 1, 0))  # re-pad the DC bin
+        mask_imag = F.pad(out[:, 1], (0, 0, 1, 0))
+        if self.masking_mode == "E":
+            mask_mags = complex_mag(mask_real, mask_imag)
+            real_phase = mask_real / (mask_mags + 1e-8)
+            imag_phase = mask_imag / (mask_mags + 1e-8)
+            mask_phase = safe_arctan2(imag_phase, real_phase)
+            est_mags = torch.tanh(mask_mags) * spec_mags
+            est_phase = spec_phase + mask_phase
+            out_real = est_mags * torch.cos(est_phase)
+            out_imag = est_mags * torch.sin(est_phase)
+        elif self.masking_mode == "C":
+            out_real = real * mask_real - imag * mask_imag
+            out_imag = real * mask_imag + imag * mask_real
+        else:  # "R"
+            out_real = real * mask_real
+            out_imag = imag * mask_imag
+
+        out_wav = self.istft(torch.cat([out_real, out_imag], dim=1))[:, 0]
+        return out_real, out_imag, torch.clamp(out_wav, -1.0, 1.0)

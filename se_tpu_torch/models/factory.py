@@ -1,0 +1,21 @@
+"""Model factory (counterpart of ``se_tpu/models/factory.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import Config
+from ..device import resolve_device
+from .dccrn import DCCRN
+
+
+def build_model(cfg: Config, device="cuda") -> torch.nn.Module:
+    """The model of ``cfg`` on ``device``, in eval mode, with the
+    reference's initialisation drawn from a generator seeded with 0."""
+    dev = resolve_device(device)
+    if cfg.model != "DCCRN":
+        raise NotImplementedError(
+            f"model {cfg.model!r} is not ported yet (ROADMAP.md, Queue 1)"
+        )
+    model = DCCRN(cfg, generator=torch.Generator().manual_seed(0))
+    return model.to(dev).eval()

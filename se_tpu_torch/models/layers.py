@@ -1,0 +1,210 @@
+"""Layers with reference semantics and initialisation (counterpart of
+``se_tpu/models/layers.py``).
+
+Parameters and buffers carry the reference's attribute names
+(``real_conv.weight``, ``real_lstm.weight_ih_l0``, ``running_mean``, ...)
+so a reference state dict loads with ``strict=True``.  Every random
+initialisation draws from an explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops import conv as conv_ops
+from ..ops import rnn as rnn_ops
+from ..ops.activations import prelu
+from ..ops.norms import batch_norm_2d
+
+
+def _normal05(generator: torch.Generator, shape) -> torch.Tensor:
+    """The reference's conv init, N(0, 0.05)."""
+    return torch.randn(shape, generator=generator) * 0.05
+
+
+def _uniform(generator: torch.Generator, shape, bound: float) -> torch.Tensor:
+    return (torch.rand(shape, generator=generator) * 2 - 1) * bound
+
+
+class TorchLinear(nn.Module):
+    """``nn.Linear`` semantics and init, U(+-1/sqrt(in_features))."""
+
+    def __init__(self, in_features: int, out_features: int, *, generator: torch.Generator):
+        super().__init__()
+        bound = 1.0 / math.sqrt(in_features)
+        self.weight = nn.Parameter(_uniform(generator, (out_features, in_features), bound))
+        self.bias = nn.Parameter(_uniform(generator, (out_features,), bound))
+
+    def forward(self, x):
+        return x @ self.weight.T.to(x.dtype) + self.bias.to(x.dtype)
+
+
+class TorchBatchNorm2d(nn.Module):
+    """``nn.BatchNorm2d`` semantics: running statistics in eval mode, batch
+    statistics and a momentum update of the running buffers in train mode."""
+
+    def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x):
+        y, new_mean, new_var = batch_norm_2d(
+            x, self.weight, self.bias, self.running_mean, self.running_var,
+            self.training, self.momentum, self.eps,
+        )
+        if self.training:
+            with torch.no_grad():
+                self.running_mean.copy_(new_mean)
+                self.running_var.copy_(new_var)
+                self.num_batches_tracked += 1
+        return y
+
+
+class PReLU(nn.Module):
+    """``nn.PReLU`` with one shared slope, initialised to 0.25."""
+
+    def __init__(self):
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((1,), 0.25))
+
+    def forward(self, x):
+        return prelu(x, self.weight)
+
+
+class _ConvWeights(nn.Module):
+    """Weight and bias of one component convolution, named as the
+    reference's inner ``nn.Conv2d``/``nn.ConvTranspose2d``."""
+
+    def __init__(self, weight_shape, out_channels: int, generator: torch.Generator):
+        super().__init__()
+        self.weight = nn.Parameter(_normal05(generator, weight_shape))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+
+def _complex_bias(real_conv, imag_conv):
+    # The reference applies both component convs, each with its bias, to
+    # both inputs: the real output carries br - bi, the imaginary br + bi.
+    br, bi = real_conv.bias, imag_conv.bias
+    return torch.cat([br - bi, br + bi])
+
+
+class ComplexConv2d(nn.Module):
+    """Complex convolution as one real convolution with the 2x2 block
+    kernel ``[[wr, -wi], [wi, wr]]``.  Channels are real block then
+    imaginary block; ``in_channels``/``out_channels`` count both.  Time is
+    padded on the left only (causal); frequency inside the conv."""
+
+    def __init__(self, in_channels, out_channels, kernel_size=(1, 1), stride=(1, 1),
+                 padding=(0, 0), *, generator: torch.Generator):
+        super().__init__()
+        ci, co = in_channels // 2, out_channels // 2
+        self.stride, self.padding = tuple(stride), tuple(padding)
+        self.real_conv = _ConvWeights((co, ci, *kernel_size), co, generator)
+        self.imag_conv = _ConvWeights((co, ci, *kernel_size), co, generator)
+
+    def forward(self, x):
+        ph, pw = self.padding
+        x = F.pad(x, (pw, 0))
+        wr, wi = self.real_conv.weight, self.imag_conv.weight
+        w = torch.cat([torch.cat([wr, -wi], 1), torch.cat([wi, wr], 1)], 0)
+        bias = _complex_bias(self.real_conv, self.imag_conv)
+        return conv_ops.conv2d(x, w, bias, stride=self.stride, padding=(ph, 0))
+
+
+class ComplexConvTranspose2d(nn.Module):
+    """Complex transposed convolution as one real one; the block kernel
+    sits on the ``[in, out]`` axes of torch's transposed-conv layout:
+    ``[[wr, wi], [-wi, wr]]``."""
+
+    def __init__(self, in_channels, out_channels, kernel_size=(1, 1), stride=(1, 1),
+                 padding=(0, 0), output_padding=(0, 0), *, generator: torch.Generator):
+        super().__init__()
+        ci, co = in_channels // 2, out_channels // 2
+        self.stride, self.padding = tuple(stride), tuple(padding)
+        self.output_padding = tuple(output_padding)
+        self.real_conv = _ConvWeights((ci, co, *kernel_size), co, generator)
+        self.imag_conv = _ConvWeights((ci, co, *kernel_size), co, generator)
+
+    def forward(self, x):
+        wr, wi = self.real_conv.weight, self.imag_conv.weight
+        w = torch.cat([torch.cat([wr, wi], 1), torch.cat([-wi, wr], 1)], 0)
+        bias = _complex_bias(self.real_conv, self.imag_conv)
+        return conv_ops.conv_transpose2d(
+            x, w, bias, stride=self.stride, padding=self.padding,
+            output_padding=self.output_padding,
+        )
+
+
+def complex_cat(inputs: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
+    """Concatenate complex tensors keeping the real-block || imaginary-block
+    layout: all real halves first, then all imaginary halves."""
+    halves = [x.chunk(2, dim=dim) for x in inputs]
+    return torch.cat([r for r, _ in halves] + [i for _, i in halves], dim=dim)
+
+
+class _LstmWeights(nn.Module):
+    """One layer of ``nn.LSTM``'s parameters, under its names."""
+
+    def __init__(self, input_size: int, hidden_size: int, generator: torch.Generator):
+        super().__init__()
+        bound = 1.0 / math.sqrt(hidden_size)
+        G = 4 * hidden_size
+        self.weight_ih_l0 = nn.Parameter(_uniform(generator, (G, input_size), bound))
+        self.weight_hh_l0 = nn.Parameter(_uniform(generator, (G, hidden_size), bound))
+        self.bias_ih_l0 = nn.Parameter(_uniform(generator, (G,), bound))
+        self.bias_hh_l0 = nn.Parameter(_uniform(generator, (G,), bound))
+
+    def params(self) -> rnn_ops.LstmParams:
+        return rnn_ops.LstmParams(
+            self.weight_ih_l0, self.weight_hh_l0, self.bias_ih_l0, self.bias_hh_l0
+        )
+
+
+class NavieComplexLSTM(nn.Module):
+    """Complex LSTM as one 2-stack recurrence.
+
+    Keeps the reference's shared-weight quirk: the real-weight stack runs
+    over the doubled batch ``[real; imag]`` and gives r->r and i->r, the
+    imaginary-weight stack r->i and i->i; then ``real = r2r - i2i`` and
+    ``imag = i2r + r2i``.  Only a layer given ``projection_dim`` has the
+    ``r_trans``/``i_trans`` projections.
+    """
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 projection_dim: Optional[int] = None, *, generator: torch.Generator):
+        super().__init__()
+        in_dim, units = input_size // 2, hidden_size // 2
+        self.real_lstm = _LstmWeights(in_dim, units, generator)
+        self.imag_lstm = _LstmWeights(in_dim, units, generator)
+        self.projection_dim = projection_dim
+        if projection_dim is not None:
+            self.r_trans = TorchLinear(units, projection_dim // 2, generator=generator)
+            self.i_trans = TorchLinear(units, projection_dim // 2, generator=generator)
+
+    def forward(self, inputs):
+        real, imag = inputs  # each [T, B, input_size // 2]
+        stacked = rnn_ops.LstmParams(
+            *[torch.stack([a, b]) for a, b in zip(self.real_lstm.params(),
+                                                   self.imag_lstm.params())]
+        )
+        B = real.shape[1]
+        z = torch.cat([real, imag], dim=1)  # [T, 2B, in_dim]
+        ys, _ = rnn_ops.lstm_stack(stacked, z)
+        r2r, i2r = ys[0, :, :B], ys[0, :, B:]
+        r2i, i2i = ys[1, :, :B], ys[1, :, B:]
+        real_out = r2r - i2i
+        imag_out = i2r + r2i
+        if self.projection_dim is not None:
+            real_out = self.r_trans(real_out)
+            imag_out = self.i_trans(imag_out)
+        return [real_out, imag_out]

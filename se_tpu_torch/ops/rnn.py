@@ -1,0 +1,55 @@
+"""Stacked LSTMs with torch weight semantics (counterpart of ``LstmParams``,
+``_scan_or_pallas`` and ``lstm_stack`` of ``se_tpu/ops/rnn.py``, f32 path).
+
+The input projection of all time steps is one product outside the
+recurrence; the recurrence itself goes to the fused scan of
+``fused_lstm.py``, which launches the CUDA kernel for CUDA tensors and runs
+the plain loop (the JAX package's ``_lstm_scan``) for CPU tensors.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .fused_lstm import fused_lstm_scan
+
+
+class LstmParams(NamedTuple):
+    w_ih: torch.Tensor  # [4H, In]  (a leading stack axis L in lstm_stack)
+    w_hh: torch.Tensor  # [4H, H]
+    b_ih: torch.Tensor  # [4H]
+    b_hh: torch.Tensor  # [4H]
+
+
+def _scan(x_proj, w_hh, H, h0, c0):
+    """``x_proj [T, L, B, 4H]``, ``w_hh [L, 4H, H]`` -> ``(ys [T, L, B, H], (hT, cT))``."""
+    L, B = x_proj.shape[1], x_proj.shape[2]
+    if h0 is None:
+        h0 = x_proj.new_zeros((L, B, H))
+    if c0 is None:
+        c0 = x_proj.new_zeros((L, B, H))
+    w_hh_t = w_hh.transpose(-1, -2).contiguous()
+    return fused_lstm_scan(x_proj.contiguous(), w_hh_t, h0.contiguous(), c0.contiguous())
+
+
+def lstm_stack(params: LstmParams, x, state=None):
+    """L independent LSTMs in one scan.
+
+    ``params`` carries a leading stack axis L on every field; ``x`` is
+    ``[T, B, In]`` (fed to every stack) or ``[L, T, B, In]``; ``state`` is an
+    optional ``(h, c)`` of ``[L, B, H]``.  Returns ``(ys [L, T, B, H],
+    (hT, cT))``.
+    """
+    if x.dtype != torch.float32:
+        raise NotImplementedError(
+            "lstm_stack runs float32 only; bf16 streams come with the bf16 slice"
+        )
+    H = params.w_hh.shape[-1]
+    eq = "tbi,lgi->tlbg" if x.ndim == 3 else "ltbi,lgi->tlbg"
+    x_proj = torch.einsum(eq, x, params.w_ih)
+    x_proj = x_proj + (params.b_ih + params.b_hh)[None, :, None, :]
+    h0, c0 = state if state is not None else (None, None)
+    ys, final = _scan(x_proj, params.w_hh, H, h0, c0)
+    return ys.transpose(0, 1), final
