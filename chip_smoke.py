@@ -10,14 +10,23 @@ in order; any failure ends the run with a nonzero exit and no result line:
 2. build: every kernel under ``se_tpu_torch/csrc`` into ``build/kernels``,
    one nvcc per source, all started together;
 3. each kernel against its plain PyTorch version on the card at the main
-   path's shapes, with CUDA-event times of the kernel, the plain version
-   and a library call computing the same function, and the kernel's bound;
-4. the slice at full width: the default-config DCCRN with seeded random
-   weights carried over from the JAX tree layout enhances 8 three-second
-   utterances with ``enhance_batch`` (the kernel launch count is read
-   around that run), runs the validation forward, matches the same
-   weights on the CPU, and runs the enhance CLI as a subprocess;
-5. report: one JSON line of kernel numbers, then the result line.
+   path's shapes (and a ragged one), with CUDA-event times of the kernel,
+   the plain version and a library call computing the same function, and
+   the kernel's bound: the LSTM scan's forward (enhance shapes) and its
+   backward (train shapes), with the forward's cell-state stash;
+4. the enhance slice at full width: the default-config DCCRN with seeded
+   random weights carried over from the JAX tree layout enhances 8
+   three-second utterances with ``enhance_batch`` (the forward kernel's
+   launch count is read around that run), runs the validation forward,
+   matches the same weights on the CPU, and runs the enhance CLI as a
+   subprocess;
+5. the train slice at full width: one ``train_step`` on the card and one on
+   the CPU from the same weights (loss, every gradient, the BatchNorm
+   running statistics), the forward and backward kernels' launch counts
+   read around a step with and without gradient accumulation, then 10
+   steps at the default batch of 10 on one fixed batch (the loss must
+   fall), with step time, throughput, peak memory and a profile;
+6. report: one JSON line of kernel numbers, then the result line.
 
 TF32 is off throughout (``resolve_device`` sets it): the reference is f32.
 """
@@ -42,8 +51,24 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 KERNEL_TOL = 1e-4  # kernel vs plain on the card, f32 over 483 steps
+# backward kernel vs plain, relative to each output's max |value|: dgates
+# carry 483 steps of f32 rounding back, and dW_hh sums 9,660 rows in
+# another order than the plain version's per-step products
+BWD_REL_TOL = 1e-4
 SLICE_TOL = 1e-3  # enhanced waveform, card vs CPU plain path
 CLI_TOL = 2 / 32768  # CLI output vs in-process, int16 LSBs
+# train step, card vs CPU plain path, same weights and batch: the loss
+# relative to max(1, |loss|); running statistics absolute; each gradient
+# leaf's max |card - CPU| relative to max(its max |CPU value|, GRAD_FLOOR x
+# the largest gradient of the model).  cuDNN's convolution backward and the
+# BatchNorm backward's sums over B x F x T run in another order than on the
+# CPU; a leaf that is itself such a sum with heavy cancellation (a PReLU
+# slope sums ~2 M products of both signs) carries an error set by the size
+# of its terms, which the floor measures against the gradients flowing in.
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
+GRAD_FLOOR = 1e-2
+TRAIN_STATS_TOL = 1e-5
 
 
 def _cuda_ms(fn, iters: int, warmup: int) -> float:
@@ -121,6 +146,34 @@ def phase_build():
                 print(f"[build] {name}: {line.strip()}")
 
 
+def _scan_inputs(rng, dev, T, L, Bb, H):
+    """x_proj, w_hh_t (torch's init range), nonzero h0 and c0."""
+    host = [
+        rng.standard_normal((T, L, Bb, 4 * H)),
+        rng.uniform(-1 / np.sqrt(H), 1 / np.sqrt(H), (L, H, 4 * H)),
+        rng.standard_normal((L, Bb, H)) * 0.5,
+        rng.standard_normal((L, Bb, H)) * 0.5,
+    ]
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in host]
+
+
+def _cuda_lstms(w, dev):
+    """Yardstick only, never called by the port: one cuDNN ``nn.LSTM`` per
+    stack with an identity input projection and zero biases, which computes
+    the same function as the fused scan of ``x_proj``."""
+    L, H = w.shape[0], w.shape[1]
+    lstms = []
+    for l in range(L):
+        m = torch.nn.LSTM(4 * H, H).to(dev)
+        with torch.no_grad():
+            m.weight_ih_l0.copy_(torch.eye(4 * H, device=dev))
+            m.weight_hh_l0.copy_(w[l].T)
+            m.bias_ih_l0.zero_()
+            m.bias_hh_l0.zero_()
+        lstms.append(m)
+    return lstms
+
+
 def phase_lstm_kernel() -> dict:
     """fused_lstm_scan at the main path's shapes: T=483 frames (3 s at hop
     100 with the conv-STFT's 300-sample pads), L=2 stacks, Bb=16 rows
@@ -130,19 +183,8 @@ def phase_lstm_kernel() -> dict:
 
     dev = resolve_device("cuda")
     rng = np.random.default_rng(SEED)
-
-    def inputs(T, L, Bb, H):
-        """x_proj, w_hh_t (torch's init range), nonzero h0 and c0."""
-        host = [
-            rng.standard_normal((T, L, Bb, 4 * H)),
-            rng.uniform(-1 / np.sqrt(H), 1 / np.sqrt(H), (L, H, 4 * H)),
-            rng.standard_normal((L, Bb, H)) * 0.5,
-            rng.standard_normal((L, Bb, H)) * 0.5,
-        ]
-        return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in host]
-
     T, L, Bb, H = 483, 2, 16, 128
-    xp, w, h0, c0 = inputs(T, L, Bb, H)
+    xp, w, h0, c0 = _scan_inputs(rng, dev, T, L, Bb, H)
     with torch.inference_mode():
         ys, (hT, cT) = fused_lstm_scan(xp, w, h0, c0)
         ys_p, (hT_p, cT_p) = fused_lstm_scan_reference(xp, w, h0, c0)
@@ -152,7 +194,7 @@ def phase_lstm_kernel() -> dict:
         assert all(np.isfinite(v) and v <= KERNEL_TOL for v in errs.values()), errs
 
         # a ragged shape: Bb not a multiple of the kernel's 4-row tile
-        ragged = inputs(7, 3, 5, 32)
+        ragged = _scan_inputs(rng, dev, 7, 3, 5, 32)
         got = fused_lstm_scan(*ragged)
         want = fused_lstm_scan_reference(*ragged)
         r_err = max(_max_err(got[0], want[0]), _max_err(got[1][0], want[1][0]),
@@ -160,17 +202,7 @@ def phase_lstm_kernel() -> dict:
         print(f"[lstm] ragged T=7 L=3 Bb=5: max |kernel - plain| {r_err}")
         assert r_err <= KERNEL_TOL, r_err
 
-        # yardstick only, never called by the port: cuDNN's LSTM with an
-        # identity input projection and zero biases is the same function
-        lib = []
-        for l in range(L):
-            m = torch.nn.LSTM(4 * H, H).to(dev)
-            with torch.no_grad():
-                m.weight_ih_l0.copy_(torch.eye(4 * H, device=dev))
-                m.weight_hh_l0.copy_(w[l].T)
-                m.bias_ih_l0.zero_()
-                m.bias_hh_l0.zero_()
-            lib.append(m)
+        lib = _cuda_lstms(w, dev)
 
         def library():
             return [lib[l](xp[:, l], (h0[l : l + 1], c0[l : l + 1])) for l in range(L)]
@@ -203,6 +235,241 @@ def phase_lstm_kernel() -> dict:
         "bound_by": bound_by,
         "library_ms": library_ms,
     }
+
+
+def _rel_errs(got, want) -> dict:
+    """Max |got - want| of each output, over that output's max |want|."""
+    names = ("dx_proj", "dw_hh_t", "dh0", "dc0")
+    return {n: _max_err(g, w) / max(w.abs().max().item(), 1e-30)
+            for n, g, w in zip(names, got, want)}
+
+
+def phase_lstm_backward() -> tuple:
+    """fused_lstm_scan_backward at the train path's shapes: T=483, L=2,
+    Bb=20 (the default batch of 10 doubled), H=128; the forward's stash;
+    a ragged case.  Returns the K1b entry and the stash forward's times."""
+    from se_tpu_torch.device import resolve_device
+    from se_tpu_torch.ops import fused_lstm
+    from se_tpu_torch.ops.fused_lstm import (
+        fused_lstm_scan_backward,
+        fused_lstm_scan_backward_reference,
+    )
+
+    dev = resolve_device("cuda")
+    rng = np.random.default_rng(SEED + 1)
+
+    def case(T, L, Bb, H):
+        """Forward inputs, the kernel's (ys, cs) and seeded cotangents."""
+        xp, w, h0, c0 = _scan_inputs(rng, dev, T, L, Bb, H)
+        ys, cs, _, _ = fused_lstm._forward(xp, w, h0, c0, need_cs=True)
+        cots = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+                for s in ((T, L, Bb, H), (L, Bb, H), (L, Bb, H))]
+        return (xp, w, h0, c0, ys, cs, *cots)
+
+    T, L, Bb, H = 483, 2, 20, 128
+    args = case(T, L, Bb, H)
+    xp, w, h0, c0, ys, cs, dys, dhT, dcT = args
+    with torch.no_grad():
+        # the stash changes nothing of the forward's results
+        ys_n, cs_n, hT_n, cT_n = fused_lstm._forward(xp, w, h0, c0, need_cs=False)
+        ys_s, cs_s, hT_s, cT_s = fused_lstm._forward(xp, w, h0, c0, need_cs=True)
+        assert cs_n is None
+        assert torch.equal(ys_n, ys_s) and torch.equal(hT_n, hT_s) and torch.equal(cT_n, cT_s)
+        _, cs_p, _, _ = fused_lstm._reference_forward(xp, w, h0, c0, need_cs=True)
+        cs_err = _max_err(cs_s, cs_p)
+        print(f"[lstm-bwd] stash forward: ys bit-identical to the stash-free one; "
+              f"max |cs - plain cs| {cs_err} (tolerance {KERNEL_TOL})")
+        assert cs_err <= KERNEL_TOL, cs_err
+
+        got = fused_lstm_scan_backward(*args)
+        again = fused_lstm_scan_backward(*args)
+        want = fused_lstm_scan_backward_reference(*args)
+        torch.cuda.synchronize()
+        errs = _rel_errs(got, want)
+        abs_err = max(_max_err(g, w_) for g, w_ in zip(got, want))
+        print(f"[lstm-bwd] max |kernel - plain| / max |plain| {errs} "
+              f"(tolerance {BWD_REL_TOL}); max abs {abs_err}")
+        assert all(np.isfinite(v) and v <= BWD_REL_TOL for v in errs.values()), errs
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), "backward not deterministic"
+        print("[lstm-bwd] two backward calls: dx_proj, dW_hh, dh0, dc0 bit-identical")
+
+        ragged = case(7, 3, 5, 32)
+        r_errs = _rel_errs(fused_lstm_scan_backward(*ragged),
+                           fused_lstm_scan_backward_reference(*ragged))
+        print(f"[lstm-bwd] ragged T=7 L=3 Bb=5 H=32: {r_errs}")
+        assert all(v <= BWD_REL_TOL for v in r_errs.values()), r_errs
+
+        kernel_ms = _cuda_ms(lambda: fused_lstm_scan_backward(*args), iters=20, warmup=2)
+        plain_ms = _cuda_ms(lambda: fused_lstm_scan_backward_reference(*args), iters=3, warmup=1)
+        fwd_ms = _cuda_ms(lambda: fused_lstm._forward(xp, w, h0, c0, need_cs=False),
+                          iters=20, warmup=2)
+        fwd_stash_ms = _cuda_ms(lambda: fused_lstm._forward(xp, w, h0, c0, need_cs=True),
+                                iters=20, warmup=2)
+    print(f"[lstm-bwd] forward at Bb={Bb}: {fwd_ms:.4f} ms without the stash, "
+          f"{fwd_stash_ms:.4f} ms with it")
+
+    # yardstick: cuDNN's LSTM backward, timed as (forward + backward) - forward
+    lstms = _cuda_lstms(w, dev)
+    leaves = [(xp[:, l].clone().requires_grad_(), h0[l : l + 1].clone().requires_grad_(),
+               c0[l : l + 1].clone().requires_grad_()) for l in range(L)]
+
+    def lib_forward():
+        return [lstms[l](x, (h, c)) for l, (x, h, c) in enumerate(leaves)]
+
+    def lib_forward_backward():
+        return [torch.autograd.grad(
+            (out, hN, cN), (*leaves[l], lstms[l].weight_hh_l0),
+            (dys[:, l], dhT[l : l + 1], dcT[l : l + 1]),
+        ) for l, (out, (hN, cN)) in enumerate(lib_forward())]
+
+    lib_dx = lib_forward_backward()[0][0]
+    print(f"[lstm-bwd] max |cuDNN dx - kernel dx_proj| (stack 0) {_max_err(lib_dx, got[0][:, 0])}")
+    lib_fwd_ms = _cuda_ms(lib_forward, iters=20, warmup=2)
+    lib_ms = _cuda_ms(lib_forward_backward, iters=20, warmup=2) - lib_fwd_ms
+
+    G = 4 * H
+    # read x_proj, w, ys, cs, dys, h0, c0, dhT, dcT; write dx_proj, dW, dh0, dc0
+    n_bytes = 4 * (2 * xp.numel() + 2 * w.numel() + 3 * ys.numel() + 6 * h0.numel())
+    flops = 3 * 2 * T * L * Bb * H * G  # the gate recompute, dh and dW products
+    bytes_ms, flops_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
+    bound_ms = max(bytes_ms, flops_ms)
+    bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
+    print(f"[lstm-bwd] kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+          f"{lib_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}: {n_bytes} B, {flops} FLOP)")
+    entry = {
+        "name": "fused_lstm_scan_bwd",
+        "route": "cuda",
+        "source": "se_tpu_torch/csrc/lstm_scan.cu",
+        "replaces": "se_tpu/ops/pallas_lstm.py:217::_fused_bwd",
+        "max_abs_err": abs_err,
+        "max_rel_err": max(errs.values()),
+        "ms": kernel_ms,
+        "kernel_ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": lib_ms,
+    }
+    return entry, {"fwd_ms_train_shape": fwd_ms, "fwd_stash_ms_train_shape": fwd_stash_ms}
+
+
+def _grads_and_stats(model) -> tuple:
+    grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    stats = {k: v.detach().cpu() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return grads, stats
+
+
+def _leaf_rel_errs(grads, ref, skip, floor=0.0) -> dict:
+    """Max |grads - ref| of each leaf over max(its max |ref|, ``floor``),
+    leaves in ``skip`` left out."""
+    return {k: _max_err(grads[k], g) / max(g.abs().max().item(), floor)
+            for k, g in ref.items() if k not in skip}
+
+
+def _cancelled_by_batch_norm(state_dict) -> set:
+    """Conv biases that feed a train-mode BatchNorm: its batch mean removes
+    them, so their exact gradient is 0 and both devices give roundoff."""
+    return {k for k in state_dict if k.endswith("_conv.bias")
+            and k.rsplit(".", 3)[0] + ".1.running_mean" in state_dict}
+
+
+def phase_train() -> tuple:
+    """The train slice at full width; returns the forward and backward
+    kernels' launches in one train step and in the main path's 10 steps."""
+    import dataclasses
+
+    from se_tpu_torch.config import Config
+    from se_tpu_torch.ops.fused_lstm import fused_lstm_scan, fused_lstm_scan_backward
+    from se_tpu_torch.train.state import create_train_state
+    from se_tpu_torch.train.steps import train_step
+    from se_tpu_torch.utils.weights import dccrn_state_dict_from_jax, random_dccrn_params
+
+    cfg = Config()
+    fs, B, seconds = cfg.stft.fs, cfg.train.batch, 3
+    sd = dccrn_state_dict_from_jax(*random_dccrn_params(cfg, seed=SEED), cfg)
+    noisy, clean = _utterances(B, seconds, fs)
+
+    def counts():
+        return fused_lstm_scan.launches, fused_lstm_scan_backward.launches
+
+    # counts read around one train step
+    model, opt = create_train_state(cfg, sd, device="cuda")
+    fused_lstm_scan.launches = fused_lstm_scan_backward.launches = 0
+    metrics = train_step(cfg, model, opt, noisy[:2], clean[:2])
+    torch.cuda.synchronize()
+    launches = counts()
+    print(f"[train] train_step B=2: fused_lstm_scan launches {launches[0]}, "
+          f"fused_lstm_scan_backward launches {launches[1]}")
+    assert launches == (cfg.dccrn.rnn_layers,) * 2, launches
+    grads, stats = _grads_and_stats(model)
+
+    cpu_model, cpu_opt = create_train_state(cfg, sd, device="cpu")
+    cpu_metrics = train_step(cfg, cpu_model, cpu_opt, noisy[:2], clean[:2])
+    cpu_grads, cpu_stats = _grads_and_stats(cpu_model)
+    loss, cpu_loss = metrics["loss"].item(), cpu_metrics["loss"].item()
+    loss_err = abs(loss - cpu_loss) / max(1.0, abs(cpu_loss))
+    print(f"[train] SDR loss card {loss} cpu {cpu_loss}: relative {loss_err} "
+          f"(tolerance {TRAIN_LOSS_TOL})")
+    assert np.isfinite(loss) and loss_err <= TRAIN_LOSS_TOL, (loss, cpu_loss)
+    cancelled = _cancelled_by_batch_norm(sd)
+    scale = max(g.abs().max().item() for g in cpu_grads.values())
+    for k in cancelled:
+        assert max(grads[k].abs().max().item(), cpu_grads[k].abs().max().item()) <= 1e-5 * scale, k
+    raw = _leaf_rel_errs(grads, cpu_grads, cancelled)
+    rel = _leaf_rel_errs(grads, cpu_grads, cancelled, GRAD_FLOOR * scale)
+    # the card against itself: a second step from the same weights
+    model2, opt2 = create_train_state(cfg, sd, device="cuda")
+    train_step(cfg, model2, opt2, noisy[:2], clean[:2])
+    rerun = _leaf_rel_errs(_grads_and_stats(model2)[0], grads, cancelled)
+    for what, errs in (("card vs cpu, over the leaf's max", raw),
+                       ("card vs card rerun, over the leaf's max", rerun),
+                       (f"card vs cpu, over max(leaf's max, {GRAD_FLOOR} x {scale:.4g})", rel)):
+        top = sorted(errs.items(), key=lambda kv: -kv[1])[:4]
+        print(f"[train] gradients, {what}: worst "
+              + ", ".join(f"{k} {v:.3g} (max {cpu_grads[k].abs().max().item():.3g})"
+                          for k, v in top))
+    print(f"[train] {len(cancelled)} BatchNorm-cancelled conv biases at roundoff "
+          f"(<= 1e-5 of the largest gradient); tolerance {TRAIN_GRAD_TOL}")
+    worst_key = max(rel, key=rel.get)
+    assert rel[worst_key] <= TRAIN_GRAD_TOL, (worst_key, rel[worst_key])
+    stats_err = max(_max_err(stats[k], cpu_stats[k]) for k in stats)
+    print(f"[train] running statistics, card vs cpu: max |diff| {stats_err} "
+          f"(tolerance {TRAIN_STATS_TOL})")
+    assert stats_err <= TRAIN_STATS_TOL, stats_err
+
+    accum = cfg.replace(train=dataclasses.replace(cfg.train, grad_accum=2))
+    fused_lstm_scan.launches = fused_lstm_scan_backward.launches = 0
+    train_step(accum, model, opt, noisy[:2], clean[:2])
+    torch.cuda.synchronize()
+    print(f"[train] train_step B=2 grad_accum=2: launches {counts()}")
+    assert counts() == (2 * cfg.dccrn.rnn_layers,) * 2, counts()
+
+    # the main path: 10 steps at the default batch on one fixed batch, the
+    # counts read around them; the loss must fall
+    steps = 10
+    model, opt = create_train_state(cfg, sd, device="cuda")
+    train_step(cfg, model, opt, noisy, clean)  # warm-up: cuDNN's algorithm choice
+    model, opt = create_train_state(cfg, sd, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    losses = []
+    fused_lstm_scan.launches = fused_lstm_scan_backward.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(train_step(cfg, model, opt, noisy, clean)["loss"])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    main_launches = counts()
+    losses = [x.item() for x in losses]
+    print(f"[train] {steps} steps at B={B} x {seconds} s: launches {main_launches}, "
+          f"losses {losses}")
+    assert main_launches == (steps * cfg.dccrn.rnn_layers,) * 2, main_launches
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    print(f"[train] {1e3 * step_s:.3f} ms per step, {B / step_s:.2f} utterances/s, "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    _profile(lambda: train_step(cfg, model, opt, noisy, clean), steps=3, top=16)
+    return launches, main_launches
 
 
 def _utterances(n: int, seconds: int, fs: int) -> tuple:
@@ -315,14 +582,18 @@ def phase_slice(workdir: Path) -> int:
 def main() -> int:
     smi = phase_environment()
     phase_build()
-    kernel = phase_lstm_kernel()
+    fwd = phase_lstm_kernel()
+    bwd, stash_times = phase_lstm_backward()
     build_dir = REPO / "build"
     build_dir.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         launches = phase_slice(Path(tmp))
-    kernel.update(launches=launches, launches_per_forward=launches)
+    (step_fwd, step_bwd), (_, train_bwd) = phase_train()
+    fwd.update(launches=launches, launches_per_forward=launches,
+               launches_per_train_step=step_fwd, **stash_times)
+    bwd.update(launches=train_bwd, launches_per_train_step=step_bwd)
     print(smi)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [fwd, bwd]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

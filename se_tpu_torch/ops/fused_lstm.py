@@ -1,9 +1,13 @@
-"""Fused LSTM-stack scan: the hand-written CUDA kernel
-``csrc/lstm_scan.cu`` and its plain PyTorch version.
+"""Fused LSTM-stack scan: the hand-written CUDA kernels
+``csrc/lstm_scan.cu`` (forward and backward) and their plain PyTorch
+versions.
 
-Counterpart of ``fused_lstm_scan`` in ``se_tpu/ops/pallas_lstm.py``
-(forward only; the backward kernel comes with the training path).  The
-kernel's design and what bounds it are described at the top of its source.
+Counterpart of ``fused_lstm_scan`` in ``se_tpu/ops/pallas_lstm.py``.  As
+there, the plain call (inference) writes no cell-state stash; when an input
+needs a gradient, the call goes through a ``torch.autograd.Function`` whose
+forward also writes the stash ``cs`` and whose backward recomputes the
+gates from ``(x_proj, h_prev)``.  The kernels' design and what bounds them
+are described at the top of their source.
 """
 
 from __future__ import annotations
@@ -15,17 +19,12 @@ import torch
 from . import build
 
 
-def fused_lstm_scan_reference(x_proj, w_hh_t, h0, c0):
-    """The plain recurrence: ``x_proj [T, L, Bb, 4H]`` (biases folded in),
-    ``w_hh_t [L, H, 4H]``, ``h0``/``c0 [L, Bb, H]`` ->
-    ``(ys [T, L, Bb, H] in x_proj's dtype, (hT, cT) f32)``.
-
-    Gate order i, f, g, o; the carry and the gate math are f32.
-    """
+def _reference_forward(x_proj, w_hh_t, h0, c0, need_cs):
+    """The plain recurrence -> ``(ys, cs or None, hT, cT)``."""
     H = h0.shape[-1]
     h, c = h0.float(), c0.float()
     w = w_hh_t.float()
-    ys = []
+    ys, cs = [], []
     for t in range(x_proj.shape[0]):
         gates = x_proj[t].float() + torch.bmm(h, w)
         i = torch.sigmoid(gates[..., 0 * H : 1 * H])
@@ -35,7 +34,53 @@ def fused_lstm_scan_reference(x_proj, w_hh_t, h0, c0):
         c = f * c + i * g
         h = o * torch.tanh(c)
         ys.append(h.to(x_proj.dtype))
-    return torch.stack(ys), (h, c)
+        if need_cs:
+            cs.append(c)
+    return torch.stack(ys), torch.stack(cs) if need_cs else None, h, c
+
+
+def fused_lstm_scan_reference(x_proj, w_hh_t, h0, c0):
+    """The plain recurrence: ``x_proj [T, L, Bb, 4H]`` (biases folded in),
+    ``w_hh_t [L, H, 4H]``, ``h0``/``c0 [L, Bb, H]`` ->
+    ``(ys [T, L, Bb, H] in x_proj's dtype, (hT, cT) f32)``.
+
+    Gate order i, f, g, o; the carry and the gate math are f32.
+    """
+    ys, _, hT, cT = _reference_forward(x_proj, w_hh_t, h0, c0, need_cs=False)
+    return ys, (hT, cT)
+
+
+def fused_lstm_scan_backward_reference(x_proj, w_hh_t, h0, c0, ys, cs, dys, dhT, dcT):
+    """The plain backward, step by step as the Pallas ``_bwd_kernel``:
+    the forward's inputs, its ``ys`` and stash ``cs [T, L, Bb, H]``, and
+    the cotangents of ``(ys, hT, cT)`` -> ``(dx_proj, dw_hh_t, dh0, dc0)``."""
+    T = x_proj.shape[0]
+    H = h0.shape[-1]
+    w = w_hh_t.float()
+    dh, dc = dhT.float(), dcT.float()
+    dw = torch.zeros_like(w)
+    dxp = []
+    for t in range(T - 1, -1, -1):
+        h_prev = h0 if t == 0 else ys[t - 1].float()
+        c_prev = c0 if t == 0 else cs[t - 1]
+        gates = x_proj[t].float() + torch.bmm(h_prev, w)
+        i = torch.sigmoid(gates[..., 0 * H : 1 * H])
+        f = torch.sigmoid(gates[..., 1 * H : 2 * H])
+        g = torch.tanh(gates[..., 2 * H : 3 * H])
+        o = torch.sigmoid(gates[..., 3 * H : 4 * H])
+        tanh_c = torch.tanh(cs[t])
+        dh = dys[t].float() + dh
+        do = dh * tanh_c * o * (1.0 - o)
+        dc = dc + dh * o * (1.0 - tanh_c * tanh_c)
+        di = dc * g * i * (1.0 - i)
+        df = dc * c_prev * f * (1.0 - f)
+        dg = dc * i * (1.0 - g * g)
+        dgates = torch.cat([di, df, dg, do], dim=-1)  # [L, Bb, 4H]
+        dxp.append(dgates.to(x_proj.dtype))
+        dw = dw + torch.bmm(h_prev.transpose(1, 2), dgates)
+        dh = torch.bmm(dgates, w.transpose(1, 2))
+        dc = dc * f
+    return torch.stack(dxp[::-1]), dw, dh, dc
 
 
 def _check(x_proj, w_hh_t, h0, c0):
@@ -61,54 +106,133 @@ def _library():
     lib = build.load("lstm_scan")
     if lib.se_lstm_scan_fwd_f32.argtypes is None:
         lib.se_lstm_scan_fwd_f32.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         )
         lib.se_lstm_scan_fwd_f32.restype = ctypes.c_int
+        lib.se_lstm_scan_bwd_f32.argtypes = (
+            [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        )
+        lib.se_lstm_scan_bwd_f32.restype = ctypes.c_int
         lib.se_cuda_error_string.argtypes = [ctypes.c_int]
         lib.se_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _cuda_launch(fn_name, tensors, names, outs, dims, dev):
+    """Check the inputs' device, type and contiguity, launch
+    ``lib.<fn_name>`` on the current stream, and raise on a CUDA error."""
+    if dev.type != "cuda":
+        raise ValueError(f"fused_lstm_scan runs on cuda or cpu, not {dev}")
+    for name, t in zip(names, tensors):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    lib = _library()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    ptrs = [t.data_ptr() for t in tensors] + [
+        None if o is None else o.data_ptr() for o in outs
+    ]
+    rc = getattr(lib, fn_name)(
+        *ptrs, *dims, index, torch.cuda.current_stream(dev).cuda_stream
+    )
+    if rc:
+        msg = lib.se_cuda_error_string(rc).decode()
+        raise RuntimeError(f"lstm_scan kernel launch failed: CUDA error {rc} ({msg})")
+
+
+def _forward(x_proj, w_hh_t, h0, c0, need_cs):
+    """``(ys, cs or None, hT, cT)``: the plain version for CPU tensors, the
+    forward kernel for CUDA tensors (counted on ``fused_lstm_scan``)."""
+    dev = x_proj.device
+    if dev.type == "cpu":
+        return _reference_forward(x_proj, w_hh_t, h0, c0, need_cs)
+    T, L, Bb, G = x_proj.shape
+    H = G // 4
+    new = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
+    ys, hT, cT = new(T, L, Bb, H), new(L, Bb, H), new(L, Bb, H)
+    cs = new(T, L, Bb, H) if need_cs else None
+    _cuda_launch(
+        "se_lstm_scan_fwd_f32", (x_proj, w_hh_t, h0, c0),
+        ("x_proj", "w_hh_t", "h0", "c0"), (ys, cs, hT, cT), (T, L, Bb, H), dev,
+    )
+    fused_lstm_scan.launches += 1
+    return ys, cs, hT, cT
+
+
+def fused_lstm_scan_backward(x_proj, w_hh_t, h0, c0, ys, cs, dys, dhT, dcT):
+    """Same signature and result as
+    :func:`fused_lstm_scan_backward_reference`.
+
+    CPU tensors run the plain version.  CUDA tensors launch the backward
+    kernels (the reverse scan, then the dW_hh reduction) on the current
+    stream, or raise: float32 and contiguous only.  Each launch adds one to
+    ``fused_lstm_scan_backward.launches``.
+    """
+    _check(x_proj, w_hh_t, h0, c0)
+    T, L, Bb, G = x_proj.shape
+    H = G // 4
+    for name, t, shape in (("ys", ys, (T, L, Bb, H)), ("cs", cs, (T, L, Bb, H)),
+                           ("dys", dys, (T, L, Bb, H)), ("dhT", dhT, (L, Bb, H)),
+                           ("dcT", dcT, (L, Bb, H))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    dev = x_proj.device
+    if dev.type == "cpu":
+        return fused_lstm_scan_backward_reference(
+            x_proj, w_hh_t, h0, c0, ys, cs, dys, dhT, dcT
+        )
+    new = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
+    dxp, dw, dh0, dc0 = new(T, L, Bb, G), new(L, H, G), new(L, Bb, H), new(L, Bb, H)
+    _cuda_launch(
+        "se_lstm_scan_bwd_f32", (x_proj, w_hh_t, h0, c0, ys, cs, dys, dhT, dcT),
+        ("x_proj", "w_hh_t", "h0", "c0", "ys", "cs", "dys", "dhT", "dcT"),
+        (dxp, dw, dh0, dc0), (T, L, Bb, H), dev,
+    )
+    fused_lstm_scan_backward.launches += 1
+    return dxp, dw, dh0, dc0
+
+
+class _FusedLstmScan(torch.autograd.Function):
+    """The custom VJP of ``pallas_lstm.fused_lstm_scan``: the forward keeps
+    ``(x_proj, w_hh_t, h0, c0, ys, cs)``; the backward maps ``(dys, dhT,
+    dcT)``, zeros where an output was unused, to the four input gradients."""
+
+    @staticmethod
+    def forward(ctx, x_proj, w_hh_t, h0, c0):
+        ys, cs, hT, cT = _forward(x_proj, w_hh_t, h0, c0, need_cs=True)
+        ctx.save_for_backward(x_proj, w_hh_t, h0, c0, ys, cs)
+        return ys, hT, cT
+
+    @staticmethod
+    def backward(ctx, dys, dhT, dcT):
+        saved = ctx.saved_tensors
+        return fused_lstm_scan_backward(
+            *saved, dys.contiguous(), dhT.contiguous(), dcT.contiguous()
+        )
 
 
 def fused_lstm_scan(x_proj, w_hh_t, h0, c0):
     """Same signature and result as :func:`fused_lstm_scan_reference`.
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel on
-    the current stream, or raise: float32 only, contiguous, and no
-    gradient (the backward kernel is not ported yet).  Each launch adds
-    one to ``fused_lstm_scan.launches``.
+    the current stream, or raise: float32 and contiguous only.  Each launch
+    adds one to ``fused_lstm_scan.launches``.  When gradients are on and an
+    input requires one, the call also writes the cell-state stash and its
+    backward is :func:`fused_lstm_scan_backward`; otherwise no stash is
+    allocated.
     """
     _check(x_proj, w_hh_t, h0, c0)
-    dev = x_proj.device
-    if dev.type == "cpu":
-        return fused_lstm_scan_reference(x_proj, w_hh_t, h0, c0)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_lstm_scan runs on cuda or cpu, not {dev}")
-    tensors = (x_proj, w_hh_t, h0, c0)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "fused_lstm_scan has no backward kernel yet; call it under "
-            "torch.no_grad() or torch.inference_mode()"
-        )
-    for name, t in zip(("x_proj", "w_hh_t", "h0", "c0"), tensors):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    T, L, Bb, G = x_proj.shape
-    H = G // 4
-    ys = torch.empty((T, L, Bb, H), device=dev, dtype=torch.float32)
-    hT = torch.empty((L, Bb, H), device=dev, dtype=torch.float32)
-    cT = torch.empty((L, Bb, H), device=dev, dtype=torch.float32)
-    lib = _library()
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    rc = lib.se_lstm_scan_fwd_f32(
-        x_proj.data_ptr(), w_hh_t.data_ptr(), h0.data_ptr(), c0.data_ptr(),
-        ys.data_ptr(), hT.data_ptr(), cT.data_ptr(),
-        T, L, Bb, H, index, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc:
-        msg = lib.se_cuda_error_string(rc).decode()
-        raise RuntimeError(f"lstm_scan kernel launch failed: CUDA error {rc} ({msg})")
-    fused_lstm_scan.launches += 1
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x_proj, w_hh_t, h0, c0)
+    ):
+        ys, hT, cT = _FusedLstmScan.apply(x_proj, w_hh_t, h0, c0)
+        return ys, (hT, cT)
+    ys, _, hT, cT = _forward(x_proj, w_hh_t, h0, c0, need_cs=False)
     return ys, (hT, cT)
 
 
 fused_lstm_scan.launches = 0
+fused_lstm_scan_backward.launches = 0

@@ -5,6 +5,10 @@ The input projection of all time steps is one product outside the
 recurrence; the recurrence itself goes to the fused scan of
 ``fused_lstm.py``, which launches the CUDA kernel for CUDA tensors and runs
 the plain loop (the JAX package's ``_lstm_scan``) for CPU tensors.
+Gradients reach ``w_hh`` and the initial state through the scan's backward
+(the K1b kernel on the card) and ``w_ih``, the biases and the input through
+torch's autograd of the product and the bias add, which the JAX package
+also leaves outside its kernel.
 """
 
 from __future__ import annotations

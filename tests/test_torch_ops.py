@@ -276,9 +276,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("this check needs a machine without a CUDA device")
     from se_tpu_torch.enhance import enhance_batch, main
+    from se_tpu_torch.train.state import create_train_state
 
     with pytest.raises(RuntimeError, match="cuda"):
         build_model(Config())
+    with pytest.raises(RuntimeError, match="cuda"):
+        create_train_state(Config())
     model = build_model(Config(), device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         enhance_batch(model, np.zeros((1, 800), np.float32))
