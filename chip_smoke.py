@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -9,23 +9,28 @@ in order; any failure ends the run with a nonzero exit and no result line:
 1. environment: card name and power limit, torch, CUDA and nvcc versions;
 2. build: every kernel under ``se_tpu_torch/csrc`` into ``build/kernels``,
    one nvcc per source, all started together;
-3. each kernel against its plain PyTorch version on the card at the main
-   path's shapes (and a ragged one), with CUDA-event times of the kernel,
+3. each kernel against its plain PyTorch version on the card at its paths'
+   shapes (and ragged or wide ones), with CUDA-event times of the kernel,
    the plain version and a library call computing the same function, and
-   the kernel's bound: the LSTM scan's forward (enhance shapes) and its
-   backward (train shapes), with the forward's cell-state stash;
-4. the enhance slice at full width: the default-config DCCRN with seeded
-   random weights carried over from the JAX tree layout enhances 8
-   three-second utterances with ``enhance_batch`` (the forward kernel's
-   launch count is read around that run), runs the validation forward,
-   matches the same weights on the CPU, and runs the enhance CLI as a
-   subprocess;
-5. the train slice at full width: one ``train_step`` on the card and one on
+   the kernel's bound: the LSTM scan's forward (K1f, enhance shapes) and
+   backward (K1b, train shapes) with the forward's cell-state stash, then
+   the in-projection LSTM scan's forward (K2f) and backward (K2b) at CRN's
+   enhance and train shapes, DCCRN's real-LSTM shapes, a ragged and a wide
+   (4H = 2048, In = 257) case;
+4. the enhance paths at full width, each with seeded random weights carried
+   over from the JAX tree layout: ``enhance_batch`` on 8 three-second
+   utterances (every kernel's launch count set to 0 just before and read
+   just after), the validation forward, the same weights on the CPU, and
+   the enhance CLI as a subprocess; for the default DCCRN, then for CRN
+   (the tutorial configuration), then DCCRN with ``lstm="real"``;
+5. the train paths at full width: one ``train_step`` on the card and one on
    the CPU from the same weights (loss, every gradient, the BatchNorm
-   running statistics), the forward and backward kernels' launch counts
-   read around a step with and without gradient accumulation, then 10
-   steps at the default batch of 10 on one fixed batch (the loss must
-   fall), with step time, throughput, peak memory and a profile;
+   running statistics), the kernels' launch counts read around a step with
+   and without gradient accumulation, then 10 steps at the default batch
+   of 10 on one fixed batch (the loss must fall), with step time,
+   throughput, peak memory and a profile; for the default DCCRN and CRN,
+   plus one CRN direct-mapping step and one DCCRN real-LSTM step against
+   the CPU;
 6. report: one JSON line of kernel numbers, then the result line.
 
 TF32 is off throughout (``resolve_device`` sets it): the reference is f32.
@@ -353,6 +358,199 @@ def phase_lstm_backward() -> tuple:
     return entry, {"fwd_ms_train_shape": fwd_ms, "fwd_stash_ms_train_shape": fwd_stash_ms}
 
 
+def _inproj_inputs(rng, dev, T, L, Bb, In, H):
+    """x, w_ih_t, bias, w_hh_t (torch's init range), nonzero h0 and c0."""
+    k = 1 / np.sqrt(H)
+    host = [
+        rng.standard_normal((T, L, Bb, In)),
+        rng.uniform(-k, k, (L, In, 4 * H)),
+        rng.uniform(-2 * k, 2 * k, (L, 4 * H)),
+        rng.uniform(-k, k, (L, H, 4 * H)),
+        rng.standard_normal((L, Bb, H)) * 0.5,
+        rng.standard_normal((L, Bb, H)) * 0.5,
+    ]
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in host]
+
+
+def _cudnn_lstm(w_ih_t, bias, w_hh_t, dev):
+    """Yardstick only, never called by the port: a cuDNN ``nn.LSTM(In, H)``
+    holding stack 0's weights, which computes the in-projection scan's
+    function."""
+    In, H = w_ih_t.shape[1], w_hh_t.shape[1]
+    m = torch.nn.LSTM(In, H).to(dev)
+    with torch.no_grad():
+        m.weight_ih_l0.copy_(w_ih_t[0].T)
+        m.weight_hh_l0.copy_(w_hh_t[0].T)
+        m.bias_ih_l0.copy_(bias[0])
+        m.bias_hh_l0.zero_()
+    return m
+
+
+_K2B_NAMES = ("dx", "dw_ih_t", "dbias", "dw_hh_t", "dh0", "dc0")
+
+
+def phase_inproj_kernels() -> tuple:
+    """fused_lstm_scan_inproj (K2f) and its backward (K2b): CRN's bottleneck
+    at the enhance shape (T=483, L=1, Bb=8, In=512, H=128) and the train
+    shape (Bb=10); DCCRN's real LSTM layers (In=1024 and 256, H=256) at
+    Bb=8 and 2; a ragged case (T=7, L=3, Bb=5, In=24, H=32); a wide case
+    with 4H above the block's threads and an odd In (FullSubNet's full band:
+    T=193, Bb=2, In=257, H=512).  Returns the K2f and K2b entries."""
+    from se_tpu_torch.device import resolve_device
+    from se_tpu_torch.ops import fused_lstm_inproj as k2
+
+    dev = resolve_device("cuda")
+    rng = np.random.default_rng(SEED + 2)
+
+    def check(label, T, L, Bb, In, H):
+        """The wrapper's forward against the plain version; the stash
+        forward's results bit-identical to the wrapper's and its cs against
+        the plain cs; the backward against its plain version, two calls
+        bit-identical.  Returns the inputs, the kernel's (ys, cs), seeded
+        cotangents and the errors."""
+        args = _inproj_inputs(rng, dev, T, L, Bb, In, H)
+        cots = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+                for s in ((T, L, Bb, H), (L, Bb, H), (L, Bb, H))]
+        with torch.no_grad():
+            ys_n, (hT_n, cT_n) = k2.fused_lstm_scan_inproj(*args)
+            ys, cs, hT, cT = k2._forward(*args, need_cs=True)
+            assert torch.equal(ys_n, ys) and torch.equal(hT_n, hT) and torch.equal(cT_n, cT), \
+                f"{label}: the stash changed the forward's results"
+            ys_p, (hT_p, cT_p) = k2.fused_lstm_scan_inproj_reference(*args)
+            _, cs_p, _, _ = k2._reference_forward(*args, need_cs=True)
+            got = k2.fused_lstm_scan_inproj_backward(*args, ys, cs, *cots)
+            again = k2.fused_lstm_scan_inproj_backward(*args, ys, cs, *cots)
+            want_b = k2.fused_lstm_scan_inproj_backward_reference(*args, ys, cs, *cots)
+            torch.cuda.synchronize()
+        fwd_errs = {n: _max_err(g, w) for n, g, w in zip(
+            ("ys", "cs", "hT", "cT"), (ys_n, cs, hT_n, cT_n), (ys_p, cs_p, hT_p, cT_p))}
+        rel = {n: _max_err(g, w) / max(w.abs().max().item(), 1e-30)
+               for n, g, w in zip(_K2B_NAMES, got, want_b)}
+        bwd_abs = max(_max_err(g, w) for g, w in zip(got, want_b))
+        print(f"[k2] {label} T={T} L={L} Bb={Bb} In={In} H={H} ({-(-Bb // 4) * L} blocks): "
+              f"forward max |kernel - plain| {fwd_errs}; backward max |kernel - plain| / "
+              f"max |plain| {rel}, max abs {bwd_abs}")
+        assert all(np.isfinite(v) and v <= KERNEL_TOL for v in fwd_errs.values()), (label, fwd_errs)
+        assert all(np.isfinite(v) and v <= BWD_REL_TOL for v in rel.values()), (label, rel)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{label}: backward not repeatable"
+        return args, ys, cs, cots, max(fwd_errs.values()), max(rel.values()), bwd_abs
+
+    for case in (("ragged", 7, 3, 5, 24, 32), ("wide", 193, 1, 2, 257, 512)):
+        check(*case)
+    print("[k2] every case: ys, hT, cT bit-identical with and without the stash; "
+          "two backward calls bit-identical")
+
+    # enhance shape: the forward's numbers
+    T, L, Bb, In, H = 483, 1, 8, 512, 128
+    G = 4 * H
+    args, ys, _, _, fwd_err, _, _ = check("CRN enhance", T, L, Bb, In, H)
+    lib = _cudnn_lstm(args[1], args[2], args[3], dev)
+    x, h0, c0 = args[0], args[4], args[5]
+    with torch.inference_mode():
+        lib_err = _max_err(lib(x[:, 0], (h0, c0))[0], ys[:, 0])
+        print(f"[k2] max |cuDNN LSTM - kernel| ys {lib_err}")
+        kernel_ms = _cuda_ms(lambda: k2.fused_lstm_scan_inproj(*args), iters=20, warmup=2)
+        plain_ms = _cuda_ms(lambda: k2.fused_lstm_scan_inproj_reference(*args), iters=3, warmup=1)
+        library_ms = _cuda_ms(lambda: lib(x[:, 0], (h0, c0)), iters=20, warmup=2)
+        stash_ms = _cuda_ms(lambda: k2._forward(*args, need_cs=True), iters=20, warmup=2)
+    n_bytes = 4 * (sum(a.numel() for a in args) + ys.numel() + 2 * h0.numel())
+    flops = 2 * T * L * Bb * (In + H) * G + T * L * Bb * G  # the two products, + bias
+    bytes_ms, flops_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
+    bound_ms = max(bytes_ms, flops_ms)
+    bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
+    print(f"[k2] forward kernel_ms {kernel_ms:.4f} (with the stash {stash_ms:.4f}) plain_ms "
+          f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {bound_ms:.4f} "
+          f"({bound_by}: {n_bytes} B, {flops} FLOP)")
+    fwd = {
+        "name": "fused_lstm_scan_inproj_fwd",
+        "route": "cuda",
+        "source": "se_tpu_torch/csrc/lstm_inproj.cu",
+        "replaces": "se_tpu/ops/pallas_lstm.py:432::_inproj_call",
+        "max_abs_err": fwd_err,
+        "ms": kernel_ms,
+        "kernel_ms": kernel_ms,
+        "stash_ms": stash_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
+
+    # train shape: the backward's numbers
+    Bb = 10
+    args, ys, cs, cots, _, rel_err, abs_err = check("CRN train", T, L, Bb, In, H)
+    dys, dhT, dcT = cots
+    with torch.no_grad():
+        kernel_ms = _cuda_ms(lambda: k2.fused_lstm_scan_inproj_backward(*args, ys, cs, *cots),
+                             iters=10, warmup=2)
+        plain_ms = _cuda_ms(lambda: k2.fused_lstm_scan_inproj_backward_reference(
+            *args, ys, cs, *cots), iters=2, warmup=1)
+    lib = _cudnn_lstm(args[1], args[2], args[3], dev)
+    leaves = (args[0][:, 0].clone().requires_grad_(), args[4].clone().requires_grad_(),
+              args[5].clone().requires_grad_())
+
+    def lib_forward():
+        return lib(leaves[0], (leaves[1], leaves[2]))
+
+    def lib_forward_backward():
+        out, (hN, cN) = lib_forward()
+        return torch.autograd.grad(
+            (out, hN, cN),
+            (*leaves, lib.weight_ih_l0, lib.weight_hh_l0, lib.bias_ih_l0),
+            (dys[:, 0], dhT, dcT),
+        )
+
+    got = k2.fused_lstm_scan_inproj_backward(*args, ys, cs, *cots)
+    print(f"[k2] max |cuDNN dx - kernel dx| {_max_err(lib_forward_backward()[0], got[0][:, 0])}")
+    lib_fwd_ms = _cuda_ms(lib_forward, iters=10, warmup=2)
+    library_ms = _cuda_ms(lib_forward_backward, iters=10, warmup=2) - lib_fwd_ms
+    # read x, the weights, h0, c0, ys, cs, dys, dhT, dcT; write dx, dW_ih,
+    # dbias, dW_hh, dh0, dc0
+    n_bytes = 4 * (2 * sum(a.numel() for a in args) + 3 * ys.numel() + 2 * dhT.numel())
+    flops = 3 * 2 * T * L * Bb * (In + H) * G  # the recompute, dx/dh and dW products
+    bytes_ms, flops_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
+    bound_ms = max(bytes_ms, flops_ms)
+    bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
+    print(f"[k2] backward kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+          f"{library_ms:.4f} (cuDNN forward {lib_fwd_ms:.4f}) bound_ms {bound_ms:.4f} "
+          f"({bound_by}: {n_bytes} B, {flops} FLOP); dgates scratch {4 * T * L * Bb * G} B")
+    bwd = {
+        "name": "fused_lstm_scan_inproj_bwd",
+        "route": "cuda",
+        "source": "se_tpu_torch/csrc/lstm_inproj.cu",
+        "replaces": "se_tpu/ops/pallas_lstm.py:503::_inproj_bwd",
+        "max_abs_err": abs_err,
+        "max_rel_err": rel_err,
+        "ms": kernel_ms,
+        "kernel_ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+        "scratch_bytes": 4 * T * L * Bb * G,
+    }
+
+    # DCCRN's real LSTM at its own shapes, layer 0 (In=1024, chunks of 4
+    # steps) then layer 1 (In=256, chunks of 8), H=256: checked at the
+    # enhance batch (8) and the card-vs-CPU train batch (2); the forward
+    # timed at B=8 on the checked inputs
+    dccrn = {}
+    for layer, In_l in ((0, 1024), (1, 256)):
+        check(f"DCCRN real l{layer} train", T, 1, 2, In_l, 256)
+        a, _, _, _, f_err, b_rel, _ = check(f"DCCRN real l{layer}", T, 1, 8, In_l, 256)
+        dccrn[f"dccrn_real_l{layer}_max_abs_err"] = f_err
+        dccrn[f"dccrn_real_l{layer}_bwd_max_rel_err"] = b_rel
+        with torch.inference_mode():
+            dccrn[f"dccrn_real_l{layer}_ms"] = _cuda_ms(
+                lambda: k2.fused_lstm_scan_inproj(*a), iters=5, warmup=1)
+            m = _cudnn_lstm(a[1], a[2], a[3], dev)
+            dccrn[f"dccrn_real_l{layer}_library_ms"] = _cuda_ms(
+                lambda: m(a[0][:, 0], (a[4], a[5])), iters=10, warmup=2)
+    print(f"[k2] DCCRN real LSTM at B=8 (H=256): {dccrn}")
+    fwd.update(dccrn)
+    return fwd, bwd
+
+
 def _grads_and_stats(model) -> tuple:
     grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
     stats = {k: v.detach().cpu() for k, v in model.state_dict().items()
@@ -370,38 +568,80 @@ def _leaf_rel_errs(grads, ref, skip, floor=0.0) -> dict:
 def _cancelled_by_batch_norm(state_dict) -> set:
     """Conv biases that feed a train-mode BatchNorm: its batch mean removes
     them, so their exact gradient is 0 and both devices give roundoff."""
-    return {k for k in state_dict if k.endswith("_conv.bias")
+    return {k for k in state_dict if k.endswith("conv.bias")
             and k.rsplit(".", 3)[0] + ".1.running_mean" in state_dict}
 
 
-def phase_train() -> tuple:
-    """The train slice at full width; returns the forward and backward
-    kernels' launches in one train step and in the main path's 10 steps."""
+def _counters() -> dict:
+    """Every hand kernel's wrapper, by its row in PERF.md's table."""
+    from se_tpu_torch.ops import fused_lstm, fused_lstm_inproj
+
+    return {"K1f": fused_lstm.fused_lstm_scan, "K1b": fused_lstm.fused_lstm_scan_backward,
+            "K2f": fused_lstm_inproj.fused_lstm_scan_inproj,
+            "K2b": fused_lstm_inproj.fused_lstm_scan_inproj_backward}
+
+
+def _zero_counts():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    return {k: fn.launches for k, fn in _counters().items()}
+
+
+def _expected(per_call: dict, calls: int = 1) -> dict:
+    """The launch counts of ``calls`` calls that each launch ``per_call``."""
+    return {k: calls * per_call.get(k, 0) for k in _counters()}
+
+
+def _paths() -> dict:
+    """label -> (config, state dict carried over from a seeded JAX tree,
+    launches per forward, launches per backward, enhance CLI arguments)."""
+    from se_tpu_torch.config import Config
+    from se_tpu_torch.utils.weights import (
+        random_crn_params,
+        random_dccrn_params,
+        state_dict_from_jax,
+    )
+
+    dccrn, real = Config(), Config(lstm="real")
+    crn = Config(model="CRN", loss="MSE", lstm="real", masking_mode="E")  # the tutorial config
+    return {
+        "DCCRN": (dccrn, state_dict_from_jax(*random_dccrn_params(dccrn, SEED), dccrn),
+                  {"K1f": dccrn.dccrn.rnn_layers}, {"K1b": dccrn.dccrn.rnn_layers},
+                  ["--model", "DCCRN"]),
+        "CRN": (crn, state_dict_from_jax(*random_crn_params(crn, SEED), crn),
+                {"K2f": 1}, {"K2b": 1}, ["--model", "CRN"]),
+        "DCCRN-real": (real, state_dict_from_jax(*random_dccrn_params(real, SEED), real),
+                       {"K2f": 2}, {"K2b": 2}, ["--model", "DCCRN", "--lstm", "real"]),
+    }
+
+
+def phase_train(label: str, cfg, sd, per_fwd: dict, per_bwd: dict, full: bool) -> tuple:
+    """A train path at full width: one step at B=2 on the card and on the CPU
+    from the same weights, launch counts read around it.  With ``full``,
+    also a step with gradient accumulation and the main path: 10 steps at
+    the default batch on one fixed batch, the counts read around them, the
+    loss falling.  Returns the launches of the B=2 step and of the 10 steps
+    (None without ``full``)."""
     import dataclasses
 
-    from se_tpu_torch.config import Config
-    from se_tpu_torch.ops.fused_lstm import fused_lstm_scan, fused_lstm_scan_backward
     from se_tpu_torch.train.state import create_train_state
     from se_tpu_torch.train.steps import train_step
-    from se_tpu_torch.utils.weights import dccrn_state_dict_from_jax, random_dccrn_params
 
-    cfg = Config()
     fs, B, seconds = cfg.stft.fs, cfg.train.batch, 3
-    sd = dccrn_state_dict_from_jax(*random_dccrn_params(cfg, seed=SEED), cfg)
     noisy, clean = _utterances(B, seconds, fs)
-
-    def counts():
-        return fused_lstm_scan.launches, fused_lstm_scan_backward.launches
+    per_step = {**per_fwd, **per_bwd}
 
     # counts read around one train step
     model, opt = create_train_state(cfg, sd, device="cuda")
-    fused_lstm_scan.launches = fused_lstm_scan_backward.launches = 0
+    _zero_counts()
     metrics = train_step(cfg, model, opt, noisy[:2], clean[:2])
     torch.cuda.synchronize()
-    launches = counts()
-    print(f"[train] train_step B=2: fused_lstm_scan launches {launches[0]}, "
-          f"fused_lstm_scan_backward launches {launches[1]}")
-    assert launches == (cfg.dccrn.rnn_layers,) * 2, launches
+    launches = _counts()
+    print(f"[train {label}] train_step B=2: launches {launches}")
+    assert launches == _expected(per_step), launches
     grads, stats = _grads_and_stats(model)
 
     cpu_model, cpu_opt = create_train_state(cfg, sd, device="cpu")
@@ -409,7 +649,7 @@ def phase_train() -> tuple:
     cpu_grads, cpu_stats = _grads_and_stats(cpu_model)
     loss, cpu_loss = metrics["loss"].item(), cpu_metrics["loss"].item()
     loss_err = abs(loss - cpu_loss) / max(1.0, abs(cpu_loss))
-    print(f"[train] SDR loss card {loss} cpu {cpu_loss}: relative {loss_err} "
+    print(f"[train {label}] {cfg.loss} loss card {loss} cpu {cpu_loss}: relative {loss_err} "
           f"(tolerance {TRAIN_LOSS_TOL})")
     assert np.isfinite(loss) and loss_err <= TRAIN_LOSS_TOL, (loss, cpu_loss)
     cancelled = _cancelled_by_batch_norm(sd)
@@ -418,32 +658,35 @@ def phase_train() -> tuple:
         assert max(grads[k].abs().max().item(), cpu_grads[k].abs().max().item()) <= 1e-5 * scale, k
     raw = _leaf_rel_errs(grads, cpu_grads, cancelled)
     rel = _leaf_rel_errs(grads, cpu_grads, cancelled, GRAD_FLOOR * scale)
-    # the card against itself: a second step from the same weights
-    model2, opt2 = create_train_state(cfg, sd, device="cuda")
-    train_step(cfg, model2, opt2, noisy[:2], clean[:2])
-    rerun = _leaf_rel_errs(_grads_and_stats(model2)[0], grads, cancelled)
-    for what, errs in (("card vs cpu, over the leaf's max", raw),
-                       ("card vs card rerun, over the leaf's max", rerun),
-                       (f"card vs cpu, over max(leaf's max, {GRAD_FLOOR} x {scale:.4g})", rel)):
+    report = [("card vs cpu, over the leaf's max", raw)]
+    if full:  # the card against itself: a second step from the same weights
+        model2, opt2 = create_train_state(cfg, sd, device="cuda")
+        train_step(cfg, model2, opt2, noisy[:2], clean[:2])
+        report.append(("card vs card rerun, over the leaf's max",
+                       _leaf_rel_errs(_grads_and_stats(model2)[0], grads, cancelled)))
+    report.append((f"card vs cpu, over max(leaf's max, {GRAD_FLOOR} x {scale:.4g})", rel))
+    for what, errs in report:
         top = sorted(errs.items(), key=lambda kv: -kv[1])[:4]
-        print(f"[train] gradients, {what}: worst "
+        print(f"[train {label}] gradients, {what}: worst "
               + ", ".join(f"{k} {v:.3g} (max {cpu_grads[k].abs().max().item():.3g})"
                           for k, v in top))
-    print(f"[train] {len(cancelled)} BatchNorm-cancelled conv biases at roundoff "
+    print(f"[train {label}] {len(cancelled)} BatchNorm-cancelled conv biases at roundoff "
           f"(<= 1e-5 of the largest gradient); tolerance {TRAIN_GRAD_TOL}")
     worst_key = max(rel, key=rel.get)
     assert rel[worst_key] <= TRAIN_GRAD_TOL, (worst_key, rel[worst_key])
     stats_err = max(_max_err(stats[k], cpu_stats[k]) for k in stats)
-    print(f"[train] running statistics, card vs cpu: max |diff| {stats_err} "
+    print(f"[train {label}] running statistics, card vs cpu: max |diff| {stats_err} "
           f"(tolerance {TRAIN_STATS_TOL})")
     assert stats_err <= TRAIN_STATS_TOL, stats_err
+    if not full:
+        return launches, None
 
     accum = cfg.replace(train=dataclasses.replace(cfg.train, grad_accum=2))
-    fused_lstm_scan.launches = fused_lstm_scan_backward.launches = 0
+    _zero_counts()
     train_step(accum, model, opt, noisy[:2], clean[:2])
     torch.cuda.synchronize()
-    print(f"[train] train_step B=2 grad_accum=2: launches {counts()}")
-    assert counts() == (2 * cfg.dccrn.rnn_layers,) * 2, counts()
+    print(f"[train {label}] train_step B=2 grad_accum=2: launches {_counts()}")
+    assert _counts() == _expected(per_step, 2), _counts()
 
     # the main path: 10 steps at the default batch on one fixed batch, the
     # counts read around them; the loss must fall
@@ -454,19 +697,19 @@ def phase_train() -> tuple:
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     losses = []
-    fused_lstm_scan.launches = fused_lstm_scan_backward.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     for _ in range(steps):
         losses.append(train_step(cfg, model, opt, noisy, clean)["loss"])
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / steps
-    main_launches = counts()
+    main_launches = _counts()
     losses = [x.item() for x in losses]
-    print(f"[train] {steps} steps at B={B} x {seconds} s: launches {main_launches}, "
+    print(f"[train {label}] {steps} steps at B={B} x {seconds} s: launches {main_launches}, "
           f"losses {losses}")
-    assert main_launches == (steps * cfg.dccrn.rnn_layers,) * 2, main_launches
+    assert main_launches == _expected(per_step, steps), main_launches
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
-    print(f"[train] {1e3 * step_s:.3f} ms per step, {B / step_s:.2f} utterances/s, "
+    print(f"[train {label}] {1e3 * step_s:.3f} ms per step, {B / step_s:.2f} utterances/s, "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     _profile(lambda: train_step(cfg, model, opt, noisy, clean), steps=3, top=16)
     return launches, main_launches
@@ -489,44 +732,40 @@ def _utterances(n: int, seconds: int, fs: int) -> tuple:
     return noisy, clean
 
 
-def phase_slice(workdir: Path) -> int:
-    from se_tpu_torch.config import Config
+def phase_slice(workdir: Path, label: str, cfg, sd, per_forward: dict, cli_args) -> dict:
+    """An enhance path at full width: ``enhance_batch`` on 8 three-second
+    utterances (the main path: every count set to 0 just before, read just
+    after), the validation forward, the CPU on the same weights, speed and
+    a profile, and the enhance CLI.  Returns the main path's launches."""
     from se_tpu_torch.data.wav import read_wav, write_wav
     from se_tpu_torch.enhance import enhance_batch
     from se_tpu_torch.models import build_model
-    from se_tpu_torch.ops.fused_lstm import fused_lstm_scan
     from se_tpu_torch.train.steps import eval_step
-    from se_tpu_torch.utils.weights import (
-        dccrn_state_dict_from_jax,
-        random_dccrn_params,
-        save_reference_checkpoint,
-    )
+    from se_tpu_torch.utils.weights import save_reference_checkpoint
 
-    cfg = Config()
     fs, B, seconds = cfg.stft.fs, 8, 3
-    sd = dccrn_state_dict_from_jax(*random_dccrn_params(cfg, seed=SEED), cfg)
     model = build_model(cfg, device="cuda")
     model.load_state_dict(sd, strict=True)
     noisy, clean = _utterances(B, seconds, fs)
 
     # the main path: counts read around one enhance_batch call
-    fused_lstm_scan.launches = 0
+    _zero_counts()
     wav = enhance_batch(model, noisy)
     torch.cuda.synchronize()
-    launches = fused_lstm_scan.launches
-    print(f"[slice] enhance_batch [{B}, {seconds * fs}] -> {list(wav.shape)}, "
-          f"fused_lstm_scan launches {launches}")
-    assert launches == cfg.dccrn.rnn_layers, launches
+    launches = _counts()
+    print(f"[slice {label}] enhance_batch [{B}, {seconds * fs}] -> {list(wav.shape)}, "
+          f"launches {launches}")
+    assert launches == _expected(per_forward), launches
     assert tuple(wav.shape) == noisy.shape and torch.isfinite(wav).all()
     assert wav.abs().max().item() <= 1.0
 
-    fused_lstm_scan.launches = 0
+    _zero_counts()
     metrics, eval_wav = eval_step(cfg, model, noisy, clean)
     torch.cuda.synchronize()
-    assert fused_lstm_scan.launches == cfg.dccrn.rnn_layers, fused_lstm_scan.launches
+    assert _counts() == _expected(per_forward), _counts()
     # cuDNN need not repeat its sums bit for bit from one call to the next
     rerun_err = _max_err(eval_wav, wav)
-    print(f"[slice] eval_step wav vs enhance_batch wav: max |diff| {rerun_err}")
+    print(f"[slice {label}] eval_step wav vs enhance_batch wav: max |diff| {rerun_err}")
     assert rerun_err <= 1e-5, rerun_err
 
     cpu_model = build_model(cfg, device="cpu")
@@ -535,8 +774,8 @@ def phase_slice(workdir: Path) -> int:
     cpu_metrics, _ = eval_step(cfg, cpu_model, noisy, clean)
     err = _max_err(wav.cpu(), cpu_wav)
     loss, cpu_loss = metrics["loss"].item(), cpu_metrics["loss"].item()
-    print(f"[slice] max |card - cpu| wav {err} (tolerance {SLICE_TOL}); "
-          f"SDR loss card {loss} cpu {cpu_loss}")
+    print(f"[slice {label}] max |card - cpu| wav {err} (tolerance {SLICE_TOL}); "
+          f"{cfg.loss} loss card {loss} cpu {cpu_loss}")
     assert err <= SLICE_TOL, err
     assert np.isfinite(loss) and abs(loss - cpu_loss) <= 1e-3 * max(1.0, abs(cpu_loss))
 
@@ -548,19 +787,20 @@ def phase_slice(workdir: Path) -> int:
         enhance_batch(model, noisy)
     torch.cuda.synchronize()
     per_batch = (time.perf_counter() - t0) / reps
-    print(f"[slice] {B * reps} utterances in {per_batch * reps:.4f} s: "
+    print(f"[slice {label}] {B * reps} utterances in {per_batch * reps:.4f} s: "
           f"{B / per_batch:.2f} utt/s, real-time factor {per_batch / (B * seconds):.6f}, "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     _profile(lambda: enhance_batch(model, noisy), steps=3)
 
     # the enhance CLI on the card, against the same weights in process
-    ckpt = save_reference_checkpoint(str(workdir / "chkpt.pt"), sd)
-    lengths = {"a.wav": 48000, "b.wav": 40000, "c.wav": 20000}
+    ckpt = save_reference_checkpoint(str(workdir / f"{label}.pt"), sd)
+    n = noisy.shape[1]  # 48000: files of 3, 2.5 and 1.25 s
+    lengths = {"a.wav": n, "b.wav": n * 5 // 6, "c.wav": n * 5 // 12}
     for i, (name, L) in enumerate(lengths.items()):
         write_wav(str(workdir / name), noisy[i, :L], fs)
-    out_dir = workdir / "enhanced"
-    cmd = [sys.executable, "-m", "se_tpu_torch.enhance", "--checkpoint", ckpt,
-           "--model", "DCCRN", "--batch", "2", "--device", "cuda",
+    out_dir = workdir / f"enhanced-{label}"
+    cmd = [sys.executable, "-m", "se_tpu_torch.enhance", "--checkpoint", ckpt, *cli_args,
+           "--batch", "2", "--device", "cuda",
            *[str(workdir / n) for n in lengths], "--out-dir", str(out_dir)]
     r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
     print(r.stdout.strip())
@@ -574,7 +814,8 @@ def phase_slice(workdir: Path) -> int:
         got = read_wav(str(out_dir / name))[0]
         assert got.shape == (L,), got.shape
         worst = max(worst, float(np.abs(got - want).max()))
-    print(f"[cli] max |CLI - in-process| {worst * 32768:.1f} LSB (tolerance 2 LSB)")
+    print(f"[cli {label}] {' '.join(cli_args)}: max |CLI - in-process| {worst * 32768:.1f} LSB "
+          f"(tolerance 2 LSB)")
     assert worst <= CLI_TOL, worst
     return launches
 
@@ -584,16 +825,38 @@ def main() -> int:
     phase_build()
     fwd = phase_lstm_kernel()
     bwd, stash_times = phase_lstm_backward()
+    k2f, k2b = phase_inproj_kernels()
+    paths = _paths()
     build_dir = REPO / "build"
     build_dir.mkdir(exist_ok=True)
+    enhanced = {}
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-        launches = phase_slice(Path(tmp))
-    (step_fwd, step_bwd), (_, train_bwd) = phase_train()
-    fwd.update(launches=launches, launches_per_forward=launches,
-               launches_per_train_step=step_fwd, **stash_times)
-    bwd.update(launches=train_bwd, launches_per_train_step=step_bwd)
+        for label, (cfg, sd, per_fwd, _, cli_args) in paths.items():
+            enhanced[label] = phase_slice(Path(tmp), label, cfg, sd, per_fwd, cli_args)
+    trained = {}
+    for label, full in (("DCCRN", True), ("CRN", True), ("DCCRN-real", False)):
+        cfg, sd, per_fwd, per_bwd, _ = paths[label]
+        trained[label] = phase_train(label, cfg, sd, per_fwd, per_bwd, full)
+    cfg, sd, per_fwd, per_bwd, _ = paths["CRN"]
+    trained["CRN-direct"] = phase_train(
+        "CRN-direct", cfg.replace(masking_mode="Direct(None make)"), sd, per_fwd, per_bwd,
+        full=False)
+
+    fwd.update(launches=enhanced["DCCRN"]["K1f"],
+               launches_per_forward=enhanced["DCCRN"]["K1f"],
+               launches_per_train_step=trained["DCCRN"][0]["K1f"], **stash_times)
+    bwd.update(launches=trained["DCCRN"][1]["K1b"],
+               launches_per_train_step=trained["DCCRN"][0]["K1b"])
+    k2f.update(launches=enhanced["CRN"]["K2f"],
+               launches_per_forward={"CRN": enhanced["CRN"]["K2f"],
+                                     "DCCRN-real": enhanced["DCCRN-real"]["K2f"]},
+               launches_per_train_step={k: trained[k][0]["K2f"]
+                                        for k in ("CRN", "CRN-direct", "DCCRN-real")})
+    k2b.update(launches=trained["CRN"][1]["K2b"],
+               launches_per_train_step={k: trained[k][0]["K2b"]
+                                        for k in ("CRN", "CRN-direct", "DCCRN-real")})
     print(smi)
-    print(json.dumps({"kernels": [fwd, bwd]}))
+    print(json.dumps({"kernels": [fwd, bwd, k2f, k2b]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,544 @@
+// LSTM scan with the input projection inside the kernel, forward and
+// backward, for Hopper (sm_90a).
+//
+// Replaces the Pallas kernels of `fused_lstm_scan_inproj` in
+// se_tpu/ops/pallas_lstm.py: the forward (_fwd_inproj_kernel and
+// _inproj_call, :306-335 and :432-479) and the backward
+// (_bwd_inproj_kernel and _inproj_bwd, :338-429 and :503-563).  One launch
+// runs L independent LSTMs over T steps:
+//
+//   x      [T, L, Bb, In] f32    w_ih_t [L, In, 4H] f32   bias [L, 4H] f32
+//   w_hh_t [L, H, 4H]     f32    h0, c0 [L, Bb, H]  f32
+//   gates = (x[t] @ w_ih_t[l] + h @ w_hh_t[l]) + bias[l]   (gate order i, f, g, o)
+//   c = f * c + i * g ;  h = o * tanh(c)
+//   -> ys [T, L, Bb, H], hT, cT [L, Bb, H], all f32, and, when the caller
+//      passes a buffer for it (training), the cell-state stash cs [T, L, Bb, H].
+//
+// The backward takes the forward's inputs, (ys, cs) and the cotangents
+// (dys, dhT, dcT) and gives dx [T, L, Bb, In], dw_ih_t [L, In, 4H],
+// dbias [L, 4H], dw_hh_t [L, H, 4H], dh0 and dc0.  It recomputes the
+// gates from (x, h_prev), as the Pallas kernel does.
+//
+// What bounds them.  The work is 2 * T * Bb * (In + H) * 4H FLOP a
+// forward (CRN at B=8: T=483, In=512, H=128, 2.53 GFLOP, 0.038 ms at
+// 67 TFLOP/s f32) and three times that a backward; the bytes are a few
+// tens of MB.  The real limit is the chain of T dependent steps: each step
+// needs the whole previous h (or dh), so a step costs at least one pass
+// over W_hh[l] (CRN: 256 KiB) from L2 through one SM, plus its barriers.
+// W_ih[l] (CRN: 1 MiB; DCCRN's real LSTM, layer 0: 4 MiB) does not wait on
+// the recurrence, and a pass over it every step cost three quarters of the
+// step at CRN's shapes (PERF.md), so it is read once per chunk of kChunk
+// steps.
+//
+// Design.  One block per (stack l, tile of kRows batch rows); the T loop
+// runs inside the block, in chunks of C steps (C = 8, or 4 where eight
+// steps' buffers would not fit the block's shared memory: DCCRN's real
+// LSTM layer 0, In = 1024 and H = 256, and FullSubNet's full band).  Threads
+// loop over gate columns, so 4H may exceed the block's thread count
+// (4H = 2048 at H = 512); In need not be a multiple of 4 or 32 (x is
+// staged in shared memory row by row).  Forward chunk:
+//   0. stage x of the chunk's C steps in shared memory, then thread `col`
+//      forms x[t] . W_ih[l][:, col] for all C steps and kRows rows in one
+//      pass over W_ih (read from global memory, coalesced across the warp,
+//      resident in the 50 MB L2; x from shared memory, one float4
+//      broadcast giving all kRows rows at one k) into the gate buffer
+//      [C][kRows][4H];
+// then per step, two phases separated by __syncthreads():
+//   1. thread `col` adds h . W_hh[l][:, col], then bias[col], to its gate
+//      column of the step;
+//   2. thread (r, j) applies the gate math to unit j of row r and writes
+//      h, c, ys and the stash.
+// Backward chunk (chunks and steps in reverse order), after phase 0 as in
+// the forward:
+//   1. recompute the step's gates as forward phase 1 from h_prev (ys[t-1],
+//      or h0 at t = 0), staged by the previous phase 3;
+//   2. thread (r, j) forms dgates for unit j of row r from the gates,
+//      c_prev, cs[t], dh = dys[t] + dh carry and the dc carry; writes them
+//      over the step's gates in shared memory and to the dgates scratch
+//      buffer [T, L, Bb, 4H]; sets the dc carry to dc * f;
+//   3. one warp per unit k: the dh carry [r][k] = sum_g dgates[r][g] *
+//      W_hh[l][k][g]; the lanes read row k of w_hh_t along g, coalesced,
+//      and a shuffle reduction ends each sum.  The block also stages h_prev
+//      of step t-1.
+// Nothing in the recurrence waits on dx = dgates @ W_ih^T, dW_ih, dW_hh or
+// dbias, and a warp per input unit inside the scan spent most of its time
+// reading the chunk's dgates from shared memory once per unit.  So
+// second-pass kernels read the dgates scratch buffer, each with its sums
+// in one fixed order and no atomics, so two calls give the same bits:
+// lstm_inproj_dx_kernel (a 32 x 32 tile of dx per block, over all T x Bb
+// rows at once), lstm_dw_kernel of lstm_common.cuh (a 32 x 32 tile of dW
+// per block; the row operand is x, or h_prev read from ys shifted by one
+// step) and
+// lstm_inproj_dbias_kernel (column sums).  The scratch costs
+// T * Bb * 4H * 4 bytes a stack (9.9 MB at CRN's train batch of 10); the
+// Pallas kernel kept these sums in VMEM, and folding them into the scan is
+// part of the redesign (ROADMAP, Queue 2).
+//
+// The gate math, the gate product, the dh pass and the dW reduction come
+// from lstm_common.cuh, shared with lstm_scan.cu.
+
+#include "lstm_common.cuh"
+
+namespace {
+
+constexpr int kMaxThreads = 512;  // scan block size cap; threads loop over columns
+constexpr int kSumGroups = 8;     // row groups of the dbias column sum
+constexpr int kChunk = 8;         // steps whose projections one pass over W_ih forms
+constexpr size_t kMaxSmem = 232448;  // shared memory a block can use (227 KB)
+
+// xc_s[c][k][r] = x[t0 + c, l, b0 + r, k] for c < n and r < rows, else 0;
+// xc_s is [C][In][kRows].
+template <int C>
+__device__ __forceinline__ void stage_chunk(float* xc_s, const float* __restrict__ x,
+                                            int t0, int n, int L, int Bb, int l,
+                                            int b0, int rows, int In) {
+  for (int idx = threadIdx.x; idx < C * kRows * In; idx += blockDim.x) {
+    const int c = idx / (kRows * In), r = (idx / In) % kRows, k = idx % In;
+    float v = 0.f;
+    if (c < n && r < rows) {
+      v = x[((static_cast<size_t>(t0 + c) * L + l) * Bb + b0 + r) * In + k];
+    }
+    xc_s[(c * In + k) * kRows + r] = v;
+  }
+}
+
+// p_s[c][r][col] = xc_s[c][:][r] . wih[:, col] for the chunk's C steps:
+// one pass over W_ih[l]; p_s is [C][kRows][G].
+template <int C>
+__device__ __forceinline__ void project_chunk(const float* __restrict__ wih,
+                                              const float* xc_s, float* p_s,
+                                              int In, int G) {
+  for (int col = threadIdx.x; col < G; col += blockDim.x) {
+    float acc[C][kRows];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) acc[c][r] = 0.f;
+    }
+#pragma unroll 4
+    for (int k = 0; k < In; ++k) {
+      const float wv = __ldg(wih + static_cast<size_t>(k) * G + col);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float4 xv = *reinterpret_cast<const float4*>(xc_s + (c * In + k) * kRows);
+        acc[c][0] = fmaf(xv.x, wv, acc[c][0]);
+        acc[c][1] = fmaf(xv.y, wv, acc[c][1]);
+        acc[c][2] = fmaf(xv.z, wv, acc[c][2]);
+        acc[c][3] = fmaf(xv.w, wv, acc[c][3]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) p_s[(c * kRows + r) * G + col] = acc[c][r];
+    }
+  }
+}
+
+// g_s[r][col] = (g_s[r][col] + h_s[r] . whh[:, col]) + b[col] for the
+// tile's rows, g_s holding the step's x . W_ih; h_s is [H][kRows].
+__device__ __forceinline__ void recurrent_columns(const float* __restrict__ whh,
+                                                  const float* __restrict__ b,
+                                                  const float* h_s, float* g_s,
+                                                  int rows, int H, int G) {
+  for (int col = threadIdx.x; col < G; col += blockDim.x) {
+    float ah[kRows] = {0.f, 0.f, 0.f, 0.f};
+    dot_column(whh, h_s, H, G, col, ah);
+    const float bv = __ldg(b + col);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (r < rows) g_s[r * G + col] = (g_s[r * G + col] + ah[r]) + bv;
+    }
+  }
+}
+
+// dst[k][r] = src[r][k] for r < rows, 0 for the rows past the batch edge;
+// src is `rows` consecutive rows of K floats.
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src,
+                                           int rows, int K) {
+  for (int idx = threadIdx.x; idx < kRows * K; idx += blockDim.x) {
+    const int r = idx / K, k = idx % K;
+    dst[k * kRows + r] = r < rows ? src[static_cast<size_t>(r) * K + k] : 0.f;
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(kMaxThreads)
+lstm_inproj_fwd_kernel(const float* __restrict__ x,
+                       const float* __restrict__ wih_t,
+                       const float* __restrict__ bias,
+                       const float* __restrict__ whh_t,
+                       const float* __restrict__ h0,
+                       const float* __restrict__ c0,
+                       float* __restrict__ ys,
+                       float* __restrict__ cs,
+                       float* __restrict__ hT,
+                       float* __restrict__ cT,
+                       int T, int L, int Bb, int In, int H) {
+  extern __shared__ float4 smem4[];
+  const int G = 4 * H;
+  float* xc_s = reinterpret_cast<float*>(smem4);  // [C][In][kRows]
+  float* p_s = xc_s + C * In * kRows;             // [C][kRows][G]  the chunk's gates
+  float* h_s = p_s + C * kRows * G;               // [H][kRows]
+  float* c_s = h_s + H * kRows;                   // [kRows][H]
+
+  const int l = blockIdx.y;
+  const int b0 = blockIdx.x * kRows;
+  const int rows = min(kRows, Bb - b0);
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const float* wih = wih_t + static_cast<size_t>(l) * In * G;
+  const float* whh = whh_t + static_cast<size_t>(l) * H * G;
+  const float* b = bias + static_cast<size_t>(l) * G;
+
+  // carries in; rows past the batch edge stay zero and are never written
+  for (int idx = tid; idx < kRows * H; idx += nthr) {
+    const int r = idx / H, j = idx % H;
+    float hv = 0.f, cv = 0.f;
+    if (r < rows) {
+      const size_t o = (static_cast<size_t>(l) * Bb + b0 + r) * H + j;
+      hv = h0[o];
+      cv = c0[o];
+    }
+    h_s[j * kRows + r] = hv;
+    c_s[r * H + j] = cv;
+  }
+
+  for (int t0 = 0; t0 < T; t0 += C) {
+    const int n = min(C, T - t0);
+    // phase 0: the chunk's input projections
+    stage_chunk<C>(xc_s, x, t0, n, L, Bb, l, b0, rows, In);
+    __syncthreads();
+    project_chunk<C>(wih, xc_s, p_s, In, G);
+    __syncthreads();
+
+    for (int c = 0; c < n; ++c) {
+      const size_t row0 = (static_cast<size_t>(t0 + c) * L + l) * Bb + b0;
+      float* g_s = p_s + c * kRows * G;
+
+      // phase 1: the gates of step t0 + c
+      recurrent_columns(whh, b, h_s, g_s, rows, H, G);
+      __syncthreads();
+
+      // phase 2: cell update for (row r, unit j)
+      for (int idx = tid; idx < rows * H; idx += nthr) {
+        const int r = idx / H, j = idx % H;
+        float h;
+        const float cn = cell_forward(g_s + r * G, H, j, c_s[r * H + j], &h);
+        c_s[r * H + j] = cn;
+        h_s[j * kRows + r] = h;
+        ys[(row0 + r) * H + j] = h;
+        if (cs != nullptr) cs[(row0 + r) * H + j] = cn;
+      }
+      __syncthreads();
+    }
+  }
+
+  for (int idx = tid; idx < rows * H; idx += nthr) {
+    const int r = idx / H, j = idx % H;
+    const size_t o = (static_cast<size_t>(l) * Bb + b0 + r) * H + j;
+    hT[o] = h_s[j * kRows + r];
+    cT[o] = c_s[r * H + j];
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(kMaxThreads)
+lstm_inproj_bwd_kernel(const float* __restrict__ x,
+                       const float* __restrict__ wih_t,
+                       const float* __restrict__ bias,
+                       const float* __restrict__ whh_t,
+                       const float* __restrict__ h0,
+                       const float* __restrict__ c0,
+                       const float* __restrict__ ys,
+                       const float* __restrict__ cs,
+                       const float* __restrict__ dys,
+                       const float* __restrict__ dhT,
+                       const float* __restrict__ dcT,
+                       float* __restrict__ dh0,
+                       float* __restrict__ dc0,
+                       float* __restrict__ dg,
+                       int T, int L, int Bb, int In, int H) {
+  extern __shared__ float4 smem4[];
+  const int G = 4 * H;
+  float* xc_s = reinterpret_cast<float*>(smem4);  // [C][In][kRows]
+  float* p_s = xc_s + C * In * kRows;             // [C][kRows][G]  gates, then dgates
+  float* h_s = p_s + C * kRows * G;               // [H][kRows]   h_prev
+  float* dh_s = h_s + H * kRows;                  // [kRows][H]   dh carry
+  float* dc_s = dh_s + kRows * H;                 // [kRows][H]   dc carry
+
+  const int l = blockIdx.y;
+  const int b0 = blockIdx.x * kRows;
+  const int rows = min(kRows, Bb - b0);
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const size_t LBb = static_cast<size_t>(L) * Bb;
+  const float* wih = wih_t + static_cast<size_t>(l) * In * G;
+  const float* whh = whh_t + static_cast<size_t>(l) * H * G;
+  const float* b = bias + static_cast<size_t>(l) * G;
+  const size_t state0 = static_cast<size_t>(l) * Bb + b0;  // row of h0/c0/dh0/dc0
+
+  // rows [L, Bb, *] of step t's h_prev: ys[t-1], or h0 at t = 0
+  auto h_prev_rows = [&](int t) {
+    return t > 0 ? ys + ((static_cast<size_t>(t - 1) * L + l) * Bb + b0) * H
+                 : h0 + state0 * H;
+  };
+
+  // carries in; gate rows past the batch edge hold the projection of zero
+  // rows, 0, and are never written, so their dgates add nothing to the dh
+  // sums below
+  for (int idx = tid; idx < kRows * H; idx += nthr) {
+    const int r = idx / H, j = idx % H;
+    float dh = 0.f, dc = 0.f;
+    if (r < rows) {
+      dh = dhT[state0 * H + static_cast<size_t>(r) * H + j];
+      dc = dcT[state0 * H + static_cast<size_t>(r) * H + j];
+    }
+    dh_s[r * H + j] = dh;
+    dc_s[r * H + j] = dc;
+  }
+  stage_rows(h_s, h_prev_rows(T - 1), rows, H);
+
+  for (int t0 = (T - 1) / C * C; t0 >= 0; t0 -= C) {
+    const int n = min(C, T - t0);
+    // phase 0: the chunk's input projections
+    stage_chunk<C>(xc_s, x, t0, n, L, Bb, l, b0, rows, In);
+    __syncthreads();
+    project_chunk<C>(wih, xc_s, p_s, In, G);
+    __syncthreads();
+
+    for (int c = n - 1; c >= 0; --c) {
+      const int t = t0 + c;
+      const size_t row0 = (static_cast<size_t>(t) * L + l) * Bb + b0;
+      const float* c_prev = t > 0 ? cs + (row0 - LBb) * H : c0 + state0 * H;
+      float* g_s = p_s + c * kRows * G;
+
+      // phase 1: recompute the gates
+      recurrent_columns(whh, b, h_s, g_s, rows, H, G);
+      __syncthreads();
+
+      // phase 2: dgates for (row r, unit j); pallas_lstm.py:373-386, :429
+      for (int idx = tid; idx < rows * H; idx += nthr) {
+        const int r = idx / H, j = idx % H;
+        const size_t o = (row0 + r) * H + j;
+        dc_s[r * H + j] = cell_backward(g_s + r * G, dg + (row0 + r) * G, H, j,
+                                        c_prev[r * H + j], cs[o],
+                                        dys[o] + dh_s[r * H + j], dc_s[r * H + j]);
+      }
+      __syncthreads();
+
+      // phase 3: dh carry = dgates @ W_hh[l]^T, one warp per unit k; then
+      // stage step t-1's h_prev (phase 3 does not read h_s)
+      dh_rows(whh, g_s, dh_s, rows, H, G);
+      if (t > 0) stage_rows(h_s, h_prev_rows(t - 1), rows, H);
+      __syncthreads();
+    }
+
+  }
+
+  for (int idx = tid; idx < rows * H; idx += nthr) {
+    const int r = idx / H, j = idx % H;
+    const size_t o = (state0 + r) * H + j;
+    dh0[o] = dh_s[r * H + j];
+    dc0[o] = dc_s[r * H + j];
+  }
+}
+
+// dx[t, l, b, k] = sum_g dg[t, l, b, g] * w_ih_t[l][k][g], for a kTile x
+// kTile tile (rows n0 = t * Bb + b .., units k0 ..) of stack l per block;
+// 16 x 16 threads, each owning a 2 x 2 block of outputs.  The sum over g
+// runs in one fixed order.
+__global__ void lstm_inproj_dx_kernel(const float* __restrict__ dg,
+                                      const float* __restrict__ wih_t,
+                                      float* __restrict__ dx,
+                                      int T, int L, int Bb, int In, int G) {
+  __shared__ float a_s[kTile][kTile + 1];  // [row][g]
+  __shared__ float w_s[kTile][kTile + 1];  // [k][g]
+  const int l = blockIdx.z;
+  const int k0 = blockIdx.y * kTile;
+  const int n0 = blockIdx.x * kTile;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * 16 + tx;
+  const int N = T * Bb;
+  const float* w = wih_t + static_cast<size_t>(l) * In * G;
+  auto row_of = [&](int n) {  // row n = t * Bb + b of stack l in [T, L, Bb, *]
+    return (static_cast<size_t>(n / Bb) * L + l) * Bb + n % Bb;
+  };
+  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+
+  for (int g0 = 0; g0 < G; g0 += kTile) {
+    for (int idx = tid; idx < kTile * kTile; idx += 256) {
+      const int i = idx / kTile, c = idx % kTile;
+      float av = 0.f, wv = 0.f;
+      if (g0 + c < G) {
+        if (n0 + i < N) av = dg[row_of(n0 + i) * G + g0 + c];
+        if (k0 + i < In) wv = w[static_cast<size_t>(k0 + i) * G + g0 + c];
+      }
+      a_s[i][c] = av;
+      w_s[i][c] = wv;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int c = 0; c < kTile; ++c) {
+      const float a0v = a_s[ty][c], a1v = a_s[ty + 16][c];
+      const float w0 = w_s[tx][c], w1 = w_s[tx + 16][c];
+      acc[0][0] = fmaf(a0v, w0, acc[0][0]);
+      acc[0][1] = fmaf(a0v, w1, acc[0][1]);
+      acc[1][0] = fmaf(a1v, w0, acc[1][0]);
+      acc[1][1] = fmaf(a1v, w1, acc[1][1]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int n = n0 + ty + 16 * i, k = k0 + tx + 16 * j;
+      if (n < N && k < In) dx[row_of(n) * In + k] = acc[i][j];
+    }
+  }
+}
+
+// db[l][g] = sum over n = t * Bb + b of dg[t, l, b, g]: kTile columns x
+// kSumGroups row groups per block; group y sums rows y, y + kSumGroups, ...
+// in order, and one thread adds the groups' partial sums in order.
+__global__ void lstm_inproj_dbias_kernel(const float* __restrict__ dg,
+                                         float* __restrict__ db,
+                                         int T, int L, int Bb, int G) {
+  __shared__ float part[kSumGroups][kTile];
+  const int l = blockIdx.y;
+  const int g = blockIdx.x * kTile + threadIdx.x;
+  const int N = T * Bb;
+  float acc = 0.f;
+  if (g < G) {
+    for (int n = threadIdx.y; n < N; n += kSumGroups) {
+      const int t = n / Bb, bb = n % Bb;
+      acc += dg[((static_cast<size_t>(t) * L + l) * Bb + bb) * G + g];
+    }
+  }
+  part[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && g < G) {
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < kSumGroups; ++i) s += part[i][threadIdx.x];
+    db[static_cast<size_t>(l) * G + g] = s;
+  }
+}
+
+int scan_threads(int H) {
+  const int G = 4 * H;
+  const int threads = G < kMaxThreads ? G : kMaxThreads;
+  return (threads + 31) / 32 * 32;
+}
+
+// The chunk length C for a scan kernel whose shared memory is
+// C * per_step + fixed floats: kChunk, or half of it where that does not
+// fit a block; 0 if neither fits.
+int chunk_steps(size_t per_step, size_t fixed) {
+  for (int c = kChunk; c >= kChunk / 2; c /= 2) {
+    if (sizeof(float) * (c * per_step + fixed) <= kMaxSmem) return c;
+  }
+  return 0;
+}
+
+template <int C>
+cudaError_t launch_fwd(const float* x, const float* wih_t, const float* bias,
+                       const float* whh_t, const float* h0, const float* c0,
+                       float* ys, float* cs, float* hT, float* cT,
+                       int T, int L, int Bb, int In, int H, cudaStream_t s) {
+  const int G = 4 * H;
+  const size_t smem = sizeof(float) * (static_cast<size_t>(C) * kRows * (In + G) +
+                                       static_cast<size_t>(2) * H * kRows);
+  cudaError_t err = allow_smem(lstm_inproj_fwd_kernel<C>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Bb + kRows - 1) / kRows, L);
+  lstm_inproj_fwd_kernel<C><<<grid, scan_threads(H), smem, s>>>(
+      x, wih_t, bias, whh_t, h0, c0, ys, cs, hT, cT, T, L, Bb, In, H);
+  return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch_bwd(const float* x, const float* wih_t, const float* bias,
+                       const float* whh_t, const float* h0, const float* c0,
+                       const float* ys, const float* cs, const float* dys,
+                       const float* dhT, const float* dcT, float* dh0,
+                       float* dc0, float* dg, int T, int L, int Bb, int In, int H,
+                       cudaStream_t s) {
+  const int G = 4 * H;
+  const size_t smem = sizeof(float) * (static_cast<size_t>(C) * kRows * (In + G) +
+                                       static_cast<size_t>(3) * H * kRows);
+  cudaError_t err = allow_smem(lstm_inproj_bwd_kernel<C>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Bb + kRows - 1) / kRows, L);
+  lstm_inproj_bwd_kernel<C><<<grid, scan_threads(H), smem, s>>>(
+      x, wih_t, bias, whh_t, h0, c0, ys, cs, dys, dhT, dcT, dh0, dc0, dg,
+      T, L, Bb, In, H);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Launches the forward scan on `stream` (a cudaStream_t) of `device`.
+// Returns the cudaError_t of the launch (0 on success;
+// cudaErrorInvalidValue when four steps' buffers do not fit a block's
+// shared memory).  All pointers are device pointers to contiguous f32
+// arrays of the shapes above; `cs` may be null, and then no stash is
+// written.
+extern "C" int se_lstm_inproj_fwd_f32(const float* x, const float* wih_t,
+                                      const float* bias, const float* whh_t,
+                                      const float* h0, const float* c0,
+                                      float* ys, float* cs, float* hT, float* cT,
+                                      int T, int L, int Bb, int In, int H,
+                                      int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (chunk_steps(static_cast<size_t>(kRows) * (In + 4 * H),
+                      static_cast<size_t>(2) * H * kRows)) {
+    case 8: err = launch_fwd<8>(x, wih_t, bias, whh_t, h0, c0, ys, cs, hT, cT, T, L, Bb, In, H, s); break;
+    case 4: err = launch_fwd<4>(x, wih_t, bias, whh_t, h0, c0, ys, cs, hT, cT, T, L, Bb, In, H, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// Launches the backward: the reverse scan (dh0, dc0 and the dgates
+// scratch `dg` [T, L, Bb, 4H]), then the dx product and the dW_ih, dW_hh
+// and dbias reductions that read it, all on `stream`.  Returns the first
+// cudaError_t (0 on success; cudaErrorInvalidValue as for the forward).  Shapes as above; every pointer is a device pointer to a
+// contiguous f32 array, none may be null.
+extern "C" int se_lstm_inproj_bwd_f32(const float* x, const float* wih_t,
+                                      const float* bias, const float* whh_t,
+                                      const float* h0, const float* c0,
+                                      const float* ys, const float* cs,
+                                      const float* dys, const float* dhT,
+                                      const float* dcT, float* dx, float* dwih_t,
+                                      float* dbias, float* dwhh_t, float* dh0,
+                                      float* dc0, float* dg,
+                                      int T, int L, int Bb, int In, int H,
+                                      int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int G = 4 * H;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (chunk_steps(static_cast<size_t>(kRows) * (In + G),
+                      static_cast<size_t>(3) * H * kRows)) {
+    case 8: err = launch_bwd<8>(x, wih_t, bias, whh_t, h0, c0, ys, cs, dys, dhT, dcT, dh0, dc0, dg, T, L, Bb, In, H, s); break;
+    case 4: err = launch_bwd<4>(x, wih_t, bias, whh_t, h0, c0, ys, cs, dys, dhT, dcT, dh0, dc0, dg, T, L, Bb, In, H, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 tile(16, 16);
+  lstm_inproj_dx_kernel<<<dim3((T * Bb + kTile - 1) / kTile, (In + kTile - 1) / kTile, L), tile, 0, s>>>(
+      dg, wih_t, dx, T, L, Bb, In, G);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_dw(x, nullptr, dg, dwih_t, T, L, Bb, In, G, 0, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_dw(ys, h0, dg, dwhh_t, T, L, Bb, H, G, 1, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lstm_inproj_dbias_kernel<<<dim3((G + kTile - 1) / kTile, L), dim3(kTile, kSumGroups), 0, s>>>(
+      dg, dbias, T, L, Bb, G);
+  return static_cast<int>(cudaGetLastError());
+}

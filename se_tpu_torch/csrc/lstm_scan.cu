@@ -46,8 +46,8 @@
 //   3. dh carry [r][k] = sum_g dgates[r][g] * W_hh[l][k][g]: one warp per
 //      unit k reads row k of w_hh_t[l] along g (coalesced), each lane sums
 //      16 columns for all kRows rows, and a shuffle reduction ends it.
-// dW_hh is summed over all T * Bb rows by a second kernel,
-// lstm_dwhh_kernel: dw_hh_t[l][k][g] = sum_{t,b} h_prev[t,l,b,k] *
+// dW_hh is summed over all T * Bb rows by a second kernel, lstm_dw_kernel
+// (lstm_common.cuh): dw_hh_t[l][k][g] = sum_{t,b} h_prev[t,l,b,k] *
 // dx_proj[t,l,b,g], a 32 x 32 output tile per block with the rows in a
 // fixed order, so two calls give the same bits (no atomics).
 // W_hh[l] does not fit in one block's 227 KB of shared memory, so every
@@ -56,21 +56,12 @@
 // cluster of 2-4 blocks, each holding its W_hh slice in shared memory and
 // exchanging h (or dh) through distributed shared memory every step.
 //
-// Transcendentals use expf/tanhf (no fast-math) to stay within 1e-5 of the
-// plain PyTorch recurrence per step.
+// The backward's gate math, the gate product, the dh pass and the dW
+// reduction are shared with lstm_inproj.cu through lstm_common.cuh.
 
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "lstm_common.cuh"
 
 namespace {
-
-constexpr int kRows = 4;  // batch rows per block; h is read as one float4
-constexpr int kTile = 32;  // dW tile edge and rows per reduction chunk
-
-__device__ __forceinline__ float sigmoid_f32(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
 
 // gates[r][col] = xp_t[r][col] + sum_k h_s[k][r] * w[k][col] for the
 // tile's rows; h_s is [H][kRows].
@@ -79,18 +70,8 @@ __device__ __forceinline__ void gate_columns(const float* __restrict__ w,
                                              const float* h_s, float* g_s,
                                              int rows, int H, int G) {
   for (int col = threadIdx.x; col < G; col += blockDim.x) {
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < H; ++k) {
-      const float wv = __ldg(w + static_cast<size_t>(k) * G + col);
-      const float4 hv = *reinterpret_cast<const float4*>(h_s + k * kRows);
-      acc[0] = fmaf(hv.x, wv, acc[0]);
-      acc[1] = fmaf(hv.y, wv, acc[1]);
-      acc[2] = fmaf(hv.z, wv, acc[2]);
-      acc[3] = fmaf(hv.w, wv, acc[3]);
-    }
+    float acc[kRows] = {0.f, 0.f, 0.f, 0.f};
+    dot_column(w, h_s, H, G, col, acc);
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       if (r < rows) g_s[r * G + col] = xp_t[static_cast<size_t>(r) * G + col] + acc[r];
@@ -141,7 +122,13 @@ __global__ void lstm_scan_fwd_kernel(const float* __restrict__ xp,
     gate_columns(w, xp + row0 * G, h_s, g_s, rows, H, G);
     __syncthreads();
 
-    // phase 2: cell update for (row r, unit j)
+    // phase 2: cell update for (row r, unit j).  Written out here, not
+    // through cell_forward of lstm_common.cuh: with that helper (or one
+    // returning a float2, or one updating c in place) nvcc's code for this
+    // kernel took 7.7-8.8 ms a call instead of 3.4-3.5 ms at DCCRN's
+    // enhance shapes (T=483, L=2, Bb=16, H=128) on an NVIDIA H100 80GB
+    // HBM3 at 700 W, although phase 1's loop is the same source in all of
+    // them.  K2's forward is not sensitive to it.
     for (int idx = tid; idx < rows * H; idx += nthr) {
       const int r = idx / H, j = idx % H;
       const float* g = g_s + r * G;
@@ -192,9 +179,6 @@ __global__ void lstm_scan_bwd_kernel(const float* __restrict__ xp,
   const int rows = min(kRows, Bb - b0);
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = nthr >> 5;
   const float* w = whh_t + static_cast<size_t>(l) * H * G;
 
   // carries in; g_s rows past the batch edge stay zero, so their dgates
@@ -235,56 +219,15 @@ __global__ void lstm_scan_bwd_kernel(const float* __restrict__ xp,
     // phase 2: dgates for (row r, unit j); pallas_lstm.py:118-131, :155
     for (int idx = tid; idx < rows * H; idx += nthr) {
       const int r = idx / H, j = idx % H;
-      float* g = g_s + r * G;
-      const float ig = sigmoid_f32(g[j]);
-      const float fg = sigmoid_f32(g[H + j]);
-      const float gg = tanhf(g[2 * H + j]);
-      const float og = sigmoid_f32(g[3 * H + j]);
       const size_t o = (row0 + r) * H + j;
-      const float tanh_c = tanhf(cs[o]);
-      const float dh = dys[o] + dh_s[r * H + j];
-      const float d_o = dh * tanh_c * og * (1.0f - og);
-      const float dc = dc_s[r * H + j] + dh * og * (1.0f - tanh_c * tanh_c);
-      const float d_i = dc * gg * ig * (1.0f - ig);
-      const float d_f = dc * c_prev[r * H + j] * fg * (1.0f - fg);
-      const float d_g = dc * ig * (1.0f - gg * gg);
-      g[j] = d_i;
-      g[H + j] = d_f;
-      g[2 * H + j] = d_g;
-      g[3 * H + j] = d_o;
-      float* dxp_t = dxp + (row0 + r) * G;
-      dxp_t[j] = d_i;
-      dxp_t[H + j] = d_f;
-      dxp_t[2 * H + j] = d_g;
-      dxp_t[3 * H + j] = d_o;
-      dc_s[r * H + j] = dc * fg;
+      dc_s[r * H + j] = cell_backward(g_s + r * G, dxp + (row0 + r) * G, H, j,
+                                      c_prev[r * H + j], cs[o],
+                                      dys[o] + dh_s[r * H + j], dc_s[r * H + j]);
     }
     __syncthreads();
 
     // phase 3: dh carry = dgates @ W_hh[l]^T, one warp per unit k
-    for (int k = warp; k < H; k += nwarps) {
-      const float* wk = w + static_cast<size_t>(k) * G;
-      float acc[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-      for (int col = lane; col < G; col += 32) {
-        const float wv = __ldg(wk + col);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(g_s[r * G + col], wv, acc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
-      }
-      if (lane < kRows && lane < rows) {
-        float v = acc[0];
-#pragma unroll
-        for (int r = 1; r < kRows; ++r) v = lane == r ? acc[r] : v;
-        dh_s[lane * H + k] = v;
-      }
-    }
+    dh_rows(w, g_s, dh_s, rows, H, G);
     __syncthreads();
   }
 
@@ -296,74 +239,10 @@ __global__ void lstm_scan_bwd_kernel(const float* __restrict__ xp,
   }
 }
 
-// dw[l][k][g] = sum over n = t * Bb + b of h_prev[n][k] * dxp[n][g], for a
-// kTile x kTile tile (k0, g0) of stack l per block; 16 x 16 threads, each
-// owning a 2 x 2 block of outputs.  Rows are summed in one fixed order.
-__global__ void lstm_dwhh_kernel(const float* __restrict__ h0,
-                                 const float* __restrict__ ys,
-                                 const float* __restrict__ dxp,
-                                 float* __restrict__ dw,
-                                 int T, int L, int Bb, int H) {
-  __shared__ float a_s[kTile][kTile + 1];  // [row][k]
-  __shared__ float b_s[kTile][kTile];      // [row][g]
-  const int G = 4 * H;
-  const int l = blockIdx.z;
-  const int k0 = blockIdx.y * kTile;
-  const int g0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * 16 + tx;
-  const int N = T * Bb;
-  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-
-  for (int n0 = 0; n0 < N; n0 += kTile) {
-    for (int idx = tid; idx < kTile * kTile; idx += 256) {
-      const int i = idx / kTile, c = idx % kTile;
-      const int n = n0 + i;
-      float av = 0.f, bv = 0.f;
-      if (n < N) {
-        const int t = n / Bb, b = n % Bb;
-        const size_t row = (static_cast<size_t>(t) * L + l) * Bb + b;
-        if (k0 + c < H) {
-          av = t > 0 ? ys[(row - static_cast<size_t>(L) * Bb) * H + k0 + c]
-                     : h0[(static_cast<size_t>(l) * Bb + b) * H + k0 + c];
-        }
-        if (g0 + c < G) bv = dxp[row * G + g0 + c];
-      }
-      a_s[i][c] = av;
-      b_s[i][c] = bv;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int i = 0; i < kTile; ++i) {
-      const float a0 = a_s[i][ty], a1 = a_s[i][ty + 16];
-      const float v0 = b_s[i][tx], v1 = b_s[i][tx + 16];
-      acc[0][0] = fmaf(a0, v0, acc[0][0]);
-      acc[0][1] = fmaf(a0, v1, acc[0][1]);
-      acc[1][0] = fmaf(a1, v0, acc[1][0]);
-      acc[1][1] = fmaf(a1, v1, acc[1][1]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-#pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      const int k = k0 + ty + 16 * a, g = g0 + tx + 16 * b;
-      if (k < H && g < G) dw[(static_cast<size_t>(l) * H + k) * G + g] = acc[a][b];
-    }
-  }
-}
-
 int scan_threads(int H) {
   const int G = 4 * H;
   const int threads = G < 1024 ? G : 1024;
   return (threads + 31) / 32 * 32;
-}
-
-cudaError_t allow_smem(const void* kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
 }
 
 }  // namespace
@@ -382,7 +261,7 @@ extern "C" int se_lstm_scan_fwd_f32(const float* xp, const float* whh_t,
   const int G = 4 * H;
   const size_t smem = sizeof(float) * (static_cast<size_t>(2) * kRows * H +
                                        static_cast<size_t>(kRows) * G);
-  err = allow_smem(reinterpret_cast<const void*>(lstm_scan_fwd_kernel), smem);
+  err = allow_smem(lstm_scan_fwd_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Bb + kRows - 1) / kRows, L);
   lstm_scan_fwd_kernel<<<grid, scan_threads(H), smem, static_cast<cudaStream_t>(stream)>>>(
@@ -407,7 +286,7 @@ extern "C" int se_lstm_scan_bwd_f32(const float* xp, const float* whh_t,
   const int G = 4 * H;
   const size_t smem = sizeof(float) * (static_cast<size_t>(3) * kRows * H +
                                        static_cast<size_t>(kRows) * G);
-  err = allow_smem(reinterpret_cast<const void*>(lstm_scan_bwd_kernel), smem);
+  err = allow_smem(lstm_scan_bwd_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((Bb + kRows - 1) / kRows, L);
@@ -415,11 +294,5 @@ extern "C" int se_lstm_scan_bwd_f32(const float* xp, const float* whh_t,
       xp, whh_t, h0, c0, ys, cs, dys, dhT, dcT, dxp, dh0, dc0, T, L, Bb, H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 dw_grid((G + kTile - 1) / kTile, (H + kTile - 1) / kTile, L);
-  lstm_dwhh_kernel<<<dw_grid, dim3(16, 16), 0, s>>>(h0, ys, dxp, dwhh_t, T, L, Bb, H);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" const char* se_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return static_cast<int>(launch_dw(ys, h0, dxp, dwhh_t, T, L, Bb, H, G, 1, s));
 }

@@ -1,8 +1,10 @@
-"""Batch enhancement with a DCCRN checkpoint (counterpart of the DCCRN
-batch path of the repository's ``enhance.py``).
+"""Batch enhancement with a DCCRN or CRN checkpoint (counterpart of the
+DCCRN/CRN batch path of the repository's ``enhance.py``).
 
     python -m se_tpu_torch.enhance --checkpoint chkpt.pt --model DCCRN \\
-        [--masking-mode E] [--batch N] [--device cuda] noisy1.wav ... --out-dir DIR
+        [--lstm complex] [--masking-mode E] [--batch N] [--device cuda] \\
+        noisy1.wav ... --out-dir DIR
+    python -m se_tpu_torch.enhance --checkpoint chkpt.pt --model CRN noisy.wav
 
 The checkpoint is the reference's ``{'model', 'optimizer', 'epoch'}``
 blob, as ``python -m se_tpu.utils.torch_export`` writes it.  Runs on the
@@ -52,6 +54,7 @@ def main(argv=None):
     p.add_argument("--checkpoint", required=True)
     p.add_argument("--model", default="DCCRN", choices=["DCCRN", "CRN", "FullSubNet"])
     p.add_argument("--masking-mode", default="E")
+    p.add_argument("--lstm", default="complex", choices=["complex", "real"])
     p.add_argument("--out-dir", default="enhanced")
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--device", default="cuda")
@@ -73,7 +76,7 @@ def main(argv=None):
     except RuntimeError as e:
         p.error(str(e))
 
-    cfg = Config(model=args.model, masking_mode=args.masking_mode)
+    cfg = Config(model=args.model, masking_mode=args.masking_mode, lstm=args.lstm)
     model = build_model(cfg, device=dev)
     model.load_state_dict(load_reference_checkpoint(args.checkpoint)[0], strict=True)
     os.makedirs(args.out_dir, exist_ok=True)

@@ -3,9 +3,10 @@
 
 Conv-STFT -> complex conv encoder -> complex LSTM bottleneck -> complex
 transposed-conv decoder with skip connections -> mask on the noisy
-spectrum -> conv-iSTFT -> clip to +-1.  This slice ports the default
-variant (complex LSTM, skip connections, real BatchNorm) with the E, C and
-R masks.
+spectrum -> conv-iSTFT -> clip to +-1.  Ported: the complex LSTM and the
+real one (``lstm="real"``: a two-layer ``nn.LSTM`` over the real and
+imaginary channels together, then a linear map back), skip connections,
+real BatchNorm, and the E, C and R masks.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from .layers import (
     NavieComplexLSTM,
     PReLU,
     TorchBatchNorm2d,
+    TorchLinear,
+    TorchLSTM,
     complex_cat,
 )
 
@@ -66,8 +69,6 @@ class DCCRN(nn.Module):
     def __init__(self, cfg: Config, *, generator: torch.Generator):
         super().__init__()
         c = cfg
-        if c.lstm != "complex":
-            raise NotImplementedError(f"DCCRN lstm={c.lstm!r} {NOT_PORTED}")
         if c.dccrn.use_cbn:
             raise NotImplementedError(f"DCCRN use_cbn=True {NOT_PORTED}")
         if not c.skip_type:
@@ -79,6 +80,7 @@ class DCCRN(nn.Module):
                 "compute_dtype='bfloat16' is not ported yet (ROADMAP.md, Queue 1: bf16 streams)"
             )
         self.masking_mode = c.masking_mode
+        self.real_lstm = c.lstm == "real"
         self.fft_len = c.stft.fft_len
         s = c.stft
         self.stft = ConvSTFT(s.win_len, s.win_inc, s.fft_len, s.window)
@@ -99,15 +101,21 @@ class DCCRN(nn.Module):
 
         hidden_dim = self.fft_len // (2 ** len(kernel_num))
         units, layers = c.dccrn.rnn_units, c.dccrn.rnn_layers
-        self.enhance = nn.ModuleList(
-            NavieComplexLSTM(
-                input_size=hidden_dim * kernel_num[-1] if idx == 0 else units,
-                hidden_size=units,
-                projection_dim=hidden_dim * kernel_num[-1] if idx == layers - 1 else None,
-                generator=generator,
+        width = hidden_dim * kernel_num[-1]
+        if self.real_lstm:
+            # two layers whatever rnn_layers says, as the reference builds it
+            self.enhance = TorchLSTM(width, units, num_layers=2, generator=generator)
+            self.tranform = TorchLinear(units, width, generator=generator)
+        else:
+            self.enhance = nn.ModuleList(
+                NavieComplexLSTM(
+                    input_size=width if idx == 0 else units,
+                    hidden_size=units,
+                    projection_dim=width if idx == layers - 1 else None,
+                    generator=generator,
+                )
+                for idx in range(layers)
             )
-            for idx in range(layers)
-        )
 
         decoder = []
         for idx in range(n_stage, 0, -1):
@@ -139,13 +147,18 @@ class DCCRN(nn.Module):
 
         B, C, D, T = out.shape
         out = out.permute(3, 0, 1, 2)  # [T, B, C, D]
-        r_in = out[:, :, : C // 2].reshape(T, B, C // 2 * D)
-        i_in = out[:, :, C // 2 :].reshape(T, B, C // 2 * D)
-        for rnn in self.enhance:
-            r_in, i_in = rnn([r_in, i_in])
-        out = torch.cat(
-            [r_in.reshape(T, B, C // 2, D), i_in.reshape(T, B, C // 2, D)], dim=2
-        ).permute(1, 2, 3, 0)  # [B, C, D, T]
+        if self.real_lstm:
+            out = self.tranform(self.enhance(out.reshape(T, B, C * D)))
+            out = out.reshape(T, B, C, D)
+        else:
+            r_in = out[:, :, : C // 2].reshape(T, B, C // 2 * D)
+            i_in = out[:, :, C // 2 :].reshape(T, B, C // 2 * D)
+            for rnn in self.enhance:
+                r_in, i_in = rnn([r_in, i_in])
+            out = torch.cat(
+                [r_in.reshape(T, B, C // 2, D), i_in.reshape(T, B, C // 2, D)], dim=2
+            )
+        out = out.permute(1, 2, 3, 0)  # [B, C, D, T]
 
         for idx, stage in enumerate(self.decoder):
             out = complex_cat([out, encoder_out[-1 - idx]], 1)

@@ -145,6 +145,42 @@ class ComplexConvTranspose2d(nn.Module):
         )
 
 
+class RealConv2d(nn.Module):
+    """``nn.Conv2d`` held as ``.conv``, the reference's wrapper: time is
+    padded on the left only (causal), frequency inside the conv."""
+
+    def __init__(self, in_channels, out_channels, kernel_size=(1, 1), stride=(1, 1),
+                 padding=(0, 0), *, generator: torch.Generator):
+        super().__init__()
+        self.stride, self.padding = tuple(stride), tuple(padding)
+        self.conv = _ConvWeights((out_channels, in_channels, *kernel_size), out_channels,
+                                 generator)
+
+    def forward(self, x):
+        ph, pw = self.padding
+        x = F.pad(x, (pw, 0))
+        return conv_ops.conv2d(x, self.conv.weight, self.conv.bias, stride=self.stride,
+                               padding=(ph, 0))
+
+
+class RealConvTranspose2d(nn.Module):
+    """``nn.ConvTranspose2d`` held as ``.conv``, the reference's wrapper."""
+
+    def __init__(self, in_channels, out_channels, kernel_size=(1, 1), stride=(1, 1),
+                 padding=(0, 0), output_padding=(0, 0), *, generator: torch.Generator):
+        super().__init__()
+        self.stride, self.padding = tuple(stride), tuple(padding)
+        self.output_padding = tuple(output_padding)
+        self.conv = _ConvWeights((in_channels, out_channels, *kernel_size), out_channels,
+                                 generator)
+
+    def forward(self, x):
+        return conv_ops.conv_transpose2d(
+            x, self.conv.weight, self.conv.bias, stride=self.stride, padding=self.padding,
+            output_padding=self.output_padding,
+        )
+
+
 def complex_cat(inputs: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
     """Concatenate complex tensors keeping the real-block || imaginary-block
     layout: all real halves first, then all imaginary halves."""
@@ -208,3 +244,37 @@ class NavieComplexLSTM(nn.Module):
             real_out = self.r_trans(real_out)
             imag_out = self.i_trans(imag_out)
         return [real_out, imag_out]
+
+
+class TorchLSTM(nn.Module):
+    """Multi-layer unidirectional ``nn.LSTM`` (sequence-major ``[T, B, In]``)
+    under its parameter names ``weight_ih_l{k}``, ``weight_hh_l{k}``,
+    ``bias_ih_l{k}`` and ``bias_hh_l{k}``, with its init U(+-1/sqrt(H)).
+    Each layer is one call of :func:`rnn_ops.lstm` from a zero state."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
+                 dropout: float = 0.0, *, generator: torch.Generator):
+        super().__init__()
+        self.num_layers, self.dropout = num_layers, dropout
+        bound = 1.0 / math.sqrt(hidden_size)
+        G = 4 * hidden_size
+        for k in range(num_layers):
+            in_size = input_size if k == 0 else hidden_size
+            for name, shape in ((f"weight_ih_l{k}", (G, in_size)),
+                                (f"weight_hh_l{k}", (G, hidden_size)),
+                                (f"bias_ih_l{k}", (G,)), (f"bias_hh_l{k}", (G,))):
+                setattr(self, name, nn.Parameter(_uniform(generator, shape, bound)))
+
+    def forward(self, x):
+        if self.training and self.dropout > 0 and self.num_layers > 1:
+            raise NotImplementedError(
+                "TorchLSTM dropout between layers is not ported yet "
+                "(ROADMAP.md, Queue 1 item 10: FullSubNet)"
+            )
+        for k in range(self.num_layers):
+            params = rnn_ops.LstmParams(
+                getattr(self, f"weight_ih_l{k}"), getattr(self, f"weight_hh_l{k}"),
+                getattr(self, f"bias_ih_l{k}"), getattr(self, f"bias_hh_l{k}"),
+            )
+            x, _ = rnn_ops.lstm(params, x)
+        return x

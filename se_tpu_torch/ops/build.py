@@ -1,10 +1,11 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build, load and launch the port's hand-written CUDA kernels.
 
-Each ``se_tpu_torch/csrc/<name>.cu`` has a plain C interface.  At first
-use it is compiled by ``nvcc`` for ``sm_90a`` into
-``build/kernels/lib<name>-<digest>.so`` beside the package (the digest
-covers the source and the flags, so an edited source builds anew) and
-loaded with ``ctypes``.  Nothing is compiled when a module is imported.
+Each ``se_tpu_torch/csrc/<name>.cu`` has a plain C interface and may
+include the shared ``csrc/*.cuh`` headers.  At first use it is compiled by
+``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<digest>.so``
+beside the package (the digest covers the source, the headers and the
+flags, so an edited source builds anew) and loaded with ``ctypes``.
+Nothing is compiled when a module is imported.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -33,6 +36,7 @@ def kernel_names() -> list:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -75,10 +79,39 @@ def build(names=None) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``, built first if needed.  Every
+    library exports ``se_cuda_error_string`` (``csrc/lstm_common.cuh``)."""
     lib = _LOADED.get(name)
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
+        lib.se_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.se_cuda_error_string.restype = ctypes.c_char_p
         _LOADED[name] = lib
     return lib
+
+
+def cuda_launch(lib, fn_name, tensors, names, outs, dims, dev):
+    """Check the inputs' device, type and contiguity, launch
+    ``lib.<fn_name>(*inputs, *outs, *dims, device, stream)`` on the current
+    stream, and raise on a CUDA error.  ``outs`` may hold None for a null
+    pointer."""
+    if dev.type != "cuda":
+        raise ValueError(f"{fn_name} runs on cuda or cpu, not {dev}")
+    for name, t in zip(names, tensors):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    ptrs = [t.data_ptr() for t in tensors] + [
+        None if o is None else o.data_ptr() for o in outs
+    ]
+    rc = getattr(lib, fn_name)(
+        *ptrs, *dims, index, torch.cuda.current_stream(dev).cuda_stream
+    )
+    if rc:
+        msg = lib.se_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {rc} ({msg})")

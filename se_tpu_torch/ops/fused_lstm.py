@@ -113,34 +113,7 @@ def _library():
             [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         )
         lib.se_lstm_scan_bwd_f32.restype = ctypes.c_int
-        lib.se_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.se_cuda_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _cuda_launch(fn_name, tensors, names, outs, dims, dev):
-    """Check the inputs' device, type and contiguity, launch
-    ``lib.<fn_name>`` on the current stream, and raise on a CUDA error."""
-    if dev.type != "cuda":
-        raise ValueError(f"fused_lstm_scan runs on cuda or cpu, not {dev}")
-    for name, t in zip(names, tensors):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    lib = _library()
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    ptrs = [t.data_ptr() for t in tensors] + [
-        None if o is None else o.data_ptr() for o in outs
-    ]
-    rc = getattr(lib, fn_name)(
-        *ptrs, *dims, index, torch.cuda.current_stream(dev).cuda_stream
-    )
-    if rc:
-        msg = lib.se_cuda_error_string(rc).decode()
-        raise RuntimeError(f"lstm_scan kernel launch failed: CUDA error {rc} ({msg})")
 
 
 def _forward(x_proj, w_hh_t, h0, c0, need_cs):
@@ -154,8 +127,8 @@ def _forward(x_proj, w_hh_t, h0, c0, need_cs):
     new = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
     ys, hT, cT = new(T, L, Bb, H), new(L, Bb, H), new(L, Bb, H)
     cs = new(T, L, Bb, H) if need_cs else None
-    _cuda_launch(
-        "se_lstm_scan_fwd_f32", (x_proj, w_hh_t, h0, c0),
+    build.cuda_launch(
+        _library(), "se_lstm_scan_fwd_f32", (x_proj, w_hh_t, h0, c0),
         ("x_proj", "w_hh_t", "h0", "c0"), (ys, cs, hT, cT), (T, L, Bb, H), dev,
     )
     fused_lstm_scan.launches += 1
@@ -186,8 +159,8 @@ def fused_lstm_scan_backward(x_proj, w_hh_t, h0, c0, ys, cs, dys, dhT, dcT):
         )
     new = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
     dxp, dw, dh0, dc0 = new(T, L, Bb, G), new(L, H, G), new(L, Bb, H), new(L, Bb, H)
-    _cuda_launch(
-        "se_lstm_scan_bwd_f32", (x_proj, w_hh_t, h0, c0, ys, cs, dys, dhT, dcT),
+    build.cuda_launch(
+        _library(), "se_lstm_scan_bwd_f32", (x_proj, w_hh_t, h0, c0, ys, cs, dys, dhT, dcT),
         ("x_proj", "w_hh_t", "h0", "c0", "ys", "cs", "dys", "dhT", "dcT"),
         (dxp, dw, dh0, dc0), (T, L, Bb, H), dev,
     )

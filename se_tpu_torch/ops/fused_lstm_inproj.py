@@ -1,0 +1,239 @@
+"""Fused LSTM scan with the input projection inside the kernel: the
+hand-written CUDA kernels ``csrc/lstm_inproj.cu`` (forward and backward)
+and their plain PyTorch versions.
+
+Counterpart of ``fused_lstm_scan_inproj`` in ``se_tpu/ops/pallas_lstm.py``.
+Each step forms ``gates = x[t] @ w_ih_t + h @ w_hh_t + bias`` itself, so
+the ``[T, Bb, 4H]`` projection never exists in device memory.  As there,
+the plain call (inference) writes no cell-state stash; when an input needs
+a gradient, the call goes through a ``torch.autograd.Function`` whose
+forward also writes the stash ``cs`` and whose backward recomputes the
+gates from ``(x, h_prev)``.  The kernels' design and what bounds them are
+described at the top of their source.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+
+def _gates(x_t, w_ih_t, bias, h, w_hh_t):
+    return torch.bmm(x_t, w_ih_t) + torch.bmm(h, w_hh_t) + bias[:, None, :]
+
+
+def _reference_forward(x, w_ih_t, bias, w_hh_t, h0, c0, need_cs):
+    """The plain recurrence -> ``(ys, cs or None, hT, cT)``."""
+    H = h0.shape[-1]
+    h, c = h0.float(), c0.float()
+    w_ih, w_hh, b = w_ih_t.float(), w_hh_t.float(), bias.float()
+    ys, cs = [], []
+    for t in range(x.shape[0]):
+        gates = _gates(x[t].float(), w_ih, b, h, w_hh)
+        i = torch.sigmoid(gates[..., 0 * H : 1 * H])
+        f = torch.sigmoid(gates[..., 1 * H : 2 * H])
+        g = torch.tanh(gates[..., 2 * H : 3 * H])
+        o = torch.sigmoid(gates[..., 3 * H : 4 * H])
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        ys.append(h.to(x.dtype))
+        if need_cs:
+            cs.append(c)
+    return torch.stack(ys), torch.stack(cs) if need_cs else None, h, c
+
+
+def fused_lstm_scan_inproj_reference(x, w_ih_t, bias, w_hh_t, h0, c0):
+    """The plain recurrence: ``x [T, L, Bb, In]``, ``w_ih_t [L, In, 4H]``,
+    ``bias [L, 4H]`` (``b_ih + b_hh``), ``w_hh_t [L, H, 4H]``,
+    ``h0``/``c0 [L, Bb, H]`` -> ``(ys [T, L, Bb, H] in x's dtype, (hT, cT)
+    f32)``.  Gate order i, f, g, o; the carry and the gate math are f32."""
+    ys, _, hT, cT = _reference_forward(x, w_ih_t, bias, w_hh_t, h0, c0, need_cs=False)
+    return ys, (hT, cT)
+
+
+def fused_lstm_scan_inproj_backward_reference(x, w_ih_t, bias, w_hh_t, h0, c0,
+                                              ys, cs, dys, dhT, dcT):
+    """The plain backward, step by step as the Pallas ``_bwd_inproj_kernel``:
+    the forward's inputs, its ``ys`` and stash ``cs [T, L, Bb, H]``, and
+    the cotangents of ``(ys, hT, cT)`` -> ``(dx, dw_ih_t, dbias, dw_hh_t,
+    dh0, dc0)``."""
+    T = x.shape[0]
+    H = h0.shape[-1]
+    w_ih, w_hh, b = w_ih_t.float(), w_hh_t.float(), bias.float()
+    dh, dc = dhT.float(), dcT.float()
+    dw_ih, dw_hh = torch.zeros_like(w_ih), torch.zeros_like(w_hh)
+    db = torch.zeros_like(b)
+    dxs = []
+    for t in range(T - 1, -1, -1):
+        x_t = x[t].float()
+        h_prev = h0 if t == 0 else ys[t - 1].float()
+        c_prev = c0 if t == 0 else cs[t - 1]
+        gates = _gates(x_t, w_ih, b, h_prev, w_hh)
+        i = torch.sigmoid(gates[..., 0 * H : 1 * H])
+        f = torch.sigmoid(gates[..., 1 * H : 2 * H])
+        g = torch.tanh(gates[..., 2 * H : 3 * H])
+        o = torch.sigmoid(gates[..., 3 * H : 4 * H])
+        tanh_c = torch.tanh(cs[t])
+        dh = dys[t].float() + dh
+        do = dh * tanh_c * o * (1.0 - o)
+        dc = dc + dh * o * (1.0 - tanh_c * tanh_c)
+        di = dc * g * i * (1.0 - i)
+        df = dc * c_prev * f * (1.0 - f)
+        dg = dc * i * (1.0 - g * g)
+        dgates = torch.cat([di, df, dg, do], dim=-1)  # [L, Bb, 4H]
+        dxs.append(torch.bmm(dgates, w_ih.transpose(1, 2)).to(x.dtype))
+        dw_ih = dw_ih + torch.bmm(x_t.transpose(1, 2), dgates)
+        db = db + dgates.sum(1)
+        dw_hh = dw_hh + torch.bmm(h_prev.transpose(1, 2), dgates)
+        dh = torch.bmm(dgates, w_hh.transpose(1, 2))
+        dc = dc * f
+    return torch.stack(dxs[::-1]), dw_ih, db, dw_hh, dh, dc
+
+
+def _check(x, w_ih_t, bias, w_hh_t, h0, c0):
+    if x.ndim != 4:
+        raise ValueError(f"x must be [T, L, Bb, In], got {tuple(x.shape)}")
+    T, L, Bb, In = x.shape
+    if T < 1:
+        raise ValueError("x must hold at least one step")
+    if w_hh_t.ndim != 3 or w_hh_t.shape[-1] != 4 * w_hh_t.shape[-2]:
+        raise ValueError(f"w_hh_t must be [L, H, 4H], got {tuple(w_hh_t.shape)}")
+    H = w_hh_t.shape[1]
+    G = 4 * H
+    want = {"w_ih_t": (L, In, G), "bias": (L, G), "w_hh_t": (L, H, G),
+            "h0": (L, Bb, H), "c0": (L, Bb, H)}
+    named = (("x", x), ("w_ih_t", w_ih_t), ("bias", bias), ("w_hh_t", w_hh_t),
+             ("h0", h0), ("c0", c0))
+    for name, t in named[1:]:
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} must be {want[name]}, got {tuple(t.shape)}")
+    for name, t in named:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+
+
+def _library():
+    """The built kernel library, with its C signatures declared."""
+    lib = build.load("lstm_inproj")
+    if lib.se_lstm_inproj_fwd_f32.argtypes is None:
+        lib.se_lstm_inproj_fwd_f32.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        )
+        lib.se_lstm_inproj_fwd_f32.restype = ctypes.c_int
+        lib.se_lstm_inproj_bwd_f32.argtypes = (
+            [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        )
+        lib.se_lstm_inproj_bwd_f32.restype = ctypes.c_int
+    return lib
+
+
+_INPUTS = ("x", "w_ih_t", "bias", "w_hh_t", "h0", "c0")
+
+
+def _forward(x, w_ih_t, bias, w_hh_t, h0, c0, need_cs):
+    """``(ys, cs or None, hT, cT)``: the plain version for CPU tensors, the
+    forward kernel for CUDA tensors (counted on ``fused_lstm_scan_inproj``)."""
+    dev = x.device
+    if dev.type == "cpu":
+        return _reference_forward(x, w_ih_t, bias, w_hh_t, h0, c0, need_cs)
+    T, L, Bb, In = x.shape
+    H = h0.shape[-1]
+    new = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
+    ys, hT, cT = new(T, L, Bb, H), new(L, Bb, H), new(L, Bb, H)
+    cs = new(T, L, Bb, H) if need_cs else None
+    build.cuda_launch(
+        _library(), "se_lstm_inproj_fwd_f32", (x, w_ih_t, bias, w_hh_t, h0, c0),
+        _INPUTS, (ys, cs, hT, cT), (T, L, Bb, In, H), dev,
+    )
+    fused_lstm_scan_inproj.launches += 1
+    return ys, cs, hT, cT
+
+
+def fused_lstm_scan_inproj_backward(x, w_ih_t, bias, w_hh_t, h0, c0, ys, cs, dys, dhT, dcT):
+    """Same signature and result as
+    :func:`fused_lstm_scan_inproj_backward_reference`; a cotangent given as
+    None counts as zeros.
+
+    CPU tensors run the plain version.  CUDA tensors launch the backward
+    kernels (the reverse scan, then the deterministic dW_ih, dW_hh and
+    dbias reductions over a ``[T, L, Bb, 4H]`` dgates scratch buffer) on
+    the current stream, or raise: float32 and contiguous only.  Each call
+    that launches adds one to ``fused_lstm_scan_inproj_backward.launches``.
+    """
+    _check(x, w_ih_t, bias, w_hh_t, h0, c0)
+    T, L, Bb, In = x.shape
+    H = h0.shape[-1]
+    G = 4 * H
+    zeros = lambda shape: torch.zeros(shape, device=x.device, dtype=torch.float32)
+    dys = zeros((T, L, Bb, H)) if dys is None else dys
+    dhT = zeros((L, Bb, H)) if dhT is None else dhT
+    dcT = zeros((L, Bb, H)) if dcT is None else dcT
+    for name, t, shape in (("ys", ys, (T, L, Bb, H)), ("cs", cs, (T, L, Bb, H)),
+                           ("dys", dys, (T, L, Bb, H)), ("dhT", dhT, (L, Bb, H)),
+                           ("dcT", dcT, (L, Bb, H))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    dev = x.device
+    if dev.type == "cpu":
+        return fused_lstm_scan_inproj_backward_reference(
+            x, w_ih_t, bias, w_hh_t, h0, c0, ys, cs, dys, dhT, dcT
+        )
+    new = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
+    dx, dw_ih, db, dw_hh = new(T, L, Bb, In), new(L, In, G), new(L, G), new(L, H, G)
+    dh0, dc0, scratch = new(L, Bb, H), new(L, Bb, H), new(T, L, Bb, G)
+    build.cuda_launch(
+        _library(), "se_lstm_inproj_bwd_f32",
+        (x, w_ih_t, bias, w_hh_t, h0, c0, ys, cs, dys, dhT, dcT),
+        (*_INPUTS, "ys", "cs", "dys", "dhT", "dcT"),
+        (dx, dw_ih, db, dw_hh, dh0, dc0, scratch), (T, L, Bb, In, H), dev,
+    )
+    fused_lstm_scan_inproj_backward.launches += 1
+    return dx, dw_ih, db, dw_hh, dh0, dc0
+
+
+class _FusedLstmScanInproj(torch.autograd.Function):
+    """The custom VJP of ``pallas_lstm.fused_lstm_scan_inproj``: the forward
+    keeps ``(x, w_ih_t, bias, w_hh_t, h0, c0, ys, cs)``; the backward maps
+    ``(dys, dhT, dcT)``, zeros where an output was unused, to the six input
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, x, w_ih_t, bias, w_hh_t, h0, c0):
+        ys, cs, hT, cT = _forward(x, w_ih_t, bias, w_hh_t, h0, c0, need_cs=True)
+        ctx.save_for_backward(x, w_ih_t, bias, w_hh_t, h0, c0, ys, cs)
+        return ys, hT, cT
+
+    @staticmethod
+    def backward(ctx, dys, dhT, dcT):
+        cont = lambda t: None if t is None else t.contiguous()
+        return fused_lstm_scan_inproj_backward(
+            *ctx.saved_tensors, cont(dys), cont(dhT), cont(dcT)
+        )
+
+
+def fused_lstm_scan_inproj(x, w_ih_t, bias, w_hh_t, h0, c0):
+    """Same signature and result as :func:`fused_lstm_scan_inproj_reference`.
+
+    CPU tensors run the plain version.  CUDA tensors launch the kernel on
+    the current stream, or raise: float32 and contiguous only.  Each launch
+    adds one to ``fused_lstm_scan_inproj.launches``.  When gradients are on
+    and an input requires one, the call also writes the cell-state stash
+    and its backward is :func:`fused_lstm_scan_inproj_backward`; otherwise
+    no stash is allocated.
+    """
+    args = (x, w_ih_t, bias, w_hh_t, h0, c0)
+    _check(*args)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        ys, hT, cT = _FusedLstmScanInproj.apply(*args)
+        return ys, (hT, cT)
+    ys, _, hT, cT = _forward(*args, need_cs=False)
+    return ys, (hT, cT)
+
+
+fused_lstm_scan_inproj.launches = 0
+fused_lstm_scan_inproj_backward.launches = 0

@@ -1,14 +1,19 @@
-"""Stacked LSTMs with torch weight semantics (counterpart of ``LstmParams``,
-``_scan_or_pallas`` and ``lstm_stack`` of ``se_tpu/ops/rnn.py``, f32 path).
+"""LSTMs with torch weight semantics (counterpart of ``LstmParams``,
+``lstm``, ``_scan_or_pallas`` and ``lstm_stack`` of ``se_tpu/ops/rnn.py``,
+f32 path).
 
-The input projection of all time steps is one product outside the
-recurrence; the recurrence itself goes to the fused scan of
-``fused_lstm.py``, which launches the CUDA kernel for CUDA tensors and runs
-the plain loop (the JAX package's ``_lstm_scan``) for CPU tensors.
-Gradients reach ``w_hh`` and the initial state through the scan's backward
-(the K1b kernel on the card) and ``w_ih``, the biases and the input through
-torch's autograd of the product and the bias add, which the JAX package
-also leaves outside its kernel.
+``lstm_stack`` (the complex LSTM's stacks): the input projection of all
+time steps is one product outside the recurrence; the recurrence itself
+goes to the fused scan of ``fused_lstm.py``, which launches the CUDA kernel
+for CUDA tensors and runs the plain loop (the JAX package's ``_lstm_scan``)
+for CPU tensors.  Gradients reach ``w_hh`` and the initial state through
+the scan's backward (the K1b kernel on the card) and ``w_ih``, the biases
+and the input through torch's autograd of the product and the bias add,
+which the JAX package also leaves outside its kernel.
+
+``lstm`` (one layer of ``nn.LSTM``): the whole layer, projection included,
+goes to ``fused_lstm_inproj.py`` (the K2 kernels on the card), as the JAX
+package's Pallas branch hands it to ``fused_lstm_scan_inproj``.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from .fused_lstm import fused_lstm_scan
+from .fused_lstm_inproj import fused_lstm_scan_inproj
 
 
 class LstmParams(NamedTuple):
@@ -57,3 +63,25 @@ def lstm_stack(params: LstmParams, x, state=None):
     h0, c0 = state if state is not None else (None, None)
     ys, final = _scan(x_proj, params.w_hh, H, h0, c0)
     return ys.transpose(0, 1), final
+
+
+def lstm(params: LstmParams, x, h0=None, c0=None):
+    """One unidirectional LSTM layer: ``x [T, B, In]`` -> ``(ys [T, B, H],
+    (hT, cT))``, ``h0``/``c0 [B, H]`` (zeros when None).  float32 only."""
+    if x.dtype != torch.float32:
+        raise NotImplementedError(
+            "lstm runs float32 only; bf16 streams are ROADMAP.md, Queue 1 item 6"
+        )
+    T, B, _ = x.shape
+    H = params.w_hh.shape[1]
+    h0 = x.new_zeros((B, H)) if h0 is None else h0
+    c0 = x.new_zeros((B, H)) if c0 is None else c0
+    ys, (hT, cT) = fused_lstm_scan_inproj(
+        x[:, None].contiguous(),
+        params.w_ih.T[None].contiguous(),
+        (params.b_ih + params.b_hh)[None],
+        params.w_hh.T[None].contiguous(),
+        h0[None].contiguous(),
+        c0[None].contiguous(),
+    )
+    return ys[:, 0], (hT[0], cT[0])

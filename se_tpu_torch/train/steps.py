@@ -1,5 +1,6 @@
-"""Train and validation steps (counterpart of the masking variant of
-``make_train_step`` and ``make_eval_step`` in ``se_tpu/train/steps.py``)."""
+"""Train and validation steps (counterpart of the masking and
+``crn_direct`` variants of ``make_train_step`` and ``make_eval_step`` in
+``se_tpu/train/steps.py``)."""
 
 from __future__ import annotations
 
@@ -13,8 +14,8 @@ _NOT_PORTED = {
     "perceptual": "Queue 1 item 9",
     "fullsubnet": "Queue 1 item 10",
     "dccrn_direct": "Queue 1 item 7",
-    "crn_direct": "Queue 1 item 8",
 }
+_PORTED = ("masking", "crn_direct")
 
 
 def trainer_variant(cfg: Config) -> str:
@@ -28,12 +29,24 @@ def trainer_variant(cfg: Config) -> str:
     return "masking"
 
 
-def _require_masking(cfg: Config, what: str):
+def _require_ported(cfg: Config, what: str) -> str:
     variant = trainer_variant(cfg)
-    if variant != "masking":
+    if variant not in _PORTED:
         raise NotImplementedError(
             f"the {variant!r} {what} is not ported yet (ROADMAP.md, {_NOT_PORTED[variant]})"
         )
+    return variant
+
+
+def _loss_and_outputs(cfg: Config, variant: str, model, inputs, targets):
+    """The variant's loss and the enhanced waveforms: ``masking`` scores the
+    waveform against the clean one; ``crn_direct`` scores CRN's magnitude
+    against the clean magnitude."""
+    if variant == "crn_direct":
+        out_mag, tgt_mag, outputs = model(inputs, targets)
+        return main_loss(cfg.loss, out_mag, tgt_mag), outputs
+    _, _, outputs = model(inputs)
+    return main_loss(cfg.loss, outputs, targets), outputs
 
 
 def _batch(model: torch.nn.Module, inputs, targets):
@@ -56,7 +69,7 @@ def train_step(cfg: Config, model: torch.nn.Module, optimizer: torch.optim.Optim
     step's scan does.  The averaged gradients are left in each
     parameter's ``.grad``.
     """
-    _require_masking(cfg, "train step")
+    variant = _require_ported(cfg, "train step")
     accum = cfg.train.grad_accum
     inputs, targets = _batch(model, inputs, targets)
     if inputs.shape[0] % accum:
@@ -69,8 +82,7 @@ def train_step(cfg: Config, model: torch.nn.Module, optimizer: torch.optim.Optim
     # accumulation into one would then add to the other as well.
     grads, total = None, 0.0
     for x, y in zip(inputs.chunk(accum), targets.chunk(accum)):
-        _, _, outputs = model(x)
-        loss = main_loss(cfg.loss, outputs, y)
+        loss, _ = _loss_and_outputs(cfg, variant, model, x, y)
         g = torch.autograd.grad(loss, params)
         grads = g if grads is None else [a + b for a, b in zip(grads, g)]
         total = total + loss.detach()
@@ -83,10 +95,9 @@ def train_step(cfg: Config, model: torch.nn.Module, optimizer: torch.optim.Optim
 def eval_step(cfg: Config, model: torch.nn.Module, inputs, targets):
     """Loss and enhanced waveforms of one ``(noisy, clean)`` batch, both
     ``[B, L]``, on the model's device -> ``({"loss": scalar}, wavs [B, L'])``."""
-    _require_masking(cfg, "eval step")
+    variant = _require_ported(cfg, "eval step")
     model.eval()
     with torch.inference_mode():
         inputs, targets = _batch(model, inputs, targets)
-        _, _, outputs = model(inputs)
-        loss = main_loss(cfg.loss, outputs, targets)
+        loss, outputs = _loss_and_outputs(cfg, variant, model, inputs, targets)
     return {"loss": loss}, outputs

@@ -7,7 +7,10 @@ linears).  :func:`dccrn_state_dict_from_jax` maps that tree, given as
 nested dicts of numpy arrays, onto the reference's state-dict grammar
 (``encoder.{i}.0.real_conv.weight``, ``enhance.{l}.real_lstm.weight_ih_l0``,
 ...), which is also the port's module naming, so the port's DCCRN loads it
-with ``load_state_dict(strict=True)``.  A JAX-trained checkpoint reaches
+with ``load_state_dict(strict=True)``; :func:`crn_state_dict_from_jax` does
+the same for CRN (``encoder.{i}.0.conv.weight``, ``enhance.weight_ih_l0``,
+``tranform.weight``, ...), and :func:`state_dict_from_jax` picks by
+``cfg.model``.  A JAX-trained checkpoint reaches
 the card through the ``{'model', 'optimizer', 'epoch'}`` blob that
 ``python -m se_tpu.utils.torch_export`` writes, read by
 :func:`load_reference_checkpoint`.
@@ -63,12 +66,16 @@ def _stage_count(params, section: str) -> int:
     return sum(1 for k in params if k.startswith(f"{section}_") and k.endswith("_conv"))
 
 
+def _real_lstm_bottleneck(out, params):
+    """``enhance`` (a ``TorchLSTM``) and ``tranform`` (a ``TorchLinear``)."""
+    for leaf, arr in params["enhance"].items():
+        out[f"enhance.{leaf}"] = arr
+    out["tranform.weight"] = params["tranform"]["weight"]
+    out["tranform.bias"] = params["tranform"]["bias"]
+
+
 def dccrn_state_dict_from_jax(params, batch_stats, cfg: Config) -> Dict[str, torch.Tensor]:
     """JAX DCCRN ``params``/``batch_stats`` trees -> reference-grammar state dict."""
-    if "tranform" in params:
-        raise NotImplementedError(
-            "DCCRN lstm='real' is not ported yet (ROADMAP.md, Queue 1)"
-        )
     out = {}
     for i in range(_stage_count(params, "encoder")):
         c = params[f"encoder_{i}_conv"]
@@ -78,6 +85,8 @@ def dccrn_state_dict_from_jax(params, batch_stats, cfg: Config) -> Dict[str, tor
         _bn(out, f"encoder.{i}.1", f"encoder_{i}_bn", params, batch_stats)
         out[f"encoder.{i}.2.weight"] = params[f"encoder_{i}_prelu"]["weight"]
 
+    if "tranform" in params:  # lstm="real"
+        _real_lstm_bottleneck(out, params)
     li = 0
     while f"enhance_{li}" in params:
         blk = params[f"enhance_{li}"]
@@ -103,30 +112,115 @@ def dccrn_state_dict_from_jax(params, batch_stats, cfg: Config) -> Dict[str, tor
     return {k: _tensor(v) for k, v in out.items()}
 
 
+def crn_state_dict_from_jax(params, batch_stats, cfg: Config) -> Dict[str, torch.Tensor]:
+    """JAX CRN ``params``/``batch_stats`` trees -> reference-grammar state
+    dict (skip connections only, the variant the port builds)."""
+    if not cfg.skip_type:
+        raise NotImplementedError(
+            "CRN skip_type=False is not ported yet (ROADMAP.md, Queue 1 item 8)"
+        )
+    out = {}
+    for section in ("encoder", "decoder"):
+        for i in range(_stage_count(params, section)):
+            c = params[f"{section}_{i}_conv"]
+            out[f"{section}.{i}.0.conv.weight"] = c["weight"]
+            out[f"{section}.{i}.0.conv.bias"] = c["bias"]
+            if f"{section}_{i}_bn" in params:
+                _bn(out, f"{section}.{i}.1", f"{section}_{i}_bn", params, batch_stats)
+                out[f"{section}.{i}.2.weight"] = params[f"{section}_{i}_prelu"]["weight"]
+        if section == "encoder":
+            _real_lstm_bottleneck(out, params)
+    out.update(_conv_stft_buffers(cfg.stft.win_len, cfg.stft.fft_len))
+    return {k: _tensor(v) for k, v in out.items()}
+
+
+def state_dict_from_jax(params, batch_stats, cfg: Config) -> Dict[str, torch.Tensor]:
+    """JAX ``params``/``batch_stats`` trees of ``cfg.model`` -> reference-grammar
+    state dict."""
+    convert = {"DCCRN": dccrn_state_dict_from_jax, "CRN": crn_state_dict_from_jax}
+    if cfg.model not in convert:
+        raise NotImplementedError(
+            f"model {cfg.model!r} is not ported yet (ROADMAP.md, Queue 1 item 10)"
+        )
+    return convert[cfg.model](params, batch_stats, cfg)
+
+
+class _Draw:
+    """The initial values of ``random_*_params``, from one numpy generator."""
+
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+
+    def normal(self, shape, std):
+        return (self.rng.standard_normal(shape) * std).astype(np.float32)
+
+    def uniform(self, shape, bound):
+        return self.rng.uniform(-bound, bound, shape).astype(np.float32)
+
+    def batch_norm(self, params, bstats, name, n):
+        """Affine terms and running statistics away from 1 and 0."""
+        params[name] = {"weight": 1 + self.normal(n, 0.1), "bias": self.normal(n, 0.1)}
+        bstats[name] = {"running_mean": self.normal(n, 0.1),
+                        "running_var": self.rng.uniform(0.5, 1.5, n).astype(np.float32)}
+
+    def torch_lstm(self, input_size, hidden_size, num_layers):
+        """``TorchLSTM`` leaves, U(+-1/sqrt(H)), in flax's order."""
+        b, G = 1.0 / np.sqrt(hidden_size), 4 * hidden_size
+        out = {}
+        for k in range(num_layers):
+            in_size = input_size if k == 0 else hidden_size
+            out[f"weight_ih_l{k}"] = self.uniform((G, in_size), b)
+            out[f"weight_hh_l{k}"] = self.uniform((G, hidden_size), b)
+            out[f"bias_ih_l{k}"] = self.uniform((G,), b)
+            out[f"bias_hh_l{k}"] = self.uniform((G,), b)
+        return out
+
+    def linear(self, in_features, out_features):
+        b = 1.0 / np.sqrt(in_features)
+        return {"weight": self.uniform((out_features, in_features), b),
+                "bias": self.uniform((out_features,), b)}
+
+
+def random_crn_params(cfg: Config, seed: int = 0):
+    """A CRN ``(params, batch_stats)`` tree in the JAX package's layout,
+    drawn from ``numpy.random.default_rng(seed)`` as
+    :func:`random_dccrn_params` draws DCCRN's."""
+    d = _Draw(seed)
+    params, bstats = {}, {}
+    kn = (2,) + tuple(cfg.dccrn.kernel_num)
+    ks = cfg.crn.kernel_size
+    n_stage = len(kn) - 1
+
+    def stage(section, i, w_shape, co, bn):
+        params[f"{section}_{i}_conv"] = {"weight": d.normal(w_shape, 0.05),
+                                         "bias": d.normal(co, 0.05)}
+        if bn:
+            d.batch_norm(params, bstats, f"{section}_{i}_bn", co)
+            params[f"{section}_{i}_prelu"] = {"weight": np.full((1,), 0.25, np.float32)}
+
+    for i in range(n_stage):
+        stage("encoder", i, (kn[i + 1] // 2, kn[i] // 2, ks, 2), kn[i + 1] // 2, True)
+    H = cfg.crn.rnn_units // 2
+    params["enhance"] = d.torch_lstm(cfg.crn.rnn_input_size, H, 1)
+    params["tranform"] = d.linear(H, cfg.crn.rnn_input_size)
+    for n, idx in enumerate(range(n_stage, 0, -1)):
+        # input: kn[idx] // 2 channels doubled by the skip
+        stage("decoder", n, (kn[idx], kn[idx - 1] // 2, ks, 2), kn[idx - 1] // 2, idx != 1)
+    return params, bstats
+
+
 def random_dccrn_params(cfg: Config, seed: int = 0):
     """A DCCRN ``(params, batch_stats)`` tree in the JAX package's layout,
     drawn from ``numpy.random.default_rng(seed)``: the reference's
     initialisation for conv, LSTM and linear weights; conv biases, BatchNorm
     affine terms and running statistics away from their zero or identity
     initial values, so that a test of them can fail."""
-    rng = np.random.default_rng(seed)
-    f32 = np.float32
-
-    def normal(shape, std):
-        return (rng.standard_normal(shape) * std).astype(f32)
-
-    def uniform(shape, bound):
-        return rng.uniform(-bound, bound, shape).astype(f32)
-
+    d = _Draw(seed)
     params, bstats = {}, {}
 
-    def bn(name, n):
-        params[name] = {"weight": 1 + normal(n, 0.1), "bias": normal(n, 0.1)}
-        bstats[name] = {"running_mean": normal(n, 0.1),
-                        "running_var": rng.uniform(0.5, 1.5, n).astype(f32)}
-
     def conv(name, w_shape, co):
-        params[name] = {f"{p}_{k}": (normal(w_shape, 0.05) if k == "weight" else normal(co, 0.05))
+        params[name] = {f"{p}_{k}": (d.normal(w_shape, 0.05) if k == "weight"
+                                     else d.normal(co, 0.05))
                         for p in ("real", "imag") for k in ("weight", "bias")}
 
     kn = (2,) + tuple(cfg.dccrn.kernel_num)
@@ -134,32 +228,33 @@ def random_dccrn_params(cfg: Config, seed: int = 0):
     n_stage = len(kn) - 1
     for i in range(n_stage):
         conv(f"encoder_{i}_conv", (kn[i + 1] // 2, kn[i] // 2, ks, 2), kn[i + 1] // 2)
-        bn(f"encoder_{i}_bn", kn[i + 1])
-        params[f"encoder_{i}_prelu"] = {"weight": np.full((1,), 0.25, f32)}
+        d.batch_norm(params, bstats, f"encoder_{i}_bn", kn[i + 1])
+        params[f"encoder_{i}_prelu"] = {"weight": np.full((1,), 0.25, np.float32)}
 
-    hidden_dim = cfg.stft.fft_len // (2 ** len(kn))
+    width = cfg.stft.fft_len // (2 ** len(kn)) * kn[-1]
+    if cfg.lstm == "real":  # two layers, as the JAX model builds it
+        params["enhance"] = d.torch_lstm(width, cfg.dccrn.rnn_units, 2)
+        params["tranform"] = d.linear(cfg.dccrn.rnn_units, width)
     units, layers = cfg.dccrn.rnn_units // 2, cfg.dccrn.rnn_layers
-    for li in range(layers):
-        in_dim = (hidden_dim * kn[-1] if li == 0 else cfg.dccrn.rnn_units) // 2
-        b = 1.0 / np.sqrt(units)
-        blk = {}
-        for part in ("real", "imag"):
-            blk[f"{part}_weight_ih"] = uniform((4 * units, in_dim), b)
-            blk[f"{part}_weight_hh"] = uniform((4 * units, units), b)
-            blk[f"{part}_bias_ih"] = uniform((4 * units,), b)
-            blk[f"{part}_bias_hh"] = uniform((4 * units,), b)
+    for li in range(layers if cfg.lstm == "complex" else 0):
+        in_dim = (width if li == 0 else cfg.dccrn.rnn_units) // 2
+        # flax names these leaves "{part}_weight_ih", without the "_l0"
+        blk = {f"{part}_{leaf[:-3]}": v
+               for part in ("real", "imag")
+               for leaf, v in d.torch_lstm(in_dim, units, 1).items()}
         if li == layers - 1:
-            proj = hidden_dim * kn[-1] // 2
             for trans in ("r_trans", "i_trans"):
-                blk[trans] = {"weight": uniform((proj, units), b), "bias": uniform((proj,), b)}
+                # drawn with the LSTM's bound, 1/sqrt(units)
+                blk[trans] = {"weight": d.uniform((width // 2, units), 1.0 / np.sqrt(units)),
+                              "bias": d.uniform((width // 2,), 1.0 / np.sqrt(units))}
         params[f"enhance_{li}"] = blk
 
-    for d, idx in enumerate(range(n_stage, 0, -1)):
+    for n, idx in enumerate(range(n_stage, 0, -1)):
         co = kn[idx - 1] // 2  # input: kn[idx] channels doubled by the skip, halved
-        conv(f"decoder_{d}_conv", (kn[idx], co, ks, 2), co)
+        conv(f"decoder_{n}_conv", (kn[idx], co, ks, 2), co)
         if idx != 1:
-            bn(f"decoder_{d}_bn", kn[idx - 1])
-            params[f"decoder_{d}_prelu"] = {"weight": np.full((1,), 0.25, f32)}
+            d.batch_norm(params, bstats, f"decoder_{n}_bn", kn[idx - 1])
+            params[f"decoder_{n}_prelu"] = {"weight": np.full((1,), 0.25, np.float32)}
     return params, bstats
 
 
