@@ -15,22 +15,28 @@ in order; any failure ends the run with a nonzero exit and no result line:
    the kernel's bound: the LSTM scan's forward (K1f, enhance shapes) and
    backward (K1b, train shapes) with the forward's cell-state stash, then
    the in-projection LSTM scan's forward (K2f) and backward (K2b) at CRN's
-   enhance and train shapes, DCCRN's real-LSTM shapes, a ragged and a wide
-   (4H = 2048, In = 257) case;
+   enhance and train shapes, DCCRN's real-LSTM shapes, FullSubNet's four
+   LSTM layers (at B = 2, 10 and 8), a ragged and a wide (4H = 2048,
+   In = 257) case, then the in-projection GRU scan's forward (K3f) and
+   backward (K3b) at FullSubNet's four GRU layers (B = 2, 10 and 8) and two
+   ragged cases;
 4. the enhance paths at full width, each with seeded random weights carried
    over from the JAX tree layout: ``enhance_batch`` on 8 three-second
    utterances (every kernel's launch count set to 0 just before and read
    just after), the validation forward, the same weights on the CPU, and
    the enhance CLI as a subprocess; for the default DCCRN, then for CRN
-   (the tutorial configuration), then DCCRN with ``lstm="real"``;
+   (the tutorial configuration), DCCRN with ``lstm="real"``, FullSubNet
+   (its default LSTM) and FullSubNet with ``sequence_model="GRU"``;
 5. the train paths at full width: one ``train_step`` on the card and one on
    the CPU from the same weights (loss, every gradient, the BatchNorm
-   running statistics), the kernels' launch counts read around a step with
-   and without gradient accumulation, then 10 steps at the default batch
-   of 10 on one fixed batch (the loss must fall), with step time,
-   throughput, peak memory and a profile; for the default DCCRN and CRN,
-   plus one CRN direct-mapping step and one DCCRN real-LSTM step against
-   the CPU;
+   running statistics; FullSubNet's dropout set to 0 for this, since two
+   devices draw different masks), the kernels' launch counts read around a
+   step with and without gradient accumulation, then 10 steps at the
+   default batch of 10 on one fixed batch (the loss must fall; FullSubNet
+   with its dropout of 0.8 drawn from a generator on the card), with step
+   time, throughput, peak memory and a profile; for the default DCCRN, CRN
+   and both FullSubNets, plus one CRN direct-mapping step and one DCCRN
+   real-LSTM step against the CPU;
 6. report: one JSON line of kernel numbers, then the result line.
 
 TF32 is off throughout (``resolve_device`` sets it): the reference is f32.
@@ -548,6 +554,214 @@ def phase_inproj_kernels() -> tuple:
                 lambda: m(a[0][:, 0], (a[4], a[5])), iters=10, warmup=2)
     print(f"[k2] DCCRN real LSTM at B=8 (H=256): {dccrn}")
     fwd.update(dccrn)
+
+    # FullSubNet with the LSTM at its own shapes (T=163: 3 s at hop 300 plus
+    # the look-ahead): each layer checked at every batch of its paths, timed
+    # beside cuDNN at the enhance batch (B=8)
+    fsn_fwd, fsn_bwd = {}, {}
+    for label, per_utt, In_l, H_l in _FSN_LAYERS:
+        for B in _FSN_TRAIN_BATCHES:
+            check(f"FullSubNet {label} B={B}", 163, 1, B * per_utt, In_l, H_l)
+        a, ys_l, cs_l, cots_l, f_err, b_rel, _ = check(
+            f"FullSubNet {label} B=8", 163, 1, 8 * per_utt, In_l, H_l)
+        m = _cudnn_lstm(a[1], a[2], a[3], dev)
+        t = _time_scan(
+            lambda: k2.fused_lstm_scan_inproj(*a),
+            lambda: k2.fused_lstm_scan_inproj_backward(*a, ys_l, cs_l, *cots_l),
+            m, (a[0][:, 0], a[4], a[5]), cots_l)
+        fsn_fwd[f"fullsubnet_{label}"] = {"ms": t["fwd_ms"], "library_ms": t["lib_fwd_ms"],
+                                          "max_abs_err": f_err}
+        fsn_bwd[f"fullsubnet_{label}"] = {"ms": t["bwd_ms"], "library_ms": t["lib_bwd_ms"],
+                                          "max_rel_err": b_rel}
+    print(f"[k2] FullSubNet LSTM at B=8 (T=163): forward {fsn_fwd}; backward {fsn_bwd}")
+    fwd.update(fsn_fwd)
+    bwd.update(fsn_bwd)
+    return fwd, bwd
+
+
+# FullSubNet's two sequence models, two layers each, at 3 s (T = 163):
+# (label, rows per utterance, In, H).  The full band runs one row of 257
+# bins an utterance (H = 512); the sub band 257 rows of 2 * 15 + 1 noisy and
+# 2 * 0 + 1 full-band neighbours (In = 32, H = 384).
+_FSN_LAYERS = (("fb l0", 1, 257, 512), ("fb l1", 1, 512, 512),
+               ("sb l0", 257, 32, 384), ("sb l1", 257, 384, 384))
+# the batches of the train paths besides the enhance batch of 8: the card
+# vs CPU step (2) and the 10 steps (the default batch, 10).  At B=10 the
+# last row tile is partial: 10 rows in tiles of 4 at the full band, 2570
+# in tiles of 8 at the sub band (K3), where K3b runs two steps a chunk
+_FSN_TRAIN_BATCHES = (2, 10)
+
+
+def _time_scan(fwd, bwd, lib, lib_inputs, cots) -> dict:
+    """CUDA-event times of a scan's forward and backward kernels and of the
+    cuDNN module ``lib`` (``nn.LSTM`` or ``nn.GRU`` holding the same weights;
+    a yardstick, never on the port's path) on ``lib_inputs`` ``(x, h0[,
+    c0])``: its forward, and forward + backward minus forward for the
+    cotangents ``cots`` ``(dys, dhT[, dcT])`` of stack 0."""
+    with torch.no_grad():
+        fwd_ms = _cuda_ms(fwd, iters=3, warmup=1)
+        bwd_ms = _cuda_ms(bwd, iters=3, warmup=1)
+    leaves = [t.clone().requires_grad_() for t in lib_inputs]
+    state = leaves[1] if len(leaves) == 2 else tuple(leaves[1:])
+
+    def lib_forward():
+        return lib(leaves[0], state)
+
+    def lib_forward_backward():
+        out, final = lib_forward()
+        finals = (final,) if len(leaves) == 2 else final
+        return torch.autograd.grad(
+            (out, *finals), (*leaves, *lib.parameters()),
+            (cots[0][:, 0], *cots[1:]),
+        )
+
+    lib_fwd_ms = _cuda_ms(lib_forward, iters=3, warmup=1)
+    lib_bwd_ms = _cuda_ms(lib_forward_backward, iters=3, warmup=1) - lib_fwd_ms
+    return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "lib_fwd_ms": lib_fwd_ms,
+            "lib_bwd_ms": lib_bwd_ms}
+
+
+def _gru_inputs(rng, dev, T, L, Bb, In, H):
+    """x, w_ih_t, b_ih, w_hh_t, b_hh (torch's init range), nonzero h0."""
+    k = 1 / np.sqrt(H)
+    host = [
+        rng.standard_normal((T, L, Bb, In)),
+        rng.uniform(-k, k, (L, In, 3 * H)),
+        rng.uniform(-k, k, (L, 3 * H)),
+        rng.uniform(-k, k, (L, H, 3 * H)),
+        rng.uniform(-k, k, (L, 3 * H)),
+        rng.standard_normal((L, Bb, H)) * 0.5,
+    ]
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in host]
+
+
+def _cudnn_gru(w_ih_t, b_ih, w_hh_t, b_hh, dev):
+    """Yardstick only, never called by the port: a cuDNN ``nn.GRU(In, H)``
+    holding stack 0's weights, which computes the GRU scan's function."""
+    In, H = w_ih_t.shape[1], w_hh_t.shape[1]
+    m = torch.nn.GRU(In, H).to(dev)
+    with torch.no_grad():
+        m.weight_ih_l0.copy_(w_ih_t[0].T)
+        m.weight_hh_l0.copy_(w_hh_t[0].T)
+        m.bias_ih_l0.copy_(b_ih[0])
+        m.bias_hh_l0.copy_(b_hh[0])
+    return m
+
+
+_K3B_NAMES = ("dx", "dw_ih_t", "db_ih", "dw_hh_t", "db_hh", "dh0")
+
+
+def phase_gru_kernels() -> tuple:
+    """fused_gru_scan_inproj (K3f) and its backward (K3b) at every shape
+    FullSubNet-GRU runs: each of its four layer calls at the train
+    comparison's batch (B=2), the 10 train steps' (B=10) and the enhance
+    batch (B=8), two ragged cases (Bb not a multiple of the row tile, In
+    odd; one with 4 rows a block, one with 8).  Times, with cuDNN's ``nn.GRU`` beside them, at B=8; the
+    headline numbers are the sums over one forward's (or one step's) four
+    calls.  Returns the K3f and K3b entries."""
+    from se_tpu_torch.device import resolve_device
+    from se_tpu_torch.ops import fused_gru_inproj as k3
+
+    dev = resolve_device("cuda")
+    rng = np.random.default_rng(SEED + 3)
+
+    def check(label, T, L, Bb, In, H):
+        """The wrapper's forward against the plain version; the backward
+        against its plain version, two calls bit-identical.  Returns the
+        inputs, the kernel's ys, seeded cotangents and the errors."""
+        args = _gru_inputs(rng, dev, T, L, Bb, In, H)
+        cots = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+                for s in ((T, L, Bb, H), (L, Bb, H))]
+        with torch.no_grad():
+            ys, hT = k3.fused_gru_scan_inproj(*args)
+            ys_p, hT_p = k3.fused_gru_scan_inproj_reference(*args)
+            got = k3.fused_gru_scan_inproj_backward(*args, ys, *cots)
+            again = k3.fused_gru_scan_inproj_backward(*args, ys, *cots)
+            want = k3.fused_gru_scan_inproj_backward_reference(*args, ys, *cots)
+            torch.cuda.synchronize()
+        fwd_errs = {"ys": _max_err(ys, ys_p), "hT": _max_err(hT, hT_p)}
+        rel = {n: _max_err(g, w) / max(w.abs().max().item(), 1e-30)
+               for n, g, w in zip(_K3B_NAMES, got, want)}
+        bwd_abs = max(_max_err(g, w) for g, w in zip(got, want))
+        print(f"[k3] {label} T={T} L={L} Bb={Bb} In={In} H={H}: forward max |kernel - plain| "
+              f"{fwd_errs}; backward max |kernel - plain| / max |plain| {rel}, max abs {bwd_abs}")
+        assert all(np.isfinite(v) and v <= KERNEL_TOL for v in fwd_errs.values()), (label, fwd_errs)
+        assert all(np.isfinite(v) and v <= BWD_REL_TOL for v in rel.values()), (label, rel)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{label}: backward not repeatable"
+        return args, ys, cots, max(fwd_errs.values()), max(rel.values()), bwd_abs
+
+    for case in (("ragged", 9, 3, 5, 33, 32), ("ragged 8-row tiles", 9, 1, 1069, 33, 64)):
+        check(*case)
+    print("[k3] every case: two backward calls bit-identical")
+
+    T = 163
+    per_layer = {}
+    total = dict.fromkeys(("fwd_ms", "bwd_ms", "lib_fwd_ms", "lib_bwd_ms", "plain_fwd_ms",
+                           "plain_bwd_ms", "fwd_bytes", "fwd_flops", "bwd_bytes", "bwd_flops"), 0.0)
+    errs = {"fwd": 0.0, "bwd_rel": 0.0, "bwd_abs": 0.0}
+    for label, per_utt, In, H in _FSN_LAYERS:
+        for B in _FSN_TRAIN_BATCHES:
+            check(f"{label} B={B}", T, 1, B * per_utt, In, H)
+        Bb8 = 8 * per_utt
+        args, ys, cots, f_err, b_rel, b_abs = check(f"{label} B=8", T, 1, Bb8, In, H)
+        errs = {"fwd": max(errs["fwd"], f_err), "bwd_rel": max(errs["bwd_rel"], b_rel),
+                "bwd_abs": max(errs["bwd_abs"], b_abs)}
+        lib = _cudnn_gru(args[1], args[2], args[3], args[4], dev)
+        with torch.no_grad():
+            lib_err = _max_err(lib(args[0][:, 0], args[5])[0], ys[:, 0])
+        print(f"[k3] {label}: max |cuDNN GRU - kernel| ys {lib_err}")
+        t = _time_scan(lambda: k3.fused_gru_scan_inproj(*args),
+                       lambda: k3.fused_gru_scan_inproj_backward(*args, ys, *cots),
+                       lib, (args[0][:, 0], args[5]), cots)
+        with torch.no_grad():
+            t["plain_fwd_ms"] = _cuda_ms(lambda: k3.fused_gru_scan_inproj_reference(*args),
+                                         iters=2, warmup=1)
+            t["plain_bwd_ms"] = _cuda_ms(
+                lambda: k3.fused_gru_scan_inproj_backward_reference(*args, ys, *cots),
+                iters=1, warmup=1)
+        G = 3 * H
+        n_in = sum(a.numel() for a in args)
+        # forward: read the inputs, write ys and hT; backward: read the
+        # inputs, ys, dys and dhT, write the six gradients
+        t["fwd_bytes"] = 4 * (n_in + ys.numel() + args[5].numel())
+        t["fwd_flops"] = 2 * T * Bb8 * (In + H) * G
+        t["bwd_bytes"] = 4 * (2 * n_in + 2 * ys.numel() + args[5].numel())
+        t["bwd_flops"] = 3 * 2 * T * Bb8 * (In + H) * G
+        per_layer[label] = {k: v for k, v in t.items()}
+        for k in total:
+            total[k] += t[k]
+        print(f"[k3] {label} B=8: {t}")
+
+    def bound(n_bytes, flops):
+        bytes_ms, flops_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
+        return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
+
+    f_bound, f_by = bound(total["fwd_bytes"], total["fwd_flops"])
+    b_bound, b_by = bound(total["bwd_bytes"], total["bwd_flops"])
+    print(f"[k3] one FullSubNet-GRU forward's four calls at B=8: kernel {total['fwd_ms']:.4f} ms, "
+          f"plain {total['plain_fwd_ms']:.4f}, cuDNN {total['lib_fwd_ms']:.4f}, bound "
+          f"{f_bound:.4f} ({f_by}: {total['fwd_bytes']:.0f} B, {total['fwd_flops']:.0f} FLOP); "
+          f"backward kernel {total['bwd_ms']:.4f} ms, plain {total['plain_bwd_ms']:.4f}, cuDNN "
+          f"{total['lib_bwd_ms']:.4f}, bound {b_bound:.4f} ({b_by}: {total['bwd_bytes']:.0f} B, "
+          f"{total['bwd_flops']:.0f} FLOP); scratch at sb l1: "
+          f"{4 * T * 2056 * 4 * 384} B")
+    common = {"route": "cuda", "source": "se_tpu_torch/csrc/gru_inproj.cu",
+              "shapes": "sum of FullSubNet-GRU's four layer calls at B=8 x 3 s (T=163)"}
+    fwd = {"name": "fused_gru_scan_inproj_fwd",
+           "replaces": "se_tpu/ops/pallas_lstm.py:702::_gru_call", **common,
+           "max_abs_err": errs["fwd"], "ms": total["fwd_ms"], "kernel_ms": total["fwd_ms"],
+           "plain_ms": total["plain_fwd_ms"], "bound_ms": f_bound, "bound_by": f_by,
+           "library_ms": total["lib_fwd_ms"],
+           "per_layer_ms": {k: v["fwd_ms"] for k, v in per_layer.items()},
+           "per_layer_library_ms": {k: v["lib_fwd_ms"] for k, v in per_layer.items()}}
+    bwd = {"name": "fused_gru_scan_inproj_bwd",
+           "replaces": "se_tpu/ops/pallas_lstm.py:762::_gru_bwd", **common,
+           "max_abs_err": errs["bwd_abs"], "max_rel_err": errs["bwd_rel"],
+           "ms": total["bwd_ms"], "kernel_ms": total["bwd_ms"],
+           "plain_ms": total["plain_bwd_ms"], "bound_ms": b_bound, "bound_by": b_by,
+           "library_ms": total["lib_bwd_ms"],
+           "per_layer_ms": {k: v["bwd_ms"] for k, v in per_layer.items()},
+           "per_layer_library_ms": {k: v["lib_bwd_ms"] for k, v in per_layer.items()}}
     return fwd, bwd
 
 
@@ -574,11 +788,13 @@ def _cancelled_by_batch_norm(state_dict) -> set:
 
 def _counters() -> dict:
     """Every hand kernel's wrapper, by its row in PERF.md's table."""
-    from se_tpu_torch.ops import fused_lstm, fused_lstm_inproj
+    from se_tpu_torch.ops import fused_gru_inproj, fused_lstm, fused_lstm_inproj
 
     return {"K1f": fused_lstm.fused_lstm_scan, "K1b": fused_lstm.fused_lstm_scan_backward,
             "K2f": fused_lstm_inproj.fused_lstm_scan_inproj,
-            "K2b": fused_lstm_inproj.fused_lstm_scan_inproj_backward}
+            "K2b": fused_lstm_inproj.fused_lstm_scan_inproj_backward,
+            "K3f": fused_gru_inproj.fused_gru_scan_inproj,
+            "K3b": fused_gru_inproj.fused_gru_scan_inproj_backward}
 
 
 def _zero_counts():
@@ -602,11 +818,14 @@ def _paths() -> dict:
     from se_tpu_torch.utils.weights import (
         random_crn_params,
         random_dccrn_params,
+        random_fullsubnet_params,
         state_dict_from_jax,
     )
 
     dccrn, real = Config(), Config(lstm="real")
     crn = Config(model="CRN", loss="MSE", lstm="real", masking_mode="E")  # the tutorial config
+    fsn = Config(model="FullSubNet", loss="MSE")
+    fsn_gru = fsn.replace(sequence_model="GRU")
     return {
         "DCCRN": (dccrn, state_dict_from_jax(*random_dccrn_params(dccrn, SEED), dccrn),
                   {"K1f": dccrn.dccrn.rnn_layers}, {"K1b": dccrn.dccrn.rnn_layers},
@@ -615,6 +834,13 @@ def _paths() -> dict:
                 {"K2f": 1}, {"K2b": 1}, ["--model", "CRN"]),
         "DCCRN-real": (real, state_dict_from_jax(*random_dccrn_params(real, SEED), real),
                        {"K2f": 2}, {"K2b": 2}, ["--model", "DCCRN", "--lstm", "real"]),
+        # two layers in each of the full-band and sub-band sequence models
+        "FullSubNet": (fsn, state_dict_from_jax(*random_fullsubnet_params(fsn, SEED), fsn),
+                       {"K2f": 4}, {"K2b": 4}, ["--model", "FullSubNet"]),
+        "FullSubNet-GRU": (fsn_gru, state_dict_from_jax(*random_fullsubnet_params(fsn_gru, SEED),
+                                                        fsn_gru),
+                           {"K3f": 4}, {"K3b": 4},
+                           ["--model", "FullSubNet", "--sequence-model", "GRU"]),
     }
 
 
@@ -623,16 +849,20 @@ def phase_train(label: str, cfg, sd, per_fwd: dict, per_bwd: dict, full: bool) -
     from the same weights, launch counts read around it.  With ``full``,
     also a step with gradient accumulation and the main path: 10 steps at
     the default batch on one fixed batch, the counts read around them, the
-    loss falling.  Returns the launches of the B=2 step and of the 10 steps
+    loss falling (FullSubNet's dropout-free loss of the batch, before and
+    after).  Returns the launches of the B=2 step and of the 10 steps
     (None without ``full``)."""
     import dataclasses
 
     from se_tpu_torch.train.state import create_train_state
-    from se_tpu_torch.train.steps import train_step
+    from se_tpu_torch.train.steps import eval_step, train_step
 
     fs, B, seconds = cfg.stft.fs, cfg.train.batch, 3
     noisy, clean = _utterances(B, seconds, fs)
     per_step = {**per_fwd, **per_bwd}
+    train_cfg = cfg  # the 10 steps: FullSubNet with its dropout
+    if cfg.model == "FullSubNet":  # two devices draw different dropout masks
+        cfg = cfg.replace(fullsubnet=dataclasses.replace(cfg.fullsubnet, dropout=0.0))
 
     # counts read around one train step
     model, opt = create_train_state(cfg, sd, device="cuda")
@@ -674,7 +904,7 @@ def phase_train(label: str, cfg, sd, per_fwd: dict, per_bwd: dict, full: bool) -
           f"(<= 1e-5 of the largest gradient); tolerance {TRAIN_GRAD_TOL}")
     worst_key = max(rel, key=rel.get)
     assert rel[worst_key] <= TRAIN_GRAD_TOL, (worst_key, rel[worst_key])
-    stats_err = max(_max_err(stats[k], cpu_stats[k]) for k in stats)
+    stats_err = max((_max_err(stats[k], cpu_stats[k]) for k in stats), default=0.0)
     print(f"[train {label}] running statistics, card vs cpu: max |diff| {stats_err} "
           f"(tolerance {TRAIN_STATS_TOL})")
     assert stats_err <= TRAIN_STATS_TOL, stats_err
@@ -691,16 +921,23 @@ def phase_train(label: str, cfg, sd, per_fwd: dict, per_bwd: dict, full: bool) -
     # the main path: 10 steps at the default batch on one fixed batch, the
     # counts read around them; the loss must fall
     steps = 10
+    cfg = train_cfg
     model, opt = create_train_state(cfg, sd, device="cuda")
-    train_step(cfg, model, opt, noisy, clean)  # warm-up: cuDNN's algorithm choice
+    # FullSubNet's dropout masks come from a generator on the card
+    gen = torch.Generator(device=next(model.parameters()).device).manual_seed(SEED)
+    train_step(cfg, model, opt, noisy, clean, gen)  # warm-up: cuDNN's algorithm choice
     model, opt = create_train_state(cfg, sd, device="cuda")
+    # dropout at 0.8 makes each step's own loss noisy: FullSubNet's training
+    # is judged on the batch's dropout-free loss before and after the steps
+    dropout = cfg.model == "FullSubNet"
+    before = eval_step(cfg, model, noisy, clean)[0]["loss"].item() if dropout else None
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     losses = []
     _zero_counts()
     t0 = time.perf_counter()
     for _ in range(steps):
-        losses.append(train_step(cfg, model, opt, noisy, clean)["loss"])
+        losses.append(train_step(cfg, model, opt, noisy, clean, gen)["loss"])
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / steps
     main_launches = _counts()
@@ -708,10 +945,17 @@ def phase_train(label: str, cfg, sd, per_fwd: dict, per_bwd: dict, full: bool) -
     print(f"[train {label}] {steps} steps at B={B} x {seconds} s: launches {main_launches}, "
           f"losses {losses}")
     assert main_launches == _expected(per_step, steps), main_launches
-    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
     print(f"[train {label}] {1e3 * step_s:.3f} ms per step, {B / step_s:.2f} utterances/s, "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    _profile(lambda: train_step(cfg, model, opt, noisy, clean), steps=3, top=16)
+    assert all(np.isfinite(losses)), losses
+    if dropout:
+        after = eval_step(cfg, model, noisy, clean)[0]["loss"].item()
+        print(f"[train {label}] dropout-free {cfg.loss} loss of the batch: {before} before "
+              f"the {steps} steps, {after} after")
+        assert after < before, (before, after)
+    else:
+        assert losses[-1] < losses[0], losses
+    _profile(lambda: train_step(cfg, model, opt, noisy, clean, gen), steps=3, top=16)
     return launches, main_launches
 
 
@@ -757,7 +1001,8 @@ def phase_slice(workdir: Path, label: str, cfg, sd, per_forward: dict, cli_args)
           f"launches {launches}")
     assert launches == _expected(per_forward), launches
     assert tuple(wav.shape) == noisy.shape and torch.isfinite(wav).all()
-    assert wav.abs().max().item() <= 1.0
+    if cfg.model != "FullSubNet":  # DCCRN and CRN clip; FullSubNet does not
+        assert wav.abs().max().item() <= 1.0
 
     _zero_counts()
     metrics, eval_wav = eval_step(cfg, model, noisy, clean)
@@ -806,10 +1051,23 @@ def phase_slice(workdir: Path, label: str, cfg, sd, per_forward: dict, cli_args)
     print(r.stdout.strip())
     assert r.returncode == 0, r.stderr[-3000:]
     worst = 0.0
+    # FullSubNet with an offline norm (an utterance-global statistic) needs
+    # room for fft_len / 2 reflected samples past the end
+    offline = cfg.model == "FullSubNet" and cfg.fullsubnet.norm_type.startswith("offline")
+    margin = cfg.stft.fft_len // 2 if offline else 0
     for name, L in lengths.items():
+        # the buffer the CLI should build, made here on its own: zero padded
+        # to whole seconds; with the offline norm, the first fft_len / 2 pad
+        # samples reflect the tail, x[L + k] = x[L - 2 - k], and the frames
+        # from 1 + L // torch_hop on are masked
         x = read_wav(str(workdir / name))[0].astype(np.float32)
-        padded = np.pad(x, (0, -(-L // fs) * fs - L))[None]
-        want = enhance_batch(model, padded)[0, :L].cpu().numpy()
+        buf = np.zeros(-(-(L + margin) // fs) * fs, np.float32)
+        buf[:L] = x
+        frames = None
+        if margin:
+            buf[L : L + margin] = x[L - 1 - margin : L - 1][::-1]
+            frames = np.array([1 + L // cfg.stft.torch_hop])
+        want = enhance_batch(model, buf[None], valid_frames=frames)[0, :L].cpu().numpy()
         want = np.clip(want * 32768, -32768, 32767).astype(np.int16) / 32768.0
         got = read_wav(str(out_dir / name))[0]
         assert got.shape == (L,), got.shape
@@ -826,6 +1084,7 @@ def main() -> int:
     fwd = phase_lstm_kernel()
     bwd, stash_times = phase_lstm_backward()
     k2f, k2b = phase_inproj_kernels()
+    k3f, k3b = phase_gru_kernels()
     paths = _paths()
     build_dir = REPO / "build"
     build_dir.mkdir(exist_ok=True)
@@ -834,7 +1093,8 @@ def main() -> int:
         for label, (cfg, sd, per_fwd, _, cli_args) in paths.items():
             enhanced[label] = phase_slice(Path(tmp), label, cfg, sd, per_fwd, cli_args)
     trained = {}
-    for label, full in (("DCCRN", True), ("CRN", True), ("DCCRN-real", False)):
+    for label, full in (("DCCRN", True), ("CRN", True), ("DCCRN-real", False),
+                        ("FullSubNet", True), ("FullSubNet-GRU", True)):
         cfg, sd, per_fwd, per_bwd, _ = paths[label]
         trained[label] = phase_train(label, cfg, sd, per_fwd, per_bwd, full)
     cfg, sd, per_fwd, per_bwd, _ = paths["CRN"]
@@ -842,21 +1102,26 @@ def main() -> int:
         "CRN-direct", cfg.replace(masking_mode="Direct(None make)"), sd, per_fwd, per_bwd,
         full=False)
 
+    k2_paths = ("CRN", "DCCRN-real", "FullSubNet")
     fwd.update(launches=enhanced["DCCRN"]["K1f"],
                launches_per_forward=enhanced["DCCRN"]["K1f"],
                launches_per_train_step=trained["DCCRN"][0]["K1f"], **stash_times)
     bwd.update(launches=trained["DCCRN"][1]["K1b"],
                launches_per_train_step=trained["DCCRN"][0]["K1b"])
     k2f.update(launches=enhanced["CRN"]["K2f"],
-               launches_per_forward={"CRN": enhanced["CRN"]["K2f"],
-                                     "DCCRN-real": enhanced["DCCRN-real"]["K2f"]},
+               launches_per_forward={k: enhanced[k]["K2f"] for k in k2_paths},
                launches_per_train_step={k: trained[k][0]["K2f"]
-                                        for k in ("CRN", "CRN-direct", "DCCRN-real")})
+                                        for k in (*k2_paths, "CRN-direct")})
     k2b.update(launches=trained["CRN"][1]["K2b"],
                launches_per_train_step={k: trained[k][0]["K2b"]
-                                        for k in ("CRN", "CRN-direct", "DCCRN-real")})
+                                        for k in (*k2_paths, "CRN-direct")})
+    k3f.update(launches=enhanced["FullSubNet-GRU"]["K3f"],
+               launches_per_forward=enhanced["FullSubNet-GRU"]["K3f"],
+               launches_per_train_step=trained["FullSubNet-GRU"][0]["K3f"])
+    k3b.update(launches=trained["FullSubNet-GRU"][1]["K3b"],
+               launches_per_train_step=trained["FullSubNet-GRU"][0]["K3b"])
     print(smi)
-    print(json.dumps({"kernels": [fwd, bwd, k2f, k2b]}))
+    print(json.dumps({"kernels": [fwd, bwd, k2f, k2b, k3f, k3b]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

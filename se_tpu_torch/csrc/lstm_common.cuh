@@ -1,7 +1,11 @@
-// Device code shared by the LSTM kernels of lstm_scan.cu and lstm_inproj.cu:
-// the row tile, the gate math of one unit forward and backward, the dh pass
-// of a reverse step, the deterministic dW reduction, and the error-string
-// export that each library's Python wrapper calls.
+// Device code shared by the recurrent kernels of lstm_scan.cu, lstm_inproj.cu
+// and gru_inproj.cu: the row tile, the staging of a chunk's inputs, the gate
+// products (h . W_hh per column, a chunk's x . W_ih), the gate math of one
+// LSTM unit forward and backward, the dh pass of a reverse step, the
+// deterministic dx, dW and dbias reductions over a gate-gradient scratch
+// buffer, and the error-string export that each library's Python wrapper
+// calls.  The products and the dh pass take the block's row count R as a
+// template argument (K1 and K2 use kRows; K3 also 8).
 //
 // Transcendentals use expf/tanhf (no fast-math) to stay within 1e-5 of the
 // plain PyTorch recurrence per step.
@@ -21,20 +25,90 @@ __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// acc[r] += sum_k a_s[k][r] * w[k][col] over k < K; a_s is [K][kRows].  w
-// is read from global memory, coalesced across a warp whose threads hold
-// consecutive columns; a_s gives all kRows rows at one k as one float4.
+// xc_s[c][k][r] = x[t0 + c, l, b0 + r, k] for c < n and r < rows, else 0:
+// the C steps of a chunk of the in-projection scans, R rows a block, staged
+// as [C][In][R] so that a step's R rows at one k are adjacent.
+template <int R, int C>
+__device__ __forceinline__ void stage_chunk(float* xc_s, const float* __restrict__ x,
+                                            int t0, int n, int L, int Bb, int l,
+                                            int b0, int rows, int In) {
+  for (int idx = threadIdx.x; idx < C * R * In; idx += blockDim.x) {
+    const int c = idx / (R * In), r = (idx / In) % R, k = idx % In;
+    float v = 0.f;
+    if (c < n && r < rows) {
+      v = x[((static_cast<size_t>(t0 + c) * L + l) * Bb + b0 + r) * In + k];
+    }
+    xc_s[(c * In + k) * R + r] = v;
+  }
+}
+
+// dst[k][r] = src[r][k] for r < rows, 0 for the rows past the batch edge;
+// src is `rows` consecutive rows of K floats.
+template <int R>
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src,
+                                           int rows, int K) {
+  for (int idx = threadIdx.x; idx < R * K; idx += blockDim.x) {
+    const int r = idx / K, k = idx % K;
+    dst[k * R + r] = r < rows ? src[static_cast<size_t>(r) * K + k] : 0.f;
+  }
+}
+
+// acc[r] = fmaf(a[r], wv, acc[r]) for the R values of a (16-byte aligned,
+// read as float4s).
+template <int R>
+__device__ __forceinline__ void fma_rows(const float* a, float wv, float* acc) {
+#pragma unroll
+  for (int q = 0; q < R / 4; ++q) {
+    const float4 av = *reinterpret_cast<const float4*>(a + 4 * q);
+    acc[4 * q + 0] = fmaf(av.x, wv, acc[4 * q + 0]);
+    acc[4 * q + 1] = fmaf(av.y, wv, acc[4 * q + 1]);
+    acc[4 * q + 2] = fmaf(av.z, wv, acc[4 * q + 2]);
+    acc[4 * q + 3] = fmaf(av.w, wv, acc[4 * q + 3]);
+  }
+}
+
+// acc[r] += sum_k a_s[k][r] * w[k][col] over k < K; a_s is [K][R].  w is
+// read from global memory, coalesced across a warp whose threads hold
+// consecutive columns; a_s gives the R rows at one k as R / 4 float4s.
+template <int R = kRows>
 __device__ __forceinline__ void dot_column(const float* __restrict__ w,
                                            const float* a_s, int K, int G,
                                            int col, float* acc) {
 #pragma unroll 8
   for (int k = 0; k < K; ++k) {
-    const float wv = __ldg(w + static_cast<size_t>(k) * G + col);
-    const float4 av = *reinterpret_cast<const float4*>(a_s + k * kRows);
-    acc[0] = fmaf(av.x, wv, acc[0]);
-    acc[1] = fmaf(av.y, wv, acc[1]);
-    acc[2] = fmaf(av.z, wv, acc[2]);
-    acc[3] = fmaf(av.w, wv, acc[3]);
+    fma_rows<R>(a_s + k * R, __ldg(w + static_cast<size_t>(k) * G + col), acc);
+  }
+}
+
+// p_s[c][r][col] = xc_s[c][:][r] . wih[:, col] (+ bias[col] with kBias)
+// for the C steps of a chunk of the in-projection scans: one pass over
+// W_ih[l] forms them all.  xc_s is [C][In][R] (stage_chunk), p_s [C][R][G].
+// kBias is a template argument, not a null test on `bias`: with the test,
+// K3's forward ran 6% slower on an H100 (PERF.md).
+template <int R, int C, bool kBias>
+__device__ __forceinline__ void project_chunk(const float* __restrict__ wih,
+                                              const float* __restrict__ bias,
+                                              const float* xc_s, float* p_s,
+                                              int In, int G) {
+  for (int col = threadIdx.x; col < G; col += blockDim.x) {
+    float acc[C][R];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[c][r] = 0.f;
+    }
+#pragma unroll 4
+    for (int k = 0; k < In; ++k) {
+      const float wv = __ldg(wih + static_cast<size_t>(k) * G + col);
+#pragma unroll
+      for (int c = 0; c < C; ++c) fma_rows<R>(xc_s + (c * In + k) * R, wv, acc[c]);
+    }
+    const float bv = kBias ? __ldg(bias + col) : 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) p_s[(c * R + r) * G + col] = kBias ? acc[c][r] + bv : acc[c][r];
+    }
   }
 }
 
@@ -80,9 +154,10 @@ __device__ __forceinline__ float cell_backward(float* g, float* dg_out, int H,
 }
 
 // The dh carry of a reverse step: dh_s[r][k] = sum_g g_s[r][g] * w[k][g]
-// for the tile's rows (g_s [kRows][G] holds the step's dgates, w is
-// w_hh_t[l]), one warp per unit k: the lanes read row k of w along g,
-// coalesced, and a shuffle reduction ends each sum.
+// (kAdd: dh_s[r][k] += that sum) for the tile's rows (g_s [R][G] holds the
+// step's gate gradients, w is w_hh_t[l]), one warp per unit k: the lanes
+// read row k of w along g, coalesced, and a shuffle reduction ends each sum.
+template <int R = kRows, bool kAdd = false>
 __device__ __forceinline__ void dh_rows(const float* __restrict__ w,
                                         const float* g_s, float* dh_s,
                                         int rows, int H, int G) {
@@ -90,16 +165,16 @@ __device__ __forceinline__ void dh_rows(const float* __restrict__ w,
   const int nwarps = blockDim.x >> 5;
   for (int k = threadIdx.x >> 5; k < H; k += nwarps) {
     const float* wk = w + static_cast<size_t>(k) * G;
-    float acc[kRows];
+    float acc[R];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+    for (int r = 0; r < R; ++r) acc[r] = 0.f;
     for (int col = lane; col < G; col += 32) {
       const float wv = __ldg(wk + col);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(g_s[r * G + col], wv, acc[r]);
+      for (int r = 0; r < R; ++r) acc[r] = fmaf(g_s[r * G + col], wv, acc[r]);
     }
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
+    for (int r = 0; r < R; ++r) {
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
@@ -107,8 +182,8 @@ __device__ __forceinline__ void dh_rows(const float* __restrict__ w,
     if (lane < rows) {
       float v = acc[0];
 #pragma unroll
-      for (int r = 1; r < kRows; ++r) v = lane == r ? acc[r] : v;
-      dh_s[lane * H + k] = v;
+      for (int r = 1; r < R; ++r) v = lane == r ? acc[r] : v;
+      dh_s[lane * H + k] = kAdd ? dh_s[lane * H + k] + v : v;
     }
   }
 }
@@ -118,12 +193,14 @@ __device__ __forceinline__ void dh_rows(const float* __restrict__ w,
 // owning a 2 x 2 block of outputs.  The row operand a_n is a[t, l, b, :]
 // (shift = 0: dW_ih from a = x, K = In) or the previous step's row,
 // a[t-1, l, b, :] and a0[l, b, :] at t = 0 (shift = 1: dW_hh from a = ys,
-// a0 = h0, K = H).  Rows are summed in one fixed order and no atomics, so
-// two calls give the same bits.
+// a0 = h0, K = H).  dg's rows are ldg floats apart and dw's ldw, so G
+// columns of a wider gate row can be summed (the GRU's r, z and n slices
+// come from two buffers).  Rows are summed in one fixed order and no
+// atomics, so two calls give the same bits.
 __global__ void lstm_dw_kernel(const float* __restrict__ a,
                                const float* __restrict__ a0,
-                               const float* __restrict__ dg,
-                               float* __restrict__ dw,
+                               const float* __restrict__ dg, int ldg,
+                               float* __restrict__ dw, int ldw,
                                int T, int L, int Bb, int K, int G, int shift) {
   __shared__ float a_s[kTile][kTile + 1];  // [row][k]
   __shared__ float b_s[kTile][kTile];      // [row][g]
@@ -151,7 +228,7 @@ __global__ void lstm_dw_kernel(const float* __restrict__ a,
                        : a0[(static_cast<size_t>(l) * Bb + bb) * K + k0 + c];
           }
         }
-        if (g0 + c < G) bv = dg[row * G + g0 + c];
+        if (g0 + c < G) bv = dg[row * ldg + g0 + c];
       }
       a_s[i][c] = av;
       b_s[i][c] = bv;
@@ -173,16 +250,119 @@ __global__ void lstm_dw_kernel(const float* __restrict__ a,
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int k = k0 + ty + 16 * i, g = g0 + tx + 16 * j;
-      if (k < K && g < G) dw[(static_cast<size_t>(l) * K + k) * G + g] = acc[i][j];
+      if (k < K && g < G) dw[(static_cast<size_t>(l) * K + k) * ldw + g] = acc[i][j];
     }
   }
 }
 
-// Launches lstm_dw_kernel for stacks [L, K, G] on stream s.
-cudaError_t launch_dw(const float* a, const float* a0, const float* dg, float* dw,
-                      int T, int L, int Bb, int K, int G, int shift, cudaStream_t s) {
+// Launches lstm_dw_kernel for G columns of stacks [L, K, ldw] on stream s.
+cudaError_t launch_dw(const float* a, const float* a0, const float* dg, int ldg, float* dw,
+                      int ldw, int T, int L, int Bb, int K, int G, int shift,
+                      cudaStream_t s) {
   const dim3 grid((G + kTile - 1) / kTile, (K + kTile - 1) / kTile, L);
-  lstm_dw_kernel<<<grid, dim3(16, 16), 0, s>>>(a, a0, dg, dw, T, L, Bb, K, G, shift);
+  lstm_dw_kernel<<<grid, dim3(16, 16), 0, s>>>(a, a0, dg, ldg, dw, ldw, T, L, Bb, K, G,
+                                               shift);
+  return cudaGetLastError();
+}
+
+// dx[t, l, b, k] = sum_g dg[t, l, b, g] * w_ih_t[l][k][g], for a kTile x
+// kTile tile (rows n0 = t * Bb + b .., units k0 ..) of stack l per block;
+// 16 x 16 threads, each owning a 2 x 2 block of outputs.  The sum over g
+// runs in one fixed order.
+__global__ void lstm_inproj_dx_kernel(const float* __restrict__ dg,
+                                      const float* __restrict__ wih_t,
+                                      float* __restrict__ dx,
+                                      int T, int L, int Bb, int In, int G) {
+  __shared__ float a_s[kTile][kTile + 1];  // [row][g]
+  __shared__ float w_s[kTile][kTile + 1];  // [k][g]
+  const int l = blockIdx.z;
+  const int k0 = blockIdx.y * kTile;
+  const int n0 = blockIdx.x * kTile;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * 16 + tx;
+  const int N = T * Bb;
+  const float* w = wih_t + static_cast<size_t>(l) * In * G;
+  auto row_of = [&](int n) {  // row n = t * Bb + b of stack l in [T, L, Bb, *]
+    return (static_cast<size_t>(n / Bb) * L + l) * Bb + n % Bb;
+  };
+  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+
+  for (int g0 = 0; g0 < G; g0 += kTile) {
+    for (int idx = tid; idx < kTile * kTile; idx += 256) {
+      const int i = idx / kTile, c = idx % kTile;
+      float av = 0.f, wv = 0.f;
+      if (g0 + c < G) {
+        if (n0 + i < N) av = dg[row_of(n0 + i) * G + g0 + c];
+        if (k0 + i < In) wv = w[static_cast<size_t>(k0 + i) * G + g0 + c];
+      }
+      a_s[i][c] = av;
+      w_s[i][c] = wv;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int c = 0; c < kTile; ++c) {
+      const float a0v = a_s[ty][c], a1v = a_s[ty + 16][c];
+      const float w0 = w_s[tx][c], w1 = w_s[tx + 16][c];
+      acc[0][0] = fmaf(a0v, w0, acc[0][0]);
+      acc[0][1] = fmaf(a0v, w1, acc[0][1]);
+      acc[1][0] = fmaf(a1v, w0, acc[1][0]);
+      acc[1][1] = fmaf(a1v, w1, acc[1][1]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int n = n0 + ty + 16 * i, k = k0 + tx + 16 * j;
+      if (n < N && k < In) dx[row_of(n) * In + k] = acc[i][j];
+    }
+  }
+}
+
+// Launches lstm_inproj_dx_kernel: dx [T, L, Bb, In] = dg [T, L, Bb, G] @ w_ih_t[l]^T.
+cudaError_t launch_dx(const float* dg, const float* wih_t, float* dx, int T, int L, int Bb,
+                      int In, int G, cudaStream_t s) {
+  const dim3 grid((T * Bb + kTile - 1) / kTile, (In + kTile - 1) / kTile, L);
+  lstm_inproj_dx_kernel<<<grid, dim3(16, 16), 0, s>>>(dg, wih_t, dx, T, L, Bb, In, G);
+  return cudaGetLastError();
+}
+
+constexpr int kSumGroups = 8;  // row groups of the dbias column sum
+
+// db[l][g] = sum over n = t * Bb + b of dg[t, l, b, g] (dg's rows ldg floats
+// apart, db's stacks ldb): kTile columns x kSumGroups row groups per block;
+// group y sums rows y, y + kSumGroups, ... in order, and one thread adds the
+// groups' partial sums in order.
+__global__ void lstm_inproj_dbias_kernel(const float* __restrict__ dg, int ldg,
+                                         float* __restrict__ db, int ldb,
+                                         int T, int L, int Bb, int G) {
+  __shared__ float part[kSumGroups][kTile];
+  const int l = blockIdx.y;
+  const int g = blockIdx.x * kTile + threadIdx.x;
+  const int N = T * Bb;
+  float acc = 0.f;
+  if (g < G) {
+    for (int n = threadIdx.y; n < N; n += kSumGroups) {
+      const int t = n / Bb, bb = n % Bb;
+      acc += dg[((static_cast<size_t>(t) * L + l) * Bb + bb) * ldg + g];
+    }
+  }
+  part[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && g < G) {
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < kSumGroups; ++i) s += part[i][threadIdx.x];
+    db[static_cast<size_t>(l) * ldb + g] = s;
+  }
+}
+
+// Launches lstm_inproj_dbias_kernel for G columns.
+cudaError_t launch_dbias(const float* dg, int ldg, float* db, int ldb, int T, int L, int Bb,
+                         int G, cudaStream_t s) {
+  lstm_inproj_dbias_kernel<<<dim3((G + kTile - 1) / kTile, L), dim3(kTile, kSumGroups), 0, s>>>(
+      dg, ldg, db, ldb, T, L, Bb, G);
   return cudaGetLastError();
 }
 

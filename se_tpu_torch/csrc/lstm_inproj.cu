@@ -66,74 +66,25 @@
 // second-pass kernels read the dgates scratch buffer, each with its sums
 // in one fixed order and no atomics, so two calls give the same bits:
 // lstm_inproj_dx_kernel (a 32 x 32 tile of dx per block, over all T x Bb
-// rows at once), lstm_dw_kernel of lstm_common.cuh (a 32 x 32 tile of dW
-// per block; the row operand is x, or h_prev read from ys shifted by one
-// step) and
-// lstm_inproj_dbias_kernel (column sums).  The scratch costs
-// T * Bb * 4H * 4 bytes a stack (9.9 MB at CRN's train batch of 10); the
-// Pallas kernel kept these sums in VMEM, and folding them into the scan is
-// part of the redesign (ROADMAP, Queue 2).
+// rows at once), lstm_dw_kernel (a 32 x 32 tile of dW per block; the row
+// operand is x, or h_prev read from ys shifted by one step) and
+// lstm_inproj_dbias_kernel (column sums), all three in lstm_common.cuh.
+// The scratch costs T * Bb * 4H * 4 bytes a stack (9.9 MB at CRN's train
+// batch of 10; 2.57 GB at FullSubNet's sub band, B=10 x 3 s: Bb=2570,
+// T=163, 4H=1536); the Pallas kernel kept these sums in VMEM, and folding
+// them into the scan is part of the redesign (ROADMAP, Queue 2).
 //
-// The gate math, the gate product, the dh pass and the dW reduction come
-// from lstm_common.cuh, shared with lstm_scan.cu.
+// The chunk staging and projection, the gate products, the gate math, the
+// dh pass and the dx, dW and dbias reductions come from lstm_common.cuh,
+// shared with lstm_scan.cu and gru_inproj.cu.
 
 #include "lstm_common.cuh"
 
 namespace {
 
 constexpr int kMaxThreads = 512;  // scan block size cap; threads loop over columns
-constexpr int kSumGroups = 8;     // row groups of the dbias column sum
 constexpr int kChunk = 8;         // steps whose projections one pass over W_ih forms
 constexpr size_t kMaxSmem = 232448;  // shared memory a block can use (227 KB)
-
-// xc_s[c][k][r] = x[t0 + c, l, b0 + r, k] for c < n and r < rows, else 0;
-// xc_s is [C][In][kRows].
-template <int C>
-__device__ __forceinline__ void stage_chunk(float* xc_s, const float* __restrict__ x,
-                                            int t0, int n, int L, int Bb, int l,
-                                            int b0, int rows, int In) {
-  for (int idx = threadIdx.x; idx < C * kRows * In; idx += blockDim.x) {
-    const int c = idx / (kRows * In), r = (idx / In) % kRows, k = idx % In;
-    float v = 0.f;
-    if (c < n && r < rows) {
-      v = x[((static_cast<size_t>(t0 + c) * L + l) * Bb + b0 + r) * In + k];
-    }
-    xc_s[(c * In + k) * kRows + r] = v;
-  }
-}
-
-// p_s[c][r][col] = xc_s[c][:][r] . wih[:, col] for the chunk's C steps:
-// one pass over W_ih[l]; p_s is [C][kRows][G].
-template <int C>
-__device__ __forceinline__ void project_chunk(const float* __restrict__ wih,
-                                              const float* xc_s, float* p_s,
-                                              int In, int G) {
-  for (int col = threadIdx.x; col < G; col += blockDim.x) {
-    float acc[C][kRows];
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[c][r] = 0.f;
-    }
-#pragma unroll 4
-    for (int k = 0; k < In; ++k) {
-      const float wv = __ldg(wih + static_cast<size_t>(k) * G + col);
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float4 xv = *reinterpret_cast<const float4*>(xc_s + (c * In + k) * kRows);
-        acc[c][0] = fmaf(xv.x, wv, acc[c][0]);
-        acc[c][1] = fmaf(xv.y, wv, acc[c][1]);
-        acc[c][2] = fmaf(xv.z, wv, acc[c][2]);
-        acc[c][3] = fmaf(xv.w, wv, acc[c][3]);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) p_s[(c * kRows + r) * G + col] = acc[c][r];
-    }
-  }
-}
 
 // g_s[r][col] = (g_s[r][col] + h_s[r] . whh[:, col]) + b[col] for the
 // tile's rows, g_s holding the step's x . W_ih; h_s is [H][kRows].
@@ -149,16 +100,6 @@ __device__ __forceinline__ void recurrent_columns(const float* __restrict__ whh,
     for (int r = 0; r < kRows; ++r) {
       if (r < rows) g_s[r * G + col] = (g_s[r * G + col] + ah[r]) + bv;
     }
-  }
-}
-
-// dst[k][r] = src[r][k] for r < rows, 0 for the rows past the batch edge;
-// src is `rows` consecutive rows of K floats.
-__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src,
-                                           int rows, int K) {
-  for (int idx = threadIdx.x; idx < kRows * K; idx += blockDim.x) {
-    const int r = idx / K, k = idx % K;
-    dst[k * kRows + r] = r < rows ? src[static_cast<size_t>(r) * K + k] : 0.f;
   }
 }
 
@@ -207,9 +148,9 @@ lstm_inproj_fwd_kernel(const float* __restrict__ x,
   for (int t0 = 0; t0 < T; t0 += C) {
     const int n = min(C, T - t0);
     // phase 0: the chunk's input projections
-    stage_chunk<C>(xc_s, x, t0, n, L, Bb, l, b0, rows, In);
+    stage_chunk<kRows, C>(xc_s, x, t0, n, L, Bb, l, b0, rows, In);
     __syncthreads();
-    project_chunk<C>(wih, xc_s, p_s, In, G);
+    project_chunk<kRows, C, false>(wih, nullptr, xc_s, p_s, In, G);
     __syncthreads();
 
     for (int c = 0; c < n; ++c) {
@@ -297,14 +238,14 @@ lstm_inproj_bwd_kernel(const float* __restrict__ x,
     dh_s[r * H + j] = dh;
     dc_s[r * H + j] = dc;
   }
-  stage_rows(h_s, h_prev_rows(T - 1), rows, H);
+  stage_rows<kRows>(h_s, h_prev_rows(T - 1), rows, H);
 
   for (int t0 = (T - 1) / C * C; t0 >= 0; t0 -= C) {
     const int n = min(C, T - t0);
     // phase 0: the chunk's input projections
-    stage_chunk<C>(xc_s, x, t0, n, L, Bb, l, b0, rows, In);
+    stage_chunk<kRows, C>(xc_s, x, t0, n, L, Bb, l, b0, rows, In);
     __syncthreads();
-    project_chunk<C>(wih, xc_s, p_s, In, G);
+    project_chunk<kRows, C, false>(wih, nullptr, xc_s, p_s, In, G);
     __syncthreads();
 
     for (int c = n - 1; c >= 0; --c) {
@@ -330,7 +271,7 @@ lstm_inproj_bwd_kernel(const float* __restrict__ x,
       // phase 3: dh carry = dgates @ W_hh[l]^T, one warp per unit k; then
       // stage step t-1's h_prev (phase 3 does not read h_s)
       dh_rows(whh, g_s, dh_s, rows, H, G);
-      if (t > 0) stage_rows(h_s, h_prev_rows(t - 1), rows, H);
+      if (t > 0) stage_rows<kRows>(h_s, h_prev_rows(t - 1), rows, H);
       __syncthreads();
     }
 
@@ -341,88 +282,6 @@ lstm_inproj_bwd_kernel(const float* __restrict__ x,
     const size_t o = (state0 + r) * H + j;
     dh0[o] = dh_s[r * H + j];
     dc0[o] = dc_s[r * H + j];
-  }
-}
-
-// dx[t, l, b, k] = sum_g dg[t, l, b, g] * w_ih_t[l][k][g], for a kTile x
-// kTile tile (rows n0 = t * Bb + b .., units k0 ..) of stack l per block;
-// 16 x 16 threads, each owning a 2 x 2 block of outputs.  The sum over g
-// runs in one fixed order.
-__global__ void lstm_inproj_dx_kernel(const float* __restrict__ dg,
-                                      const float* __restrict__ wih_t,
-                                      float* __restrict__ dx,
-                                      int T, int L, int Bb, int In, int G) {
-  __shared__ float a_s[kTile][kTile + 1];  // [row][g]
-  __shared__ float w_s[kTile][kTile + 1];  // [k][g]
-  const int l = blockIdx.z;
-  const int k0 = blockIdx.y * kTile;
-  const int n0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * 16 + tx;
-  const int N = T * Bb;
-  const float* w = wih_t + static_cast<size_t>(l) * In * G;
-  auto row_of = [&](int n) {  // row n = t * Bb + b of stack l in [T, L, Bb, *]
-    return (static_cast<size_t>(n / Bb) * L + l) * Bb + n % Bb;
-  };
-  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-
-  for (int g0 = 0; g0 < G; g0 += kTile) {
-    for (int idx = tid; idx < kTile * kTile; idx += 256) {
-      const int i = idx / kTile, c = idx % kTile;
-      float av = 0.f, wv = 0.f;
-      if (g0 + c < G) {
-        if (n0 + i < N) av = dg[row_of(n0 + i) * G + g0 + c];
-        if (k0 + i < In) wv = w[static_cast<size_t>(k0 + i) * G + g0 + c];
-      }
-      a_s[i][c] = av;
-      w_s[i][c] = wv;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < kTile; ++c) {
-      const float a0v = a_s[ty][c], a1v = a_s[ty + 16][c];
-      const float w0 = w_s[tx][c], w1 = w_s[tx + 16][c];
-      acc[0][0] = fmaf(a0v, w0, acc[0][0]);
-      acc[0][1] = fmaf(a0v, w1, acc[0][1]);
-      acc[1][0] = fmaf(a1v, w0, acc[1][0]);
-      acc[1][1] = fmaf(a1v, w1, acc[1][1]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int n = n0 + ty + 16 * i, k = k0 + tx + 16 * j;
-      if (n < N && k < In) dx[row_of(n) * In + k] = acc[i][j];
-    }
-  }
-}
-
-// db[l][g] = sum over n = t * Bb + b of dg[t, l, b, g]: kTile columns x
-// kSumGroups row groups per block; group y sums rows y, y + kSumGroups, ...
-// in order, and one thread adds the groups' partial sums in order.
-__global__ void lstm_inproj_dbias_kernel(const float* __restrict__ dg,
-                                         float* __restrict__ db,
-                                         int T, int L, int Bb, int G) {
-  __shared__ float part[kSumGroups][kTile];
-  const int l = blockIdx.y;
-  const int g = blockIdx.x * kTile + threadIdx.x;
-  const int N = T * Bb;
-  float acc = 0.f;
-  if (g < G) {
-    for (int n = threadIdx.y; n < N; n += kSumGroups) {
-      const int t = n / Bb, bb = n % Bb;
-      acc += dg[((static_cast<size_t>(t) * L + l) * Bb + bb) * G + g];
-    }
-  }
-  part[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && g < G) {
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < kSumGroups; ++i) s += part[i][threadIdx.x];
-    db[static_cast<size_t>(l) * G + g] = s;
   }
 }
 
@@ -529,16 +388,11 @@ extern "C" int se_lstm_inproj_bwd_f32(const float* x, const float* wih_t,
     default: err = cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 tile(16, 16);
-  lstm_inproj_dx_kernel<<<dim3((T * Bb + kTile - 1) / kTile, (In + kTile - 1) / kTile, L), tile, 0, s>>>(
-      dg, wih_t, dx, T, L, Bb, In, G);
-  err = cudaGetLastError();
+  err = launch_dx(dg, wih_t, dx, T, L, Bb, In, G, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_dw(x, nullptr, dg, dwih_t, T, L, Bb, In, G, 0, s);
+  err = launch_dw(x, nullptr, dg, G, dwih_t, G, T, L, Bb, In, G, 0, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_dw(ys, h0, dg, dwhh_t, T, L, Bb, H, G, 1, s);
+  err = launch_dw(ys, h0, dg, G, dwhh_t, G, T, L, Bb, H, G, 1, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  lstm_inproj_dbias_kernel<<<dim3((G + kTile - 1) / kTile, L), dim3(kTile, kSumGroups), 0, s>>>(
-      dg, dbias, T, L, Bb, G);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_dbias(dg, G, dbias, G, T, L, Bb, G, s));
 }

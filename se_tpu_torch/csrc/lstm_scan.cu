@@ -294,5 +294,5 @@ extern "C" int se_lstm_scan_bwd_f32(const float* xp, const float* whh_t,
       xp, whh_t, h0, c0, ys, cs, dys, dhT, dcT, dxp, dh0, dc0, T, L, Bb, H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_dw(ys, h0, dxp, dwhh_t, T, L, Bb, H, G, 1, s));
+  return static_cast<int>(launch_dw(ys, h0, dxp, G, dwhh_t, G, T, L, Bb, H, G, 1, s));
 }

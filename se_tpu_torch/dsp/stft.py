@@ -1,10 +1,17 @@
-"""Conv-STFT analysis and synthesis of DCCRN/CRN (counterpart of the
-conv-STFT path of ``se_tpu/dsp/stft.py``).
+"""The two STFT paths of ``se_tpu/dsp/stft.py``.
 
-The analysis is a framing plus one ``[win_len, fft_len + 2]`` product
-with the windowed rFFT basis; the synthesis is the transposed product
-with the basis' pseudo-inverse, an overlap-add, a division by the
-overlap-added squared window and an edge trim.
+Conv-STFT of DCCRN/CRN: the analysis is a framing plus one
+``[win_len, fft_len + 2]`` product with the windowed rFFT basis; the
+synthesis is the transposed product with the basis' pseudo-inverse, an
+overlap-add, a division by the overlap-added squared window and an edge
+trim.
+
+Framework STFT of FullSubNet (:func:`stft`, :func:`istft`,
+:func:`mag_phase`): ``torch.stft``/``torch.istft`` semantics (center,
+reflect padding, a periodic Hann window of ``win_length`` centred in
+``n_fft``, onesided), written out as framing, ``torch.fft.rfft`` and an
+overlap-add, as the JAX package writes them, so the least-squares envelope
+and the ``length`` handling are its own.
 """
 
 from __future__ import annotations
@@ -72,3 +79,68 @@ def conv_istft(
     if trim:
         out = out[..., trim:-trim]
     return out[:, None, :]
+
+
+def _centered_window(win_length: int, n_fft: int, device) -> torch.Tensor:
+    """A periodic Hann window of ``win_length`` zero-padded to ``n_fft``,
+    centred (torch.stft semantics)."""
+    w = torch.zeros(n_fft, dtype=torch.float32)
+    left = (n_fft - win_length) // 2
+    n = torch.arange(win_length, dtype=torch.float64)
+    w[left : left + win_length] = (0.5 - 0.5 * torch.cos(2.0 * np.pi * n / win_length)).float()
+    return w.to(device)
+
+
+def _reflect_pad(y: torch.Tensor, pad: int) -> torch.Tensor:
+    """``y [B, L]`` reflect-padded by ``pad`` at each end, as ``numpy.pad``
+    (and ``jnp.pad``) reflect: a pad longer than the signal reflects back
+    and forth through it."""
+    L = y.shape[-1]
+    i = torch.arange(-pad, L + pad, device=y.device)
+    if L == 1:
+        return y[..., torch.zeros_like(i)]
+    period = 2 * (L - 1)
+    m = i.remainder(period)
+    return y[..., torch.where(m < L, m, period - m)]
+
+
+def stft(y: torch.Tensor, n_fft: int = 512, hop_length: int = 300,
+         win_length: int = 400) -> torch.Tensor:
+    """``y [B, L]`` -> ``[B, n_fft // 2 + 1, T]`` complex64: centred frames
+    (``n_fft // 2`` samples of reflect padding at each end) at
+    ``hop_length``, windowed, rFFT."""
+    if y.ndim == 1:
+        y = y[None]
+    window = _centered_window(win_length, n_fft, y.device)
+    frames = _reflect_pad(y, n_fft // 2).unfold(-1, n_fft, hop_length) * window  # [B, T, n_fft]
+    return torch.fft.rfft(frames, n=n_fft).transpose(-1, -2)
+
+
+def istft(features: torch.Tensor, n_fft: int = 512, hop_length: int = 300,
+          win_length: int = 400, length=None) -> torch.Tensor:
+    """``features [B, F, T]`` complex or ``[B, F, T, 2]`` real/imaginary ->
+    ``[B, length]``: inverse rFFT, window, overlap-add, division by the
+    overlap-added squared window where it exceeds 1e-11, the centre padding
+    dropped.  A ``length`` past the reconstructable span is zero-filled, as
+    ``torch.istft`` does."""
+    if features.ndim == 4:
+        features = torch.complex(features[..., 0], features[..., 1])
+    window = _centered_window(win_length, n_fft, features.device)
+    T = features.shape[-1]
+    frames = torch.fft.irfft(features.transpose(-1, -2), n=n_fft) * window
+    out = overlap_add(frames, hop_length)
+    env = overlap_add((window**2)[None, None, :].expand(1, T, n_fft), hop_length)
+    out = out / torch.where(env > 1e-11, env, torch.ones_like(env))
+    pad = n_fft // 2
+    out = out[..., pad:]
+    if length is None:
+        return out[..., : out.shape[-1] - pad]
+    out = out[..., :length]
+    if out.shape[-1] < length:
+        out = F.pad(out, (0, length - out.shape[-1]))
+    return out
+
+
+def mag_phase(complex_tensor: torch.Tensor):
+    """``(|X|, angle(X))``."""
+    return complex_tensor.abs(), complex_tensor.angle()

@@ -246,18 +246,38 @@ class NavieComplexLSTM(nn.Module):
         return [real_out, imag_out]
 
 
-class TorchLSTM(nn.Module):
-    """Multi-layer unidirectional ``nn.LSTM`` (sequence-major ``[T, B, In]``)
-    under its parameter names ``weight_ih_l{k}``, ``weight_hh_l{k}``,
-    ``bias_ih_l{k}`` and ``bias_hh_l{k}``, with its init U(+-1/sqrt(H)).
-    Each layer is one call of :func:`rnn_ops.lstm` from a zero state."""
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``flax.linen.Dropout`` in train mode: each value kept with probability
+    ``1 - rate`` (a uniform draw from ``generator`` below it) and scaled by
+    ``1 / (1 - rate)``, the rest set to 0.  The generator lives on x's
+    device."""
+    if generator is None:
+        raise ValueError(
+            "dropout in train mode draws its mask from an explicit torch.Generator; "
+            "pass generator= (train_step passes one)"
+        )
+    keep = 1.0 - rate
+    if keep == 0.0:
+        return torch.zeros_like(x)
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class _TorchRNN(nn.Module):
+    """Multi-layer unidirectional ``nn.LSTM``/``nn.GRU`` (sequence-major
+    ``[T, B, In]``) under their parameter names ``weight_ih_l{k}``,
+    ``weight_hh_l{k}``, ``bias_ih_l{k}`` and ``bias_hh_l{k}``, with their
+    init U(+-1/sqrt(H)).  Each layer is one call of the subclass's ``_layer``
+    from a zero state; in train mode, dropout at ``dropout`` follows every
+    layer but the last.  Subclasses set ``_GATES``, the gate blocks a layer's
+    weights stack (4 for the LSTM, 3 for the GRU)."""
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
                  dropout: float = 0.0, *, generator: torch.Generator):
         super().__init__()
         self.num_layers, self.dropout = num_layers, dropout
         bound = 1.0 / math.sqrt(hidden_size)
-        G = 4 * hidden_size
+        G = self._GATES * hidden_size
         for k in range(num_layers):
             in_size = input_size if k == 0 else hidden_size
             for name, shape in ((f"weight_ih_l{k}", (G, in_size)),
@@ -265,16 +285,75 @@ class TorchLSTM(nn.Module):
                                 (f"bias_ih_l{k}", (G,)), (f"bias_hh_l{k}", (G,))):
                 setattr(self, name, nn.Parameter(_uniform(generator, shape, bound)))
 
-    def forward(self, x):
-        if self.training and self.dropout > 0 and self.num_layers > 1:
-            raise NotImplementedError(
-                "TorchLSTM dropout between layers is not ported yet "
-                "(ROADMAP.md, Queue 1 item 10: FullSubNet)"
-            )
+    def _layer(self, params: rnn_ops.LstmParams, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        """``x [T, B, In]`` -> ``[T, B, H]``; ``generator`` draws the dropout
+        masks in train mode."""
         for k in range(self.num_layers):
             params = rnn_ops.LstmParams(
                 getattr(self, f"weight_ih_l{k}"), getattr(self, f"weight_hh_l{k}"),
                 getattr(self, f"bias_ih_l{k}"), getattr(self, f"bias_hh_l{k}"),
             )
-            x, _ = rnn_ops.lstm(params, x)
+            x = self._layer(params, x)
+            if self.training and self.dropout > 0 and k < self.num_layers - 1:
+                x = dropout(x, self.dropout, generator)
         return x
+
+
+class TorchLSTM(_TorchRNN):
+    """``nn.LSTM``: each layer runs in :func:`rnn_ops.lstm` (K2)."""
+
+    _GATES = 4
+
+    def _layer(self, params, x):
+        return rnn_ops.lstm(params, x)[0]
+
+
+class TorchGRU(_TorchRNN):
+    """``nn.GRU``: each layer runs in :func:`rnn_ops.gru` (K3)."""
+
+    _GATES = 3
+
+    def _layer(self, params, x):
+        return rnn_ops.gru(params, x)[0]
+
+
+_ACTIVATIONS = {
+    None: lambda o: o,
+    "Tanh": torch.tanh,
+    "ReLU": torch.relu,
+    "ReLU6": lambda o: o.clamp(0.0, 6.0),
+}
+
+
+class SequenceModel(nn.Module):
+    """A stacked LSTM or GRU (submodule ``sequence_model``), the linear map
+    ``fc_output_layer`` and an optional activation (Tanh, ReLU, ReLU6 or
+    None); input and output ``[B, F, T]``."""
+
+    def __init__(self, input_size: int, output_size: int, hidden_size: int,
+                 num_layers: int = 2, sequence_model: str = "GRU",
+                 output_activate_function: Optional[str] = "Tanh", dropout: float = 0.8,
+                 *, generator: torch.Generator):
+        super().__init__()
+        rnns = {"LSTM": TorchLSTM, "GRU": TorchGRU}
+        if sequence_model not in rnns:
+            raise NotImplementedError(f"Not implemented {sequence_model}")
+        if output_activate_function not in _ACTIVATIONS:
+            raise NotImplementedError(
+                f"Not implemented activation function {output_activate_function}"
+            )
+        self.sequence_model = rnns[sequence_model](
+            input_size, hidden_size, num_layers, dropout, generator=generator
+        )
+        self.fc_output_layer = TorchLinear(hidden_size, output_size, generator=generator)
+        self.activation = _ACTIVATIONS[output_activate_function]
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        if x.ndim != 3:
+            raise ValueError(f"SequenceModel takes [B, F, T], got {tuple(x.shape)}")
+        o = self.sequence_model(x.permute(2, 0, 1), generator)  # [T, B, F]
+        o = self.activation(self.fc_output_layer(o))
+        return o.permute(1, 2, 0)

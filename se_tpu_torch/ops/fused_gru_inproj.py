@@ -1,0 +1,218 @@
+"""Fused GRU scan with the input projection inside the kernel: the
+hand-written CUDA kernels ``csrc/gru_inproj.cu`` (forward and backward)
+and their plain PyTorch versions.
+
+Counterpart of ``fused_gru_scan_inproj`` in ``se_tpu/ops/pallas_lstm.py``:
+one torch-semantics GRU layer (gate order r, z, n; ``n = tanh(xp_n + r *
+hp_n)``, so ``b_ih`` and ``b_hh`` stay separate), the ``[T, Bb, 3H]``
+projection formed per step inside the kernel.  The only stash is ``ys``:
+when an input needs a gradient, the call goes through a
+``torch.autograd.Function`` whose backward recomputes the gates from
+``(x, h_prev)``.  The kernels' design and what bounds them are described
+at the top of their source.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+
+def _gates(x_t, w_ih_t, b_ih, h, w_hh_t, b_hh, H):
+    """``(r, z, n, hp_n)`` of one step, as the Pallas ``_gru_gates``."""
+    xp = torch.bmm(x_t, w_ih_t) + b_ih[:, None, :]
+    hp = torch.bmm(h, w_hh_t) + b_hh[:, None, :]
+    r = torch.sigmoid(xp[..., :H] + hp[..., :H])
+    z = torch.sigmoid(xp[..., H : 2 * H] + hp[..., H : 2 * H])
+    hp_n = hp[..., 2 * H :]
+    n = torch.tanh(xp[..., 2 * H :] + r * hp_n)
+    return r, z, n, hp_n
+
+
+def fused_gru_scan_inproj_reference(x, w_ih_t, b_ih, w_hh_t, b_hh, h0):
+    """The plain recurrence, the loop of ``rnn.gru``'s scan: ``x [T, L, Bb,
+    In]``, ``w_ih_t [L, In, 3H]``, ``b_ih``/``b_hh [L, 3H]``, ``w_hh_t [L,
+    H, 3H]``, ``h0 [L, Bb, H]`` -> ``(ys [T, L, Bb, H] in x's dtype, hT
+    f32)``.  The carry and the gate math are f32."""
+    H = h0.shape[-1]
+    h = h0.float()
+    w_ih, w_hh = w_ih_t.float(), w_hh_t.float()
+    bi, bh = b_ih.float(), b_hh.float()
+    ys = []
+    for t in range(x.shape[0]):
+        _, z, n, _ = _gates(x[t].float(), w_ih, bi, h, w_hh, bh, H)
+        h = (1.0 - z) * n + z * h
+        ys.append(h.to(x.dtype))
+    return torch.stack(ys), h
+
+
+def fused_gru_scan_inproj_backward_reference(x, w_ih_t, b_ih, w_hh_t, b_hh, h0, ys, dys, dhT):
+    """The plain backward, step by step as the Pallas ``_bwd_gru_kernel``:
+    the forward's inputs, its ``ys`` and the cotangents of ``(ys, hT)`` ->
+    ``(dx, dw_ih_t, db_ih, dw_hh_t, db_hh, dh0)``."""
+    H = h0.shape[-1]
+    w_ih, w_hh = w_ih_t.float(), w_hh_t.float()
+    bi, bh = b_ih.float(), b_hh.float()
+    dh = dhT.float()
+    dw_ih, dw_hh = torch.zeros_like(w_ih), torch.zeros_like(w_hh)
+    db_ih, db_hh = torch.zeros_like(bi), torch.zeros_like(bh)
+    dxs = []
+    for t in range(x.shape[0] - 1, -1, -1):
+        x_t = x[t].float()
+        h_prev = h0.float() if t == 0 else ys[t - 1].float()
+        r, z, n, hp_n = _gates(x_t, w_ih, bi, h_prev, w_hh, bh, H)
+        dh = dys[t].float() + dh
+        da_z = dh * (h_prev - n) * z * (1.0 - z)
+        da_n = dh * (1.0 - z) * (1.0 - n * n)
+        da_r = da_n * hp_n * r * (1.0 - r)
+        dxp = torch.cat([da_r, da_z, da_n], dim=-1)  # [L, Bb, 3H]
+        dhp = torch.cat([da_r, da_z, da_n * r], dim=-1)
+        dxs.append(torch.bmm(dxp, w_ih.transpose(1, 2)).to(x.dtype))
+        dw_ih = dw_ih + torch.bmm(x_t.transpose(1, 2), dxp)
+        db_ih = db_ih + dxp.sum(1)
+        dw_hh = dw_hh + torch.bmm(h_prev.transpose(1, 2), dhp)
+        db_hh = db_hh + dhp.sum(1)
+        dh = dh * z + torch.bmm(dhp, w_hh.transpose(1, 2))
+    return torch.stack(dxs[::-1]), dw_ih, db_ih, dw_hh, db_hh, dh
+
+
+_INPUTS = ("x", "w_ih_t", "b_ih", "w_hh_t", "b_hh", "h0")
+
+
+def _check(x, w_ih_t, b_ih, w_hh_t, b_hh, h0):
+    if x.ndim != 4:
+        raise ValueError(f"x must be [T, L, Bb, In], got {tuple(x.shape)}")
+    T, L, Bb, In = x.shape
+    if T < 1:
+        raise ValueError("x must hold at least one step")
+    if w_hh_t.ndim != 3 or w_hh_t.shape[-1] != 3 * w_hh_t.shape[-2]:
+        raise ValueError(f"w_hh_t must be [L, H, 3H], got {tuple(w_hh_t.shape)}")
+    H = w_hh_t.shape[1]
+    G = 3 * H
+    want = {"w_ih_t": (L, In, G), "b_ih": (L, G), "w_hh_t": (L, H, G), "b_hh": (L, G),
+            "h0": (L, Bb, H)}
+    named = tuple(zip(_INPUTS, (x, w_ih_t, b_ih, w_hh_t, b_hh, h0)))
+    for name, t in named[1:]:
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} must be {want[name]}, got {tuple(t.shape)}")
+    for name, t in named:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+
+
+def _library():
+    """The built kernel library, with its C signatures declared."""
+    lib = build.load("gru_inproj")
+    if lib.se_gru_inproj_fwd_f32.argtypes is None:
+        lib.se_gru_inproj_fwd_f32.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        )
+        lib.se_gru_inproj_fwd_f32.restype = ctypes.c_int
+        lib.se_gru_inproj_bwd_f32.argtypes = (
+            [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        )
+        lib.se_gru_inproj_bwd_f32.restype = ctypes.c_int
+    return lib
+
+
+def _forward(x, w_ih_t, b_ih, w_hh_t, b_hh, h0):
+    """``(ys, hT)``: the plain version for CPU tensors, the forward kernel
+    for CUDA tensors (counted on ``fused_gru_scan_inproj``)."""
+    dev = x.device
+    if dev.type == "cpu":
+        return fused_gru_scan_inproj_reference(x, w_ih_t, b_ih, w_hh_t, b_hh, h0)
+    T, L, Bb, In = x.shape
+    H = h0.shape[-1]
+    ys = torch.empty((T, L, Bb, H), device=dev, dtype=torch.float32)
+    hT = torch.empty((L, Bb, H), device=dev, dtype=torch.float32)
+    build.cuda_launch(
+        _library(), "se_gru_inproj_fwd_f32", (x, w_ih_t, b_ih, w_hh_t, b_hh, h0),
+        _INPUTS, (ys, hT), (T, L, Bb, In, H), dev,
+    )
+    fused_gru_scan_inproj.launches += 1
+    return ys, hT
+
+
+def fused_gru_scan_inproj_backward(x, w_ih_t, b_ih, w_hh_t, b_hh, h0, ys, dys, dhT):
+    """Same signature and result as
+    :func:`fused_gru_scan_inproj_backward_reference`; a cotangent given as
+    None counts as zeros.
+
+    CPU tensors run the plain version.  CUDA tensors launch the backward
+    kernels (the reverse scan, then the deterministic dx, dW and dbias
+    reductions over the ``[T, L, Bb, 3H]`` and ``[T, L, Bb, H]`` scratch
+    buffers) on the current stream, or raise: float32 and contiguous only.
+    Each call that launches adds one to
+    ``fused_gru_scan_inproj_backward.launches``.
+    """
+    _check(x, w_ih_t, b_ih, w_hh_t, b_hh, h0)
+    T, L, Bb, In = x.shape
+    H = h0.shape[-1]
+    G = 3 * H
+    zeros = lambda shape: torch.zeros(shape, device=x.device, dtype=torch.float32)
+    dys = zeros((T, L, Bb, H)) if dys is None else dys
+    dhT = zeros((L, Bb, H)) if dhT is None else dhT
+    for name, t, shape in (("ys", ys, (T, L, Bb, H)), ("dys", dys, (T, L, Bb, H)),
+                           ("dhT", dhT, (L, Bb, H))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    dev = x.device
+    if dev.type == "cpu":
+        return fused_gru_scan_inproj_backward_reference(
+            x, w_ih_t, b_ih, w_hh_t, b_hh, h0, ys, dys, dhT
+        )
+    new = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
+    dx, dw_ih, db_ih = new(T, L, Bb, In), new(L, In, G), new(L, G)
+    dw_hh, db_hh, dh0 = new(L, H, G), new(L, G), new(L, Bb, H)
+    dg, dgn = new(T, L, Bb, G), new(T, L, Bb, H)
+    build.cuda_launch(
+        _library(), "se_gru_inproj_bwd_f32",
+        (x, w_ih_t, b_ih, w_hh_t, b_hh, h0, ys, dys, dhT),
+        (*_INPUTS, "ys", "dys", "dhT"),
+        (dx, dw_ih, db_ih, dw_hh, db_hh, dh0, dg, dgn), (T, L, Bb, In, H), dev,
+    )
+    fused_gru_scan_inproj_backward.launches += 1
+    return dx, dw_ih, db_ih, dw_hh, db_hh, dh0
+
+
+class _FusedGruScanInproj(torch.autograd.Function):
+    """The custom VJP of ``pallas_lstm.fused_gru_scan_inproj``: the forward
+    keeps ``(x, w_ih_t, b_ih, w_hh_t, b_hh, h0, ys)``; the backward maps
+    ``(dys, dhT)``, zeros where an output was unused, to the six input
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, x, w_ih_t, b_ih, w_hh_t, b_hh, h0):
+        ys, hT = _forward(x, w_ih_t, b_ih, w_hh_t, b_hh, h0)
+        ctx.save_for_backward(x, w_ih_t, b_ih, w_hh_t, b_hh, h0, ys)
+        return ys, hT
+
+    @staticmethod
+    def backward(ctx, dys, dhT):
+        cont = lambda t: None if t is None else t.contiguous()
+        return fused_gru_scan_inproj_backward(*ctx.saved_tensors, cont(dys), cont(dhT))
+
+
+def fused_gru_scan_inproj(x, w_ih_t, b_ih, w_hh_t, b_hh, h0):
+    """Same signature and result as :func:`fused_gru_scan_inproj_reference`.
+
+    CPU tensors run the plain version.  CUDA tensors launch the kernel on
+    the current stream, or raise: float32 and contiguous only.  Each launch
+    adds one to ``fused_gru_scan_inproj.launches``.  When gradients are on
+    and an input requires one, the call's backward is
+    :func:`fused_gru_scan_inproj_backward`.
+    """
+    args = (x, w_ih_t, b_ih, w_hh_t, b_hh, h0)
+    _check(*args)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _FusedGruScanInproj.apply(*args)
+    return _forward(*args)
+
+
+fused_gru_scan_inproj.launches = 0
+fused_gru_scan_inproj_backward.launches = 0

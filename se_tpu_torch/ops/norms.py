@@ -1,9 +1,22 @@
-"""BatchNorm with torch semantics (counterpart of ``batch_norm_2d`` in
-``se_tpu/ops/norms.py``)."""
+"""BatchNorm with torch semantics and FullSubNet's normalisations
+(counterpart of ``batch_norm_2d``, the four norms of ``norm_wrapper`` and
+``norm_wrapper`` itself in ``se_tpu/ops/norms.py``).
+
+The FullSubNet norms take ``[B, C, F, T]`` and keep their statistics in
+f32.  ``valid_frames`` (a scalar or one count per sample) restricts the
+offline norms' statistics to the first ``valid_frames`` frames; the
+cumulative norms are causal prefix statistics and ignore it.  The
+forgetting-EMA norms and the chunk-carry forms of the cumulative norms are
+not in ``norm_wrapper``'s table and are not ported yet (ROADMAP.md, Queue 1
+items 11 and 14).
+"""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+EPSILON = float(np.finfo(np.float32).eps)
 
 
 def batch_norm_2d(
@@ -39,3 +52,80 @@ def batch_norm_2d(
     ]
     y = y + bias.to(x.dtype)[None, :, None, None]
     return y, new_mean, new_var
+
+
+def _frame_mask(x: torch.Tensor, valid_frames):
+    """``([B or 1, 1, 1, T] f32 mask of the valid frames, [B or 1, 1, 1, 1]
+    counts as f32)``."""
+    vf = torch.as_tensor(valid_frames, device=x.device).reshape(-1, 1, 1, 1)
+    tmask = (torch.arange(x.shape[3], device=x.device) < vf).float()
+    return tmask, vf.float()
+
+
+def offline_laplace_norm(x: torch.Tensor, valid_frames=None) -> torch.Tensor:
+    """Divide by the utterance's mean (the config default)."""
+    if valid_frames is None:
+        mu = x.mean(dim=(1, 2, 3), keepdim=True, dtype=torch.float32)
+    else:
+        tmask, vf = _frame_mask(x, valid_frames)
+        n = x.shape[1] * x.shape[2] * vf
+        mu = (x.float() * tmask).sum(dim=(1, 2, 3), keepdim=True) / n
+    return x / (mu + 1e-5).to(x.dtype)
+
+
+def cumulative_laplace_norm(x: torch.Tensor, valid_frames=None) -> torch.Tensor:
+    """Divide by the running mean over frequencies and frames so far."""
+    B, C, F, T = x.shape
+    xr = x.reshape(B * C, F, T)
+    cum_sum = xr.sum(dim=1, dtype=torch.float32).cumsum(dim=-1)  # [BC, T]
+    entry_count = torch.arange(F, F * T + 1, F, device=x.device, dtype=torch.float32)[None, :]
+    cum_mean = (cum_sum / entry_count)[:, None, :]
+    return (xr / (cum_mean + EPSILON).to(x.dtype)).reshape(B, C, F, T)
+
+
+def offline_gaussian_norm(x: torch.Tensor, valid_frames=None) -> torch.Tensor:
+    """Subtract the utterance's mean and divide by its unbiased std."""
+    xf = x.float()
+    if valid_frames is None:
+        mu = xf.mean(dim=(1, 2, 3), keepdim=True)
+        n = x.shape[1] * x.shape[2] * x.shape[3]
+        var = (xf - mu).square().mean(dim=(1, 2, 3), keepdim=True) * n / max(n - 1, 1)
+    else:
+        tmask, vf = _frame_mask(x, valid_frames)
+        n = x.shape[1] * x.shape[2] * vf
+        mu = (xf * tmask).sum(dim=(1, 2, 3), keepdim=True) / n
+        var = ((xf - mu).square() * tmask).sum(dim=(1, 2, 3), keepdim=True) / (n - 1).clamp(min=1.0)
+    return (x - mu.to(x.dtype)) / (var.sqrt() + 1e-5).to(x.dtype)
+
+
+def cumulative_layer_norm(x: torch.Tensor, valid_frames=None) -> torch.Tensor:
+    """Subtract the running mean and divide by the running std, from running
+    sums of x and x^2."""
+    B, C, F, T = x.shape
+    xr = x.reshape(B * C, F, T)
+    cum_sum = xr.sum(dim=1, dtype=torch.float32).cumsum(dim=-1)
+    cum_pow = xr.float().square().sum(dim=1).cumsum(dim=-1)
+    entry_count = torch.arange(F, F * T + 1, F, device=x.device, dtype=torch.float32)[None, :]
+    cum_mean = cum_sum / entry_count
+    cum_var = (cum_pow - 2 * cum_mean * cum_sum) / entry_count + cum_mean**2
+    cum_std = (cum_var + EPSILON).sqrt()
+    out = (xr - cum_mean[:, None, :].to(x.dtype)) / cum_std[:, None, :].to(x.dtype)
+    return out.reshape(B, C, F, T)
+
+
+_NORMS = {
+    "offline_laplace_norm": offline_laplace_norm,
+    "cumulative_laplace_norm": cumulative_laplace_norm,
+    "offline_gaussian_norm": offline_gaussian_norm,
+    "cumulative_layer_norm": cumulative_layer_norm,
+}
+
+
+def norm_wrapper(norm_type: str):
+    """The FullSubNet norm named ``norm_type``."""
+    if norm_type not in _NORMS:
+        raise NotImplementedError(
+            "You must set up a type of Norm, e.g. offline_laplace_norm, "
+            f"cumulative_laplace_norm, ...; got {norm_type!r}"
+        )
+    return _NORMS[norm_type]

@@ -1,6 +1,6 @@
-"""LSTMs with torch weight semantics (counterpart of ``LstmParams``,
-``lstm``, ``_scan_or_pallas`` and ``lstm_stack`` of ``se_tpu/ops/rnn.py``,
-f32 path).
+"""LSTMs and GRUs with torch weight semantics (counterpart of
+``LstmParams``, ``lstm``, ``gru``, ``_scan_or_pallas`` and ``lstm_stack`` of
+``se_tpu/ops/rnn.py``, f32 path).
 
 ``lstm_stack`` (the complex LSTM's stacks): the input projection of all
 time steps is one product outside the recurrence; the recurrence itself
@@ -14,6 +14,10 @@ which the JAX package also leaves outside its kernel.
 ``lstm`` (one layer of ``nn.LSTM``): the whole layer, projection included,
 goes to ``fused_lstm_inproj.py`` (the K2 kernels on the card), as the JAX
 package's Pallas branch hands it to ``fused_lstm_scan_inproj``.
+
+``gru`` (one layer of ``nn.GRU``): the whole layer goes to
+``fused_gru_inproj.py`` (the K3 kernels on the card), as the Pallas branch
+hands it to ``fused_gru_scan_inproj``; the two biases stay separate.
 """
 
 from __future__ import annotations
@@ -22,15 +26,18 @@ from typing import NamedTuple
 
 import torch
 
+from .fused_gru_inproj import fused_gru_scan_inproj
 from .fused_lstm import fused_lstm_scan
 from .fused_lstm_inproj import fused_lstm_scan_inproj
 
 
 class LstmParams(NamedTuple):
-    w_ih: torch.Tensor  # [4H, In]  (a leading stack axis L in lstm_stack)
-    w_hh: torch.Tensor  # [4H, H]
-    b_ih: torch.Tensor  # [4H]
-    b_hh: torch.Tensor  # [4H]
+    """One layer's weights; G = 4H for an LSTM, 3H for a GRU."""
+
+    w_ih: torch.Tensor  # [G, In]  (a leading stack axis L in lstm_stack)
+    w_hh: torch.Tensor  # [G, H]
+    b_ih: torch.Tensor  # [G]
+    b_hh: torch.Tensor  # [G]
 
 
 def _scan(x_proj, w_hh, H, h0, c0):
@@ -85,3 +92,25 @@ def lstm(params: LstmParams, x, h0=None, c0=None):
         c0[None].contiguous(),
     )
     return ys[:, 0], (hT[0], cT[0])
+
+
+def gru(params: LstmParams, x, h0=None):
+    """One unidirectional GRU layer with torch gate semantics: ``x [T, B,
+    In]`` -> ``(ys [T, B, H], hT [B, H])``, ``h0 [B, H]`` (zeros when None).
+    float32 only."""
+    if x.dtype != torch.float32:
+        raise NotImplementedError(
+            "gru runs float32 only; bf16 streams are ROADMAP.md, Queue 1 item 6"
+        )
+    T, B, _ = x.shape
+    H = params.w_hh.shape[1]
+    h0 = x.new_zeros((B, H)) if h0 is None else h0
+    ys, hT = fused_gru_scan_inproj(
+        x[:, None].contiguous(),
+        params.w_ih.T[None].contiguous(),
+        params.b_ih[None].contiguous(),
+        params.w_hh.T[None].contiguous(),
+        params.b_hh[None].contiguous(),
+        h0[None].contiguous(),
+    )
+    return ys[:, 0], hT[0]

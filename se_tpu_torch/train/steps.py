@@ -1,21 +1,24 @@
-"""Train and validation steps (counterpart of the masking and
-``crn_direct`` variants of ``make_train_step`` and ``make_eval_step`` in
-``se_tpu/train/steps.py``)."""
+"""Train and validation steps (counterpart of the masking, ``crn_direct``
+and ``fullsubnet`` variants of ``make_train_step`` and ``make_eval_step``
+in ``se_tpu/train/steps.py``), and FullSubNet's cRM decode."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from ..config import Config
+from ..dsp.stft import istft, mag_phase, stft
 from ..losses import main_loss
+from ..ops.cirm import build_complex_ideal_ratio_mask, decompress_cIRM
 
 # where each trainer variant that is not ported yet stands in ROADMAP.md
 _NOT_PORTED = {
     "perceptual": "Queue 1 item 9",
-    "fullsubnet": "Queue 1 item 10",
     "dccrn_direct": "Queue 1 item 7",
 }
-_PORTED = ("masking", "crn_direct")
+_PORTED = ("masking", "crn_direct", "fullsubnet")
 
 
 def trainer_variant(cfg: Config) -> str:
@@ -38,10 +41,38 @@ def _require_ported(cfg: Config, what: str) -> str:
     return variant
 
 
-def _loss_and_outputs(cfg: Config, variant: str, model, inputs, targets):
-    """The variant's loss and the enhanced waveforms: ``masking`` scores the
-    waveform against the clean one; ``crn_direct`` scores CRN's magnitude
-    against the clean magnitude."""
+def _fullsubnet_features(cfg: Config, inputs, targets):
+    """``(noisy spectrum, noisy magnitude, compressed cIRM)`` through the
+    framework STFT at ``cfg.stft.torch_hop``."""
+    s = cfg.stft
+    noisy_complex = stft(inputs, s.fft_len, s.torch_hop, s.win_len)
+    clean_complex = stft(targets, s.fft_len, s.torch_hop, s.win_len)
+    noisy_mag, _ = mag_phase(noisy_complex)
+    return noisy_complex, noisy_mag, build_complex_ideal_ratio_mask(noisy_complex, clean_complex)
+
+
+def fullsubnet_enhance(cfg: Config, cRM, noisy_complex, length: int) -> torch.Tensor:
+    """cRM ``[B, F, T, 2]`` decoded, times the noisy spectrum, framework
+    iSTFT -> ``[B, length]`` (reference: trainer.py:341-345)."""
+    s = cfg.stft
+    cRM = decompress_cIRM(cRM)
+    nr, ni = noisy_complex.real, noisy_complex.imag
+    enhanced_real = cRM[..., 0] * nr - cRM[..., 1] * ni
+    enhanced_imag = cRM[..., 1] * nr + cRM[..., 0] * ni
+    enhanced = torch.stack((enhanced_real, enhanced_imag), dim=-1)
+    return istft(enhanced, s.fft_len, s.torch_hop, s.win_len, length=length)
+
+
+def _loss_and_outputs(cfg: Config, variant: str, model, inputs, targets, generator=None):
+    """The variant's loss and outputs: ``masking`` scores the waveform
+    against the clean one; ``crn_direct`` scores CRN's magnitude against the
+    clean magnitude; ``fullsubnet`` scores the cIRM against the predicted
+    cRM, in the reference's argument order, and returns ``(cRM, noisy
+    spectrum)``."""
+    if variant == "fullsubnet":
+        noisy_complex, noisy_mag, cIRM = _fullsubnet_features(cfg, inputs, targets)
+        cRM = model(noisy_mag, generator=generator)
+        return main_loss(cfg.loss, cIRM, cRM), (cRM, noisy_complex)
     if variant == "crn_direct":
         out_mag, tgt_mag, outputs = model(inputs, targets)
         return main_loss(cfg.loss, out_mag, tgt_mag), outputs
@@ -55,14 +86,29 @@ def _batch(model: torch.nn.Module, inputs, targets):
             torch.as_tensor(targets, dtype=torch.float32, device=dev))
 
 
+def _dropout_generator(cfg: Config, model: torch.nn.Module) -> torch.Generator:
+    """The model's own dropout generator: made at its first train step on
+    the model's device, seeded from ``cfg.train.seed``, and kept on the
+    model so that later steps draw fresh masks."""
+    gen = getattr(model, "dropout_generator", None)
+    if gen is None:
+        dev = next(model.parameters()).device
+        gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
+        model.dropout_generator = gen
+    return gen
+
+
 def train_step(cfg: Config, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-               inputs, targets) -> dict:
+               inputs, targets, generator: Optional[torch.Generator] = None) -> dict:
     """One optimisation step on a ``(noisy, clean)`` batch, both ``[B, L]``,
     on the model's device -> ``{"loss": scalar}`` (the mean over
     micro-batches, detached).
 
     The model is put in train mode: BatchNorm normalises with the batch's
-    statistics and moves its running buffers.  With ``cfg.train.grad_accum
+    statistics and moves its running buffers, and FullSubNet's dropout draws
+    its masks from ``generator`` (a ``torch.Generator`` on the model's
+    device; default: the model's own, seeded from ``cfg.train.seed`` at its
+    first step).  With ``cfg.train.grad_accum
     = A > 1`` the batch runs as A sequential micro-batches of ``B / A``
     rows; each updates the running statistics in turn, their gradients are
     summed and divided by A, and the optimiser takes one step, as the JAX
@@ -74,6 +120,8 @@ def train_step(cfg: Config, model: torch.nn.Module, optimizer: torch.optim.Optim
     inputs, targets = _batch(model, inputs, targets)
     if inputs.shape[0] % accum:
         raise ValueError(f"batch {inputs.shape[0]} does not split into {accum} micro-batches")
+    if generator is None and variant == "fullsubnet":
+        generator = _dropout_generator(cfg, model)
     model.train()
     params = [p for p in model.parameters() if p.requires_grad]
     # Summed out of place, not by repeated backward(): autograd may hand
@@ -82,7 +130,7 @@ def train_step(cfg: Config, model: torch.nn.Module, optimizer: torch.optim.Optim
     # accumulation into one would then add to the other as well.
     grads, total = None, 0.0
     for x, y in zip(inputs.chunk(accum), targets.chunk(accum)):
-        loss, _ = _loss_and_outputs(cfg, variant, model, x, y)
+        loss, _ = _loss_and_outputs(cfg, variant, model, x, y, generator)
         g = torch.autograd.grad(loss, params)
         grads = g if grads is None else [a + b for a, b in zip(grads, g)]
         total = total + loss.detach()
@@ -100,4 +148,6 @@ def eval_step(cfg: Config, model: torch.nn.Module, inputs, targets):
     with torch.inference_mode():
         inputs, targets = _batch(model, inputs, targets)
         loss, outputs = _loss_and_outputs(cfg, variant, model, inputs, targets)
+        if variant == "fullsubnet":
+            outputs = fullsubnet_enhance(cfg, *outputs, length=inputs.shape[-1])
     return {"loss": loss}, outputs

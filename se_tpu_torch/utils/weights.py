@@ -9,8 +9,10 @@ nested dicts of numpy arrays, onto the reference's state-dict grammar
 ...), which is also the port's module naming, so the port's DCCRN loads it
 with ``load_state_dict(strict=True)``; :func:`crn_state_dict_from_jax` does
 the same for CRN (``encoder.{i}.0.conv.weight``, ``enhance.weight_ih_l0``,
-``tranform.weight``, ...), and :func:`state_dict_from_jax` picks by
-``cfg.model``.  A JAX-trained checkpoint reaches
+``tranform.weight``, ...), :func:`fullsubnet_state_dict_from_jax` for
+FullSubNet (``fb_model.sequence_model.weight_ih_l0``,
+``sb_model.fc_output_layer.bias``, ...), and :func:`state_dict_from_jax`
+picks by ``cfg.model``.  A JAX-trained checkpoint reaches
 the card through the ``{'model', 'optimizer', 'epoch'}`` blob that
 ``python -m se_tpu.utils.torch_export`` writes, read by
 :func:`load_reference_checkpoint`.
@@ -134,14 +136,25 @@ def crn_state_dict_from_jax(params, batch_stats, cfg: Config) -> Dict[str, torch
     return {k: _tensor(v) for k, v in out.items()}
 
 
+def fullsubnet_state_dict_from_jax(params, batch_stats, cfg: Config) -> Dict[str, torch.Tensor]:
+    """JAX FullSubNet ``params`` tree -> reference-grammar state dict (LSTM or
+    GRU alike: the leaves are named as ``nn.LSTM``'s and ``nn.GRU``'s).
+    FullSubNet has no batch statistics."""
+    out = {}
+    for branch in ("fb_model", "sb_model"):
+        for leaf, arr in params[branch]["sequence_model"].items():  # weight_ih_l0 ...
+            out[f"{branch}.sequence_model.{leaf}"] = arr
+        fc = params[branch]["fc_output_layer"]
+        out[f"{branch}.fc_output_layer.weight"] = fc["weight"]
+        out[f"{branch}.fc_output_layer.bias"] = fc["bias"]
+    return {k: _tensor(v) for k, v in out.items()}
+
+
 def state_dict_from_jax(params, batch_stats, cfg: Config) -> Dict[str, torch.Tensor]:
     """JAX ``params``/``batch_stats`` trees of ``cfg.model`` -> reference-grammar
     state dict."""
-    convert = {"DCCRN": dccrn_state_dict_from_jax, "CRN": crn_state_dict_from_jax}
-    if cfg.model not in convert:
-        raise NotImplementedError(
-            f"model {cfg.model!r} is not ported yet (ROADMAP.md, Queue 1 item 10)"
-        )
+    convert = {"DCCRN": dccrn_state_dict_from_jax, "CRN": crn_state_dict_from_jax,
+               "FullSubNet": fullsubnet_state_dict_from_jax}
     return convert[cfg.model](params, batch_stats, cfg)
 
 
@@ -163,9 +176,10 @@ class _Draw:
         bstats[name] = {"running_mean": self.normal(n, 0.1),
                         "running_var": self.rng.uniform(0.5, 1.5, n).astype(np.float32)}
 
-    def torch_lstm(self, input_size, hidden_size, num_layers):
-        """``TorchLSTM`` leaves, U(+-1/sqrt(H)), in flax's order."""
-        b, G = 1.0 / np.sqrt(hidden_size), 4 * hidden_size
+    def torch_rnn(self, input_size, hidden_size, num_layers, gates=4):
+        """``TorchLSTM`` (``gates=4``) or ``TorchGRU`` (``gates=3``) leaves,
+        U(+-1/sqrt(H)), in flax's order."""
+        b, G = 1.0 / np.sqrt(hidden_size), gates * hidden_size
         out = {}
         for k in range(num_layers):
             in_size = input_size if k == 0 else hidden_size
@@ -201,7 +215,7 @@ def random_crn_params(cfg: Config, seed: int = 0):
     for i in range(n_stage):
         stage("encoder", i, (kn[i + 1] // 2, kn[i] // 2, ks, 2), kn[i + 1] // 2, True)
     H = cfg.crn.rnn_units // 2
-    params["enhance"] = d.torch_lstm(cfg.crn.rnn_input_size, H, 1)
+    params["enhance"] = d.torch_rnn(cfg.crn.rnn_input_size, H, 1)
     params["tranform"] = d.linear(H, cfg.crn.rnn_input_size)
     for n, idx in enumerate(range(n_stage, 0, -1)):
         # input: kn[idx] // 2 channels doubled by the skip
@@ -233,7 +247,7 @@ def random_dccrn_params(cfg: Config, seed: int = 0):
 
     width = cfg.stft.fft_len // (2 ** len(kn)) * kn[-1]
     if cfg.lstm == "real":  # two layers, as the JAX model builds it
-        params["enhance"] = d.torch_lstm(width, cfg.dccrn.rnn_units, 2)
+        params["enhance"] = d.torch_rnn(width, cfg.dccrn.rnn_units, 2)
         params["tranform"] = d.linear(cfg.dccrn.rnn_units, width)
     units, layers = cfg.dccrn.rnn_units // 2, cfg.dccrn.rnn_layers
     for li in range(layers if cfg.lstm == "complex" else 0):
@@ -241,7 +255,7 @@ def random_dccrn_params(cfg: Config, seed: int = 0):
         # flax names these leaves "{part}_weight_ih", without the "_l0"
         blk = {f"{part}_{leaf[:-3]}": v
                for part in ("real", "imag")
-               for leaf, v in d.torch_lstm(in_dim, units, 1).items()}
+               for leaf, v in d.torch_rnn(in_dim, units, 1).items()}
         if li == layers - 1:
             for trans in ("r_trans", "i_trans"):
                 # drawn with the LSTM's bound, 1/sqrt(units)
@@ -256,6 +270,25 @@ def random_dccrn_params(cfg: Config, seed: int = 0):
             d.batch_norm(params, bstats, f"decoder_{n}_bn", kn[idx - 1])
             params[f"decoder_{n}_prelu"] = {"weight": np.full((1,), 0.25, np.float32)}
     return params, bstats
+
+
+def random_fullsubnet_params(cfg: Config, seed: int = 0):
+    """A FullSubNet ``(params, batch_stats)`` tree in the JAX package's
+    layout, for ``cfg.sequence_model`` LSTM or GRU, drawn from
+    ``numpy.random.default_rng(seed)`` with the reference's initialisation
+    (U(+-1/sqrt(H)) for the RNNs, U(+-1/sqrt(fan_in)) for the linears).
+    ``batch_stats`` is empty."""
+    d = _Draw(seed)
+    fsn = cfg.fullsubnet
+    gates = {"LSTM": 4, "GRU": 3}[cfg.sequence_model]
+    F = cfg.stft.num_freqs
+    sb_in = (fsn.sb_num_neighbors * 2 + 1) + (fsn.fb_num_neighbors * 2 + 1)
+    params = {}
+    for name, in_size, out_size, hidden in (("fb_model", F, F, fsn.fb_model_hidden_size),
+                                            ("sb_model", sb_in, 2, fsn.sb_model_hidden_size)):
+        params[name] = {"sequence_model": d.torch_rnn(in_size, hidden, 2, gates),
+                        "fc_output_layer": d.linear(hidden, out_size)}
+    return params, {}
 
 
 def save_reference_checkpoint(path: str, state_dict: Dict[str, torch.Tensor], epoch: int = 0) -> str:
