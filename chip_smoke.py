@@ -19,14 +19,22 @@ in order; any failure ends the run with a nonzero exit and no result line:
    LSTM layers (at B = 2, 10 and 8), a ragged and a wide (4H = 2048,
    In = 257) case, then the in-projection GRU scan's forward (K3f) and
    backward (K3b) at FullSubNet's four GRU layers (B = 2, 10 and 8) and two
-   ragged cases;
+   ragged cases, then the DCCRN encoder's fused complex conv (K4) at its six
+   stages (B = 10 and 8) and a ragged case, with one cuDNN conv beside it;
+   then the probes (P1 bound_probe, P2 wavefront_probe, P3 vpu_probe), each
+   against its plain version, then each probe's own entry point at the sub
+   band's shape (B = 8, T = 163) with every launch count set to 0 just
+   before and read just after;
 4. the enhance paths at full width, each with seeded random weights carried
    over from the JAX tree layout: ``enhance_batch`` on 8 three-second
    utterances (every kernel's launch count set to 0 just before and read
    just after), the validation forward, the same weights on the CPU, and
    the enhance CLI as a subprocess; for the default DCCRN, then for CRN
    (the tutorial configuration), DCCRN with ``lstm="real"``, FullSubNet
-   (its default LSTM) and FullSubNet with ``sequence_model="GRU"``;
+   (its default LSTM), FullSubNet with ``sequence_model="GRU"`` and the
+   default DCCRN's weights with ``use_pallas_conv=True`` (its encoder convs
+   through K4; no CLI run, as no CLI takes that switch; its waveform also
+   held to the default DCCRN's);
 5. the train paths at full width: one ``train_step`` on the card and one on
    the CPU from the same weights (loss, every gradient, the BatchNorm
    running statistics; FullSubNet's dropout set to 0 for this, since two
@@ -34,9 +42,9 @@ in order; any failure ends the run with a nonzero exit and no result line:
    step with and without gradient accumulation, then 10 steps at the
    default batch of 10 on one fixed batch (the loss must fall; FullSubNet
    with its dropout of 0.8 drawn from a generator on the card), with step
-   time, throughput, peak memory and a profile; for the default DCCRN, CRN
-   and both FullSubNets, plus one CRN direct-mapping step and one DCCRN
-   real-LSTM step against the CPU;
+   time, throughput, peak memory and a profile; for the default DCCRN, CRN,
+   both FullSubNets and DCCRN with ``use_pallas_conv``, plus one CRN
+   direct-mapping step and one DCCRN real-LSTM step against the CPU;
 6. report: one JSON line of kernel numbers, then the result line.
 
 TF32 is off throughout (``resolve_device`` sets it): the reference is f32.
@@ -82,22 +90,15 @@ GRAD_FLOOR = 1e-2
 TRAIN_STATS_TOL = 1e-5
 
 
-def _cuda_ms(fn, iters: int, warmup: int) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def _max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
+
+
+def _bound(n_bytes, flops) -> tuple:
+    """The least time for moving ``n_bytes`` and doing ``flops`` in f32 on
+    the card, in ms, and which of the two bounds it."""
+    bytes_ms, flops_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
+    return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
 
 
 def _profile(fn, steps: int, top: int = 12):
@@ -151,10 +152,17 @@ def phase_build():
     t0 = time.perf_counter()
     logs = build.build()
     print(f"[build] {build.kernel_names()} in {time.perf_counter() - t0:.2f} s")
+    # ptxas names each kernel mangled; cu++filt, beside nvcc, demangles it
+    # (-p: without the parameter types)
+    cu_filt = str(Path(build._nvcc()).with_name("cu++filt"))
     for name, log in logs.items():
+        kernel = None
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = subprocess.run([cu_filt, "-p", line.split("'")[1]], capture_output=True,
+                                        text=True, check=True, timeout=60).stdout.strip()
+            elif "registers" in line or "spill" in line:
+                print(f"[build] {name} {kernel}: {line.strip().removeprefix('ptxas info    : ')}")
 
 
 def _scan_inputs(rng, dev, T, L, Bb, H):
@@ -190,6 +198,7 @@ def phase_lstm_kernel() -> dict:
     100 with the conv-STFT's 300-sample pads), L=2 stacks, Bb=16 rows
     (B=8 doubled), H=128 (rnn_units=256 halved)."""
     from se_tpu_torch.device import resolve_device
+    from se_tpu_torch.probes import cuda_ms
     from se_tpu_torch.ops.fused_lstm import fused_lstm_scan, fused_lstm_scan_reference
 
     dev = resolve_device("cuda")
@@ -221,16 +230,14 @@ def phase_lstm_kernel() -> dict:
         lib_err = max(_max_err(out[0], ys[:, l]) for l, out in enumerate(library()))
         print(f"[lstm] max |cuDNN LSTM - kernel| {lib_err}")
 
-        kernel_ms = _cuda_ms(lambda: fused_lstm_scan(xp, w, h0, c0), iters=50, warmup=3)
-        plain_ms = _cuda_ms(lambda: fused_lstm_scan_reference(xp, w, h0, c0), iters=5, warmup=1)
-        library_ms = _cuda_ms(library, iters=50, warmup=3)
+        kernel_ms = cuda_ms(lambda: fused_lstm_scan(xp, w, h0, c0), iters=50, warmup=3)
+        plain_ms = cuda_ms(lambda: fused_lstm_scan_reference(xp, w, h0, c0), iters=5, warmup=1)
+        library_ms = cuda_ms(library, iters=50, warmup=3)
 
     n_bytes = 4 * (xp.numel() + w.numel() + h0.numel() + c0.numel()
                    + ys.numel() + hT.numel() + cT.numel())
     flops = 2 * T * L * Bb * H * 4 * H + T * L * Bb * 4 * H  # h @ W_hh, + x_proj
-    bytes_ms, flops_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
-    bound_ms = max(bytes_ms, flops_ms)
-    bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
+    bound_ms, bound_by = _bound(n_bytes, flops)
     print(f"[lstm] kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms "
           f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}: {n_bytes} B, {flops} FLOP)")
     return {
@@ -260,6 +267,7 @@ def phase_lstm_backward() -> tuple:
     Bb=20 (the default batch of 10 doubled), H=128; the forward's stash;
     a ragged case.  Returns the K1b entry and the stash forward's times."""
     from se_tpu_torch.device import resolve_device
+    from se_tpu_torch.probes import cuda_ms
     from se_tpu_torch.ops import fused_lstm
     from se_tpu_torch.ops.fused_lstm import (
         fused_lstm_scan_backward,
@@ -310,11 +318,11 @@ def phase_lstm_backward() -> tuple:
         print(f"[lstm-bwd] ragged T=7 L=3 Bb=5 H=32: {r_errs}")
         assert all(v <= BWD_REL_TOL for v in r_errs.values()), r_errs
 
-        kernel_ms = _cuda_ms(lambda: fused_lstm_scan_backward(*args), iters=20, warmup=2)
-        plain_ms = _cuda_ms(lambda: fused_lstm_scan_backward_reference(*args), iters=3, warmup=1)
-        fwd_ms = _cuda_ms(lambda: fused_lstm._forward(xp, w, h0, c0, need_cs=False),
+        kernel_ms = cuda_ms(lambda: fused_lstm_scan_backward(*args), iters=20, warmup=2)
+        plain_ms = cuda_ms(lambda: fused_lstm_scan_backward_reference(*args), iters=3, warmup=1)
+        fwd_ms = cuda_ms(lambda: fused_lstm._forward(xp, w, h0, c0, need_cs=False),
                           iters=20, warmup=2)
-        fwd_stash_ms = _cuda_ms(lambda: fused_lstm._forward(xp, w, h0, c0, need_cs=True),
+        fwd_stash_ms = cuda_ms(lambda: fused_lstm._forward(xp, w, h0, c0, need_cs=True),
                                 iters=20, warmup=2)
     print(f"[lstm-bwd] forward at Bb={Bb}: {fwd_ms:.4f} ms without the stash, "
           f"{fwd_stash_ms:.4f} ms with it")
@@ -335,16 +343,14 @@ def phase_lstm_backward() -> tuple:
 
     lib_dx = lib_forward_backward()[0][0]
     print(f"[lstm-bwd] max |cuDNN dx - kernel dx_proj| (stack 0) {_max_err(lib_dx, got[0][:, 0])}")
-    lib_fwd_ms = _cuda_ms(lib_forward, iters=20, warmup=2)
-    lib_ms = _cuda_ms(lib_forward_backward, iters=20, warmup=2) - lib_fwd_ms
+    lib_fwd_ms = cuda_ms(lib_forward, iters=20, warmup=2)
+    lib_ms = cuda_ms(lib_forward_backward, iters=20, warmup=2) - lib_fwd_ms
 
     G = 4 * H
     # read x_proj, w, ys, cs, dys, h0, c0, dhT, dcT; write dx_proj, dW, dh0, dc0
     n_bytes = 4 * (2 * xp.numel() + 2 * w.numel() + 3 * ys.numel() + 6 * h0.numel())
     flops = 3 * 2 * T * L * Bb * H * G  # the gate recompute, dh and dW products
-    bytes_ms, flops_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
-    bound_ms = max(bytes_ms, flops_ms)
-    bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
+    bound_ms, bound_by = _bound(n_bytes, flops)
     print(f"[lstm-bwd] kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms "
           f"{lib_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}: {n_bytes} B, {flops} FLOP)")
     entry = {
@@ -403,6 +409,7 @@ def phase_inproj_kernels() -> tuple:
     with 4H above the block's threads and an odd In (FullSubNet's full band:
     T=193, Bb=2, In=257, H=512).  Returns the K2f and K2b entries."""
     from se_tpu_torch.device import resolve_device
+    from se_tpu_torch.probes import cuda_ms
     from se_tpu_torch.ops import fused_lstm_inproj as k2
 
     dev = resolve_device("cuda")
@@ -455,15 +462,13 @@ def phase_inproj_kernels() -> tuple:
     with torch.inference_mode():
         lib_err = _max_err(lib(x[:, 0], (h0, c0))[0], ys[:, 0])
         print(f"[k2] max |cuDNN LSTM - kernel| ys {lib_err}")
-        kernel_ms = _cuda_ms(lambda: k2.fused_lstm_scan_inproj(*args), iters=20, warmup=2)
-        plain_ms = _cuda_ms(lambda: k2.fused_lstm_scan_inproj_reference(*args), iters=3, warmup=1)
-        library_ms = _cuda_ms(lambda: lib(x[:, 0], (h0, c0)), iters=20, warmup=2)
-        stash_ms = _cuda_ms(lambda: k2._forward(*args, need_cs=True), iters=20, warmup=2)
+        kernel_ms = cuda_ms(lambda: k2.fused_lstm_scan_inproj(*args), iters=20, warmup=2)
+        plain_ms = cuda_ms(lambda: k2.fused_lstm_scan_inproj_reference(*args), iters=3, warmup=1)
+        library_ms = cuda_ms(lambda: lib(x[:, 0], (h0, c0)), iters=20, warmup=2)
+        stash_ms = cuda_ms(lambda: k2._forward(*args, need_cs=True), iters=20, warmup=2)
     n_bytes = 4 * (sum(a.numel() for a in args) + ys.numel() + 2 * h0.numel())
     flops = 2 * T * L * Bb * (In + H) * G + T * L * Bb * G  # the two products, + bias
-    bytes_ms, flops_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
-    bound_ms = max(bytes_ms, flops_ms)
-    bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
+    bound_ms, bound_by = _bound(n_bytes, flops)
     print(f"[k2] forward kernel_ms {kernel_ms:.4f} (with the stash {stash_ms:.4f}) plain_ms "
           f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {bound_ms:.4f} "
           f"({bound_by}: {n_bytes} B, {flops} FLOP)")
@@ -487,9 +492,9 @@ def phase_inproj_kernels() -> tuple:
     args, ys, cs, cots, _, rel_err, abs_err = check("CRN train", T, L, Bb, In, H)
     dys, dhT, dcT = cots
     with torch.no_grad():
-        kernel_ms = _cuda_ms(lambda: k2.fused_lstm_scan_inproj_backward(*args, ys, cs, *cots),
+        kernel_ms = cuda_ms(lambda: k2.fused_lstm_scan_inproj_backward(*args, ys, cs, *cots),
                              iters=10, warmup=2)
-        plain_ms = _cuda_ms(lambda: k2.fused_lstm_scan_inproj_backward_reference(
+        plain_ms = cuda_ms(lambda: k2.fused_lstm_scan_inproj_backward_reference(
             *args, ys, cs, *cots), iters=2, warmup=1)
     lib = _cudnn_lstm(args[1], args[2], args[3], dev)
     leaves = (args[0][:, 0].clone().requires_grad_(), args[4].clone().requires_grad_(),
@@ -508,15 +513,13 @@ def phase_inproj_kernels() -> tuple:
 
     got = k2.fused_lstm_scan_inproj_backward(*args, ys, cs, *cots)
     print(f"[k2] max |cuDNN dx - kernel dx| {_max_err(lib_forward_backward()[0], got[0][:, 0])}")
-    lib_fwd_ms = _cuda_ms(lib_forward, iters=10, warmup=2)
-    library_ms = _cuda_ms(lib_forward_backward, iters=10, warmup=2) - lib_fwd_ms
+    lib_fwd_ms = cuda_ms(lib_forward, iters=10, warmup=2)
+    library_ms = cuda_ms(lib_forward_backward, iters=10, warmup=2) - lib_fwd_ms
     # read x, the weights, h0, c0, ys, cs, dys, dhT, dcT; write dx, dW_ih,
     # dbias, dW_hh, dh0, dc0
     n_bytes = 4 * (2 * sum(a.numel() for a in args) + 3 * ys.numel() + 2 * dhT.numel())
     flops = 3 * 2 * T * L * Bb * (In + H) * G  # the recompute, dx/dh and dW products
-    bytes_ms, flops_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
-    bound_ms = max(bytes_ms, flops_ms)
-    bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
+    bound_ms, bound_by = _bound(n_bytes, flops)
     print(f"[k2] backward kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms "
           f"{library_ms:.4f} (cuDNN forward {lib_fwd_ms:.4f}) bound_ms {bound_ms:.4f} "
           f"({bound_by}: {n_bytes} B, {flops} FLOP); dgates scratch {4 * T * L * Bb * G} B")
@@ -547,10 +550,10 @@ def phase_inproj_kernels() -> tuple:
         dccrn[f"dccrn_real_l{layer}_max_abs_err"] = f_err
         dccrn[f"dccrn_real_l{layer}_bwd_max_rel_err"] = b_rel
         with torch.inference_mode():
-            dccrn[f"dccrn_real_l{layer}_ms"] = _cuda_ms(
+            dccrn[f"dccrn_real_l{layer}_ms"] = cuda_ms(
                 lambda: k2.fused_lstm_scan_inproj(*a), iters=5, warmup=1)
             m = _cudnn_lstm(a[1], a[2], a[3], dev)
-            dccrn[f"dccrn_real_l{layer}_library_ms"] = _cuda_ms(
+            dccrn[f"dccrn_real_l{layer}_library_ms"] = cuda_ms(
                 lambda: m(a[0][:, 0], (a[4], a[5])), iters=10, warmup=2)
     print(f"[k2] DCCRN real LSTM at B=8 (H=256): {dccrn}")
     fwd.update(dccrn)
@@ -598,9 +601,11 @@ def _time_scan(fwd, bwd, lib, lib_inputs, cots) -> dict:
     a yardstick, never on the port's path) on ``lib_inputs`` ``(x, h0[,
     c0])``: its forward, and forward + backward minus forward for the
     cotangents ``cots`` ``(dys, dhT[, dcT])`` of stack 0."""
+    from se_tpu_torch.probes import cuda_ms
+
     with torch.no_grad():
-        fwd_ms = _cuda_ms(fwd, iters=3, warmup=1)
-        bwd_ms = _cuda_ms(bwd, iters=3, warmup=1)
+        fwd_ms = cuda_ms(fwd, iters=3, warmup=1)
+        bwd_ms = cuda_ms(bwd, iters=3, warmup=1)
     leaves = [t.clone().requires_grad_() for t in lib_inputs]
     state = leaves[1] if len(leaves) == 2 else tuple(leaves[1:])
 
@@ -615,8 +620,8 @@ def _time_scan(fwd, bwd, lib, lib_inputs, cots) -> dict:
             (cots[0][:, 0], *cots[1:]),
         )
 
-    lib_fwd_ms = _cuda_ms(lib_forward, iters=3, warmup=1)
-    lib_bwd_ms = _cuda_ms(lib_forward_backward, iters=3, warmup=1) - lib_fwd_ms
+    lib_fwd_ms = cuda_ms(lib_forward, iters=3, warmup=1)
+    lib_bwd_ms = cuda_ms(lib_forward_backward, iters=3, warmup=1) - lib_fwd_ms
     return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "lib_fwd_ms": lib_fwd_ms,
             "lib_bwd_ms": lib_bwd_ms}
 
@@ -660,6 +665,7 @@ def phase_gru_kernels() -> tuple:
     headline numbers are the sums over one forward's (or one step's) four
     calls.  Returns the K3f and K3b entries."""
     from se_tpu_torch.device import resolve_device
+    from se_tpu_torch.probes import cuda_ms
     from se_tpu_torch.ops import fused_gru_inproj as k3
 
     dev = resolve_device("cuda")
@@ -714,9 +720,9 @@ def phase_gru_kernels() -> tuple:
                        lambda: k3.fused_gru_scan_inproj_backward(*args, ys, *cots),
                        lib, (args[0][:, 0], args[5]), cots)
         with torch.no_grad():
-            t["plain_fwd_ms"] = _cuda_ms(lambda: k3.fused_gru_scan_inproj_reference(*args),
+            t["plain_fwd_ms"] = cuda_ms(lambda: k3.fused_gru_scan_inproj_reference(*args),
                                          iters=2, warmup=1)
-            t["plain_bwd_ms"] = _cuda_ms(
+            t["plain_bwd_ms"] = cuda_ms(
                 lambda: k3.fused_gru_scan_inproj_backward_reference(*args, ys, *cots),
                 iters=1, warmup=1)
         G = 3 * H
@@ -732,12 +738,8 @@ def phase_gru_kernels() -> tuple:
             total[k] += t[k]
         print(f"[k3] {label} B=8: {t}")
 
-    def bound(n_bytes, flops):
-        bytes_ms, flops_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
-        return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
-
-    f_bound, f_by = bound(total["fwd_bytes"], total["fwd_flops"])
-    b_bound, b_by = bound(total["bwd_bytes"], total["bwd_flops"])
+    f_bound, f_by = _bound(total["fwd_bytes"], total["fwd_flops"])
+    b_bound, b_by = _bound(total["bwd_bytes"], total["bwd_flops"])
     print(f"[k3] one FullSubNet-GRU forward's four calls at B=8: kernel {total['fwd_ms']:.4f} ms, "
           f"plain {total['plain_fwd_ms']:.4f}, cuDNN {total['lib_fwd_ms']:.4f}, bound "
           f"{f_bound:.4f} ({f_by}: {total['fwd_bytes']:.0f} B, {total['fwd_flops']:.0f} FLOP); "
@@ -765,6 +767,279 @@ def phase_gru_kernels() -> tuple:
     return fwd, bwd
 
 
+# DCCRN's six encoder stages: (C, Co, F) of the doubled-batch conv (the
+# complex conv's ci input channels, both filter sets' 2 co outputs, and its
+# input bins), at kernel_num (32, 64, 128, 256, 256, 256) and 256 bins
+_CONV_STAGES = ((1, 32, 256), (16, 64, 128), (32, 128, 64), (64, 256, 32), (128, 256, 16),
+                (128, 256, 8))
+# K4 vs plain, relative to each output's max |value|: sums of up to 1280 f32
+# products (C = 128 x 10 taps) taken in another order than cuDNN's
+CONV_REL_TOL = 2e-5
+
+
+def phase_conv_kernel() -> dict:
+    """fused_complex_conv2d (K4) against its plain version (cuDNN on the
+    causally padded input) at the six encoder stages of the default DCCRN
+    at the enhance batch (B=8: B2=16) and the train batch (B=10: B2=20),
+    T=483 frames (3 s), and a ragged case; two calls bit-identical.  Times,
+    with one cuDNN conv of the same function beside them, at B=8; the
+    headline numbers are the sums over one forward's six calls."""
+    import torch.nn.functional as F
+
+    from se_tpu_torch.device import resolve_device
+    from se_tpu_torch.probes import cuda_ms
+    from se_tpu_torch.ops import fused_conv
+
+    dev = resolve_device("cuda")
+    rng = np.random.default_rng(SEED + 4)
+    T = 483
+
+    def check(label, B2, C, Co, Fq, T):
+        host = (rng.standard_normal((B2, C, Fq, T)), rng.standard_normal((Co, C, 5, 2)) * 0.05,
+                rng.standard_normal(Co))
+        args = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in host]
+        with torch.no_grad():
+            got = fused_conv.fused_complex_conv2d(*args)
+            again = fused_conv.fused_complex_conv2d(*args)
+            want = fused_conv.reference(*args)
+            torch.cuda.synchronize()
+        err = _max_err(got, want)
+        rel = err / want.abs().max().item()
+        print(f"[k4] {label} B2={B2} C={C} Co={Co} F={Fq} T={T}: max |kernel - plain| {err} "
+              f"({rel:.3g} of the output's max; tolerance {CONV_REL_TOL})")
+        assert tuple(got.shape) == (B2, Co, Fq // 2, T) and np.isfinite(err), label
+        assert rel <= CONV_REL_TOL, (label, rel)
+        assert torch.equal(got, again), f"{label}: K4 not repeatable"
+        return args, got, err, rel
+
+    args, y, _, _ = check("ragged", 3, 3, 40, 20, 37)
+    # the CPU sums in another order than cuDNN, which may match K4's bits
+    cpu_err = _max_err(y.cpu(), fused_conv.reference(*(a.cpu() for a in args)))
+    print(f"[k4] ragged: max |kernel - plain on the CPU| {cpu_err} (tolerance "
+          f"{CONV_REL_TOL} of the output's max)")
+    assert cpu_err <= CONV_REL_TOL * y.abs().max().item(), cpu_err
+    total = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops"), 0.0)
+    errs = {"abs": 0.0, "rel": 0.0}
+    per_stage = {}
+    for B in (10, 8):
+        for i, (C, Co, Fq) in enumerate(_CONV_STAGES):
+            args, y, err, rel = check(f"stage {i + 1} B={B}", 2 * B, C, Co, Fq, T)
+            errs = {"abs": max(errs["abs"], err), "rel": max(errs["rel"], rel)}
+            if B != 8:
+                continue
+            x, w, b = args
+            with torch.no_grad():
+                t = {"ms": cuda_ms(lambda: fused_conv.fused_complex_conv2d(*args), 20, 3),
+                     "plain_ms": cuda_ms(lambda: fused_conv.reference(*args), 20, 3),
+                     # yardstick, never on the port's path: one cuDNN call, the
+                     # time padding on both sides and the extra last frame unread
+                     "library_ms": cuda_ms(lambda: F.conv2d(x, w, b, stride=(2, 1),
+                                                             padding=(2, 1)), 20, 3)}
+            t["bytes"] = 4 * (x.numel() + w.numel() + b.numel() + y.numel())
+            t["flops"] = 2 * y.numel() * 10 * C
+            t["bound_ms"] = _bound(t["bytes"], t["flops"])[0]
+            per_stage[f"stage {i + 1}"] = t
+            for k in total:
+                total[k] += t[k]
+            print(f"[k4] stage {i + 1} B=8: {t}")
+    bound_by = _bound(total["bytes"], total["flops"])[1]
+    print(f"[k4] one DCCRN forward's six calls at B=8: kernel {total['ms']:.4f} ms, plain "
+          f"{total['plain_ms']:.4f}, cuDNN {total['library_ms']:.4f}, bound {total['bound_ms']:.4f} "
+          f"(sum of the stages' bounds; {total['bytes']:.0f} B, {total['flops']:.0f} FLOP)")
+    return {"name": "fused_complex_conv2d_fwd", "route": "cuda",
+            "source": "se_tpu_torch/csrc/complex_conv.cu",
+            "replaces": "se_tpu/ops/pallas_conv.py:88::_pallas_conv",
+            "shapes": "sum of the default DCCRN's six encoder convs at B=8 x 3 s (T=483)",
+            "max_abs_err": errs["abs"], "max_rel_err": errs["rel"], "ms": total["ms"],
+            "kernel_ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+            "bound_by": bound_by, "library_ms": total["library_ms"],
+            "per_stage_ms": {k: v["ms"] for k, v in per_stage.items()},
+            "per_stage_library_ms": {k: v["library_ms"] for k, v in per_stage.items()}}
+
+
+# the probes run at FullSubNet's sub band at B=8 x 3 s, beside K2's rows
+PROBE_ARGS = ["8", "163"]
+P1_TOL = 1e-5  # f32 modes: of max(1, the output's max |value|); nogates grows
+P1_BF16_TOL = 4 * 2.0**-8  # a flipped bf16 rounding in four of a step's values
+# bf16gates' outputs differ from real's in nearly every element by bf16
+# rounding, and from its own plain version only where a rounding tips:
+# the mean distance to its own plain version must be this many times smaller
+P1_BF16_SEPARATION = 4
+P3_TOL = 1e-5  # of max(1, the output's max): a few f32 ulps; 416-term sums
+
+
+def _rel(got, want) -> float:
+    return _max_err(got, want) / max(1.0, want.abs().max().item())
+
+
+def phase_probes() -> tuple:
+    """The probes' kernels (P1-P3) against their plain versions on the card
+    at small shapes and at the sub band's, P1's real mode bit for bit
+    against K2 there, then each probe's own entry point (``main`` at B=8,
+    T=163) with every launch count set to 0 just before and read just
+    after; the plain versions and the library calls timed beside them.
+    Returns the P1, P2 and P3 entries."""
+    from se_tpu_torch.device import resolve_device
+    from se_tpu_torch.ops.fused_lstm_inproj import fused_lstm_scan_inproj
+    from se_tpu_torch.probes import bound_probe, cuda_ms, vpu_probe, wavefront_probe
+
+    dev = resolve_device("cuda")
+    per_utt, In, H = bound_probe.SUB_BAND
+    B, T = int(PROBE_ARGS[0]), int(PROBE_ARGS[1])
+    Bb = B * per_utt
+
+    # P1: each mode against its plain version at a small shape and at the
+    # sub band's; real bit for bit against K2, bf16gates far nearer its own
+    # plain version than real's
+    small = bound_probe.inputs(12, 10, In, H, dev, seed=SEED + 5)
+    small[1] = small[1] * 6  # W_ih N(0, 0.3^2): gates well away from 0
+    full = bound_probe.inputs(T, Bb, In, H, dev, seed=SEED)
+    p1_errs, at_full = {}, {}
+    with torch.no_grad():
+        for mode in bound_probe.MODES:
+            for args in (small, full):
+                got = bound_probe.run(mode, *args)
+                want = bound_probe.reference(mode, *args)
+                err = max(_rel(g, w) for g, w in zip(got, want))
+                p1_errs[mode] = max(p1_errs.get(mode, 0.0), err)
+            if mode in ("real", "bf16gates"):
+                at_full[mode] = got, want
+    print(f"[p1] max |kernel - plain| / max(1, max |plain|) per mode at T=12 Bb=10 and T={T} "
+          f"Bb={Bb}: {p1_errs} (tolerance {P1_TOL}; bf16gates {P1_BF16_TOL})")
+    assert all(v <= (P1_BF16_TOL if m == "bf16gates" else P1_TOL)
+               for m, v in p1_errs.items()), p1_errs
+    (ys, hT, cT), (plain_real, _, _) = at_full["real"]
+    (bf16_ys, _, _), (plain_bf16, _, _) = at_full["bf16gates"]
+    off = (bf16_ys - plain_bf16).abs().mean().item()
+    gap = (plain_real - plain_bf16).abs().mean().item()
+    print(f"[p1] bf16gates ys at T={T} Bb={Bb}: mean |kernel - plain| {off}, mean |plain real - "
+          f"plain bf16gates| {gap} (must be at least {P1_BF16_SEPARATION}x the first)")
+    assert off * P1_BF16_SEPARATION <= gap, (off, gap)
+    with torch.no_grad():
+        x, wih, b, whh, h0, c0 = full
+        k2_ys, (k2_h, k2_c) = fused_lstm_scan_inproj(x[:, None], wih[None], b[None], whh[None],
+                                                     h0[None], c0[None])
+        assert torch.equal(ys, k2_ys[:, 0]) and torch.equal(hT, k2_h[0]) and torch.equal(cT, k2_c[0])
+        print(f"[p1] real mode at T={T} Bb={Bb}: bit-identical with K2")
+        plain_ms = cuda_ms(lambda: bound_probe.reference("real", *full), 1, 1)
+        lstm = _cudnn_lstm(wih[None], b[None], whh[None], dev)
+        lib_ms = cuda_ms(lambda: lstm(x, (h0[None], c0[None])), 5, 1)
+    del at_full, plain_real, bf16_ys, plain_bf16, k2_ys
+    _zero_counts()
+    p1_ms = bound_probe.main(PROBE_ARGS)
+    p1_launches = _counts()
+    print(f"[p1] bound_probe.main({PROBE_ARGS}): launches {p1_launches}")
+    assert p1_launches == _expected({"P1": 4 * 21}), p1_launches
+    flops = 2 * T * Bb * (In + H) * 4 * H
+    n_bytes = 4 * (sum(a.numel() for a in full) + ys.numel() + 2 * hT.numel())
+    bound_ms, bound_by = _bound(n_bytes, flops)
+    print(f"[p1] real {p1_ms['real']:.4f} ms, plain {plain_ms:.4f}, cuDNN nn.LSTM({In}, {H}) "
+          f"{lib_ms:.4f}, bound {bound_ms:.4f} ({bound_by}); ratio to real "
+          f"{ {m: p1_ms[m] / p1_ms['real'] for m in bound_probe.MODES} }")
+    p1 = {"name": "bound_probe_fwd", "route": "cuda", "source": "se_tpu_torch/csrc/lstm_inproj.cu",
+          "replaces": "tools/bound_probe.py:102::run",
+          "shapes": f"mode real, the sub band's layer 0 at B={B} (T={T}, Bb={Bb}, In={In}, H={H})",
+          "launches": p1_launches["P1"], "max_abs_err": p1_errs["real"],
+          "max_err_by_mode": p1_errs, "ms": p1_ms["real"], "kernel_ms": p1_ms["real"],
+          "ms_by_mode": p1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+          "library_ms": lib_ms}
+
+    # P2: against its plain version at a small shape, its entry point, then
+    # against its plain version and two K2 calls at the sub band's shape
+    args = wavefront_probe.two_layer_inputs(12, 10, In, H, dev, seed=SEED + 6)
+    with torch.no_grad():
+        got = wavefront_probe.wavefront_lstm2(*args)
+        p2_err = max(_max_err(g, w) for g, w in zip(got, wavefront_probe.reference(*args)))
+        seq_bits = all(torch.equal(g, w)
+                       for g, w in zip(got, wavefront_probe.sequential_lstm2(*args)))
+    print(f"[p2] max |kernel - plain| at T=12 Bb=10: {p2_err} (tolerance {KERNEL_TOL}); "
+          f"bit-identical with two K2 calls: {seq_bits}")
+    assert p2_err <= KERNEL_TOL, p2_err
+    _zero_counts()
+    p2 = wavefront_probe.main(PROBE_ARGS)
+    p2_launches = _counts()
+    print(f"[p2] wavefront_probe.main({PROBE_ARGS}): launches {p2_launches}")
+    assert p2_launches == _expected({"P2": 1 + 11, "K2f": 2 * (1 + 11)}), p2_launches
+    full = wavefront_probe.two_layer_inputs(T, Bb, In, H, dev)
+    x, wih1, b1, whh1, wih2, b2, whh2, h0, c0 = full
+    with torch.no_grad():
+        got = wavefront_probe.wavefront_lstm2(*full)
+        full_err = max(_max_err(g, w) for g, w in zip(got, wavefront_probe.reference(*full)))
+        seq_err = max(_max_err(g, w) for g, w in zip(got, wavefront_probe.sequential_lstm2(*full)))
+        print(f"[p2] T={T} Bb={Bb}: max |kernel - plain| {full_err} (tolerance {KERNEL_TOL}); "
+              f"max |wavefront - two K2 calls| {seq_err} (tolerance {wavefront_probe.CHECK_TOL})")
+        assert full_err <= KERNEL_TOL, full_err
+        assert seq_err <= wavefront_probe.CHECK_TOL, seq_err
+        p2_err = max(p2_err, full_err)
+        del got
+        plain_ms = cuda_ms(lambda: wavefront_probe.reference(*full), 1, 1)
+        lstm2 = torch.nn.LSTM(In, H, num_layers=2).to(dev)
+        for layer, (wih, b, whh) in enumerate(((wih1, b1, whh1), (wih2, b2, whh2))):
+            getattr(lstm2, f"weight_ih_l{layer}").copy_(wih.T)
+            getattr(lstm2, f"weight_hh_l{layer}").copy_(whh.T)
+            getattr(lstm2, f"bias_ih_l{layer}").copy_(b)
+            getattr(lstm2, f"bias_hh_l{layer}").zero_()
+        lib_ms = cuda_ms(lambda: lstm2(x, (h0, c0)), 5, 1)
+    flops = 2 * T * Bb * (In + 3 * H) * 4 * H
+    n_bytes = 4 * (sum(a.numel() for a in full) + 2 * T * Bb * H + 4 * Bb * H)
+    bound_ms, bound_by = _bound(n_bytes, flops)
+    print(f"[p2] wavefront {p2['wavefront_ms']:.4f} ms, two K2 calls {p2['sequential_ms']:.4f} "
+          f"(ratio {p2['sequential_ms'] / p2['wavefront_ms']:.3f}), plain {plain_ms:.4f}, cuDNN "
+          f"nn.LSTM({In}, {H}, num_layers=2) {lib_ms:.4f}, bound {bound_ms:.4f} ({bound_by})")
+    p2 = {"name": "wavefront_lstm2", "route": "cuda", "source": "se_tpu_torch/csrc/wavefront_lstm.cu",
+          "replaces": "tools/wavefront_probe.py:94::wavefront_lstm2",
+          "shapes": f"the sub band's two layers at B={B} (T={T}, Bb={Bb}, In={In}, H={H})",
+          "launches": p2_launches["P2"], "max_abs_err": p2_err, "max_err_vs_sequential": seq_err,
+          "ms": p2["wavefront_ms"], "kernel_ms": p2["wavefront_ms"],
+          "sequential_ms": p2["sequential_ms"], "plain_ms": plain_ms, "bound_ms": bound_ms,
+          "bound_by": bound_by, "library_ms": lib_ms}
+
+    # P3: each op against its plain version on the tile, then its entry point
+    tile = vpu_probe.tile(dev, seed=SEED + 7)
+    tiles = -(-Bb // vpu_probe.BB)
+    steps = T * tiles
+    p3_errs = {}
+    with torch.no_grad():
+        for op in vpu_probe.OPS:
+            got = vpu_probe.run(op, *tile, steps=steps, groups=tiles)
+            p3_errs[op] = _rel(got, vpu_probe.reference(op, *tile))
+    print(f"[p3] max |kernel - plain| / max(1, max |plain|) per op over {steps} steps: {p3_errs} "
+          f"(tolerance {P3_TOL})")
+    assert all(v <= P3_TOL for v in p3_errs.values()), p3_errs
+    _zero_counts()
+    p3_ms = vpu_probe.main(PROBE_ARGS)
+    p3_launches = _counts()
+    print(f"[p3] vpu_probe.main({PROBE_ARGS}): launches {p3_launches}")
+    assert p3_launches == _expected({"P3": 6 * 6, "P1": 6}), p3_launches
+    # the volume in one call: the tile broadcast over the steps
+    vol = [a.expand(steps, *a.shape) for a in tile[:4]] + tile[4:]
+    library = {"sigmoid": torch.sigmoid, "tanh": torch.tanh, "exp": torch.exp}
+    p3_plain, p3_lib = {}, {}
+    with torch.no_grad():
+        for op in vpu_probe.OPS:
+            p3_plain[op] = cuda_ms(lambda: vpu_probe.reference(op, *vol), 3, 1)
+        for op, fn in library.items():
+            p3_lib[op] = cuda_ms(lambda: fn(vol[0][..., :H]), 3, 1)
+        p3_lib["0.5*tanh+0.5"] = p3_lib["tanh"]
+        xh, w = torch.cat(vol[2:4], -1), torch.cat(tile[4:])
+        p3_lib["dots-only"] = cuda_ms(lambda: torch.matmul(xh, w), 3, 1)
+    shares = {op: vpu_probe.bound_ms(op, steps) / p3_ms[op] for op in vpu_probe.OPS}
+    print(f"[p3] {steps} steps of {vpu_probe.BB} x {H}: kernel ms {p3_ms}; plain ms (the volume "
+          f"in one call) {p3_plain}; torch ms {p3_lib} (0.5*tanh+0.5 as torch.tanh; gates-only "
+          f"has no one call); share of the card's rate {shares}")
+    p3 = {"name": "vpu_probe", "route": "cuda", "source": "se_tpu_torch/csrc/vpu_probe.cu",
+          "replaces": "tools/vpu_probe.py:28::_run",
+          "shapes": f"op gates-only, {steps} steps of the {vpu_probe.BB} x {H} tile (the sub band "
+                    f"at B={B}, T={T})",
+          "launches": p3_launches["P3"], "max_abs_err": p3_errs["gates-only"],
+          "max_err_by_op": p3_errs, "ms": p3_ms["gates-only"], "kernel_ms": p3_ms["gates-only"],
+          "ms_by_op": p3_ms, "plain_ms": p3_plain["gates-only"], "plain_ms_by_op": p3_plain,
+          "bound_ms": vpu_probe.bound_ms("gates-only", steps), "bound_by": "operations",
+          "library_ms": None, "library_ms_by_op": p3_lib, "share_of_rate_by_op": shares,
+          "recurrence_ms_same_volume": p3_ms["recurrence"]}
+    return p1, p2, p3
+
+
 def _grads_and_stats(model) -> tuple:
     grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
     stats = {k: v.detach().cpu() for k, v in model.state_dict().items()
@@ -788,13 +1063,16 @@ def _cancelled_by_batch_norm(state_dict) -> set:
 
 def _counters() -> dict:
     """Every hand kernel's wrapper, by its row in PERF.md's table."""
-    from se_tpu_torch.ops import fused_gru_inproj, fused_lstm, fused_lstm_inproj
+    from se_tpu_torch.ops import fused_conv, fused_gru_inproj, fused_lstm, fused_lstm_inproj
+    from se_tpu_torch.probes import bound_probe, vpu_probe, wavefront_probe
 
     return {"K1f": fused_lstm.fused_lstm_scan, "K1b": fused_lstm.fused_lstm_scan_backward,
             "K2f": fused_lstm_inproj.fused_lstm_scan_inproj,
             "K2b": fused_lstm_inproj.fused_lstm_scan_inproj_backward,
             "K3f": fused_gru_inproj.fused_gru_scan_inproj,
-            "K3b": fused_gru_inproj.fused_gru_scan_inproj_backward}
+            "K3b": fused_gru_inproj.fused_gru_scan_inproj_backward,
+            "K4": fused_conv.fused_complex_conv2d,
+            "P1": bound_probe.run, "P2": wavefront_probe.wavefront_lstm2, "P3": vpu_probe.run}
 
 
 def _zero_counts():
@@ -823,6 +1101,7 @@ def _paths() -> dict:
     )
 
     dccrn, real = Config(), Config(lstm="real")
+    fused = Config(use_pallas_conv=True)
     crn = Config(model="CRN", loss="MSE", lstm="real", masking_mode="E")  # the tutorial config
     fsn = Config(model="FullSubNet", loss="MSE")
     fsn_gru = fsn.replace(sequence_model="GRU")
@@ -830,6 +1109,12 @@ def _paths() -> dict:
         "DCCRN": (dccrn, state_dict_from_jax(*random_dccrn_params(dccrn, SEED), dccrn),
                   {"K1f": dccrn.dccrn.rnn_layers}, {"K1b": dccrn.dccrn.rnn_layers},
                   ["--model", "DCCRN"]),
+        # the default DCCRN's weights, its six encoder convs through K4 (no
+        # backward kernel: the convs' gradients are cuDNN's).  No CLI run:
+        # neither the JAX package's CLIs nor the port's take this switch
+        "DCCRN-fused-conv": (fused, state_dict_from_jax(*random_dccrn_params(fused, SEED), fused),
+                             {"K4": len(fused.dccrn.kernel_num), "K1f": fused.dccrn.rnn_layers},
+                             {"K1b": fused.dccrn.rnn_layers}, None),
         "CRN": (crn, state_dict_from_jax(*random_crn_params(crn, SEED), crn),
                 {"K2f": 1}, {"K2b": 1}, ["--model", "CRN"]),
         "DCCRN-real": (real, state_dict_from_jax(*random_dccrn_params(real, SEED), real),
@@ -976,11 +1261,12 @@ def _utterances(n: int, seconds: int, fs: int) -> tuple:
     return noisy, clean
 
 
-def phase_slice(workdir: Path, label: str, cfg, sd, per_forward: dict, cli_args) -> dict:
+def phase_slice(workdir: Path, label: str, cfg, sd, per_forward: dict, cli_args) -> tuple:
     """An enhance path at full width: ``enhance_batch`` on 8 three-second
     utterances (the main path: every count set to 0 just before, read just
     after), the validation forward, the CPU on the same weights, speed and
-    a profile, and the enhance CLI.  Returns the main path's launches."""
+    a profile, and the enhance CLI (unless ``cli_args`` is None).  Returns
+    the main path's launches and its enhanced waveform on the host."""
     from se_tpu_torch.data.wav import read_wav, write_wav
     from se_tpu_torch.enhance import enhance_batch
     from se_tpu_torch.models import build_model
@@ -1036,6 +1322,8 @@ def phase_slice(workdir: Path, label: str, cfg, sd, per_forward: dict, cli_args)
           f"{B / per_batch:.2f} utt/s, real-time factor {per_batch / (B * seconds):.6f}, "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     _profile(lambda: enhance_batch(model, noisy), steps=3)
+    if cli_args is None:
+        return launches, wav.cpu()
 
     # the enhance CLI on the card, against the same weights in process
     ckpt = save_reference_checkpoint(str(workdir / f"{label}.pt"), sd)
@@ -1075,7 +1363,7 @@ def phase_slice(workdir: Path, label: str, cfg, sd, per_forward: dict, cli_args)
     print(f"[cli {label}] {' '.join(cli_args)}: max |CLI - in-process| {worst * 32768:.1f} LSB "
           f"(tolerance 2 LSB)")
     assert worst <= CLI_TOL, worst
-    return launches
+    return launches, wav.cpu()
 
 
 def main() -> int:
@@ -1085,16 +1373,24 @@ def main() -> int:
     bwd, stash_times = phase_lstm_backward()
     k2f, k2b = phase_inproj_kernels()
     k3f, k3b = phase_gru_kernels()
+    k4 = phase_conv_kernel()
+    p1, p2, p3 = phase_probes()
     paths = _paths()
     build_dir = REPO / "build"
     build_dir.mkdir(exist_ok=True)
-    enhanced = {}
+    enhanced, waves = {}, {}
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         for label, (cfg, sd, per_fwd, _, cli_args) in paths.items():
-            enhanced[label] = phase_slice(Path(tmp), label, cfg, sd, per_fwd, cli_args)
+            enhanced[label], waves[label] = phase_slice(Path(tmp), label, cfg, sd, per_fwd,
+                                                        cli_args)
+    err = _max_err(waves["DCCRN-fused-conv"], waves["DCCRN"])
+    print(f"[slice DCCRN-fused-conv] max |K4 encoder - cuDNN block-form encoder| wav {err} "
+          f"(tolerance {SLICE_TOL})")
+    assert err <= SLICE_TOL, err
     trained = {}
     for label, full in (("DCCRN", True), ("CRN", True), ("DCCRN-real", False),
-                        ("FullSubNet", True), ("FullSubNet-GRU", True)):
+                        ("FullSubNet", True), ("FullSubNet-GRU", True),
+                        ("DCCRN-fused-conv", True)):
         cfg, sd, per_fwd, per_bwd, _ = paths[label]
         trained[label] = phase_train(label, cfg, sd, per_fwd, per_bwd, full)
     cfg, sd, per_fwd, per_bwd, _ = paths["CRN"]
@@ -1103,11 +1399,13 @@ def main() -> int:
         full=False)
 
     k2_paths = ("CRN", "DCCRN-real", "FullSubNet")
+    k1_paths = ("DCCRN", "DCCRN-fused-conv")
     fwd.update(launches=enhanced["DCCRN"]["K1f"],
-               launches_per_forward=enhanced["DCCRN"]["K1f"],
-               launches_per_train_step=trained["DCCRN"][0]["K1f"], **stash_times)
+               launches_per_forward={k: enhanced[k]["K1f"] for k in k1_paths},
+               launches_per_train_step={k: trained[k][0]["K1f"] for k in k1_paths},
+               **stash_times)
     bwd.update(launches=trained["DCCRN"][1]["K1b"],
-               launches_per_train_step=trained["DCCRN"][0]["K1b"])
+               launches_per_train_step={k: trained[k][0]["K1b"] for k in k1_paths})
     k2f.update(launches=enhanced["CRN"]["K2f"],
                launches_per_forward={k: enhanced[k]["K2f"] for k in k2_paths},
                launches_per_train_step={k: trained[k][0]["K2f"]
@@ -1120,8 +1418,12 @@ def main() -> int:
                launches_per_train_step=trained["FullSubNet-GRU"][0]["K3f"])
     k3b.update(launches=trained["FullSubNet-GRU"][1]["K3b"],
                launches_per_train_step=trained["FullSubNet-GRU"][0]["K3b"])
+    k4.update(launches=enhanced["DCCRN-fused-conv"]["K4"],
+              launches_per_forward=enhanced["DCCRN-fused-conv"]["K4"],
+              launches_per_train_step=trained["DCCRN-fused-conv"][0]["K4"],
+              launches_in_10_train_steps=trained["DCCRN-fused-conv"][1]["K4"])
     print(smi)
-    print(json.dumps({"kernels": [fwd, bwd, k2f, k2b, k3f, k3b]}))
+    print(json.dumps({"kernels": [fwd, bwd, k2f, k2b, k3f, k3b, k4, p1, p2, p3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

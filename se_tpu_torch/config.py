@@ -3,9 +3,11 @@
 An own copy of the JAX package's config dataclasses (``se_tpu/config.py``):
 the same fields, defaults and validity rules for the model families, the
 STFT geometry and training, so a ``Config`` built with the same arguments
-in either package describes the same model.  The JAX package's
-accelerator-specific switches (Pallas kernels, conv space-to-depth,
-rematerialisation, mesh axes) have no meaning here and are not copied.
+in either package describes the same model.  Of the JAX package's
+accelerator switches only ``use_pallas_conv`` is copied, under its own
+name: here it selects the hand-written encoder conv.  The others (the
+Pallas LSTM switch, conv space-to-depth, rematerialisation, mesh axes)
+have no meaning here and are not copied.
 """
 
 from __future__ import annotations
@@ -123,6 +125,11 @@ class Config:
 
     # Activation dtype of the network path; f32 matches the reference.
     compute_dtype: str = "float32"
+
+    # Run DCCRN's encoder convs through the hand-written complex conv
+    # kernel K4 (ops/fused_conv.py, csrc/complex_conv.cu) instead of
+    # cuDNN's block-form conv.  Off by default, as in the JAX package.
+    use_pallas_conv: bool = False
 
     def __post_init__(self):
         checks = (

@@ -3,9 +3,10 @@
 // products (h . W_hh per column, a chunk's x . W_ih), the gate math of one
 // LSTM unit forward and backward, the dh pass of a reverse step, the
 // deterministic dx, dW and dbias reductions over a gate-gradient scratch
-// buffer, and the error-string export that each library's Python wrapper
-// calls.  The products and the dh pass take the block's row count R as a
-// template argument (K1 and K2 use kRows; K3 also 8).
+// buffer; error_string.cuh adds the error-string export that each
+// library's Python wrapper calls.  The products and the dh pass take the
+// block's row count R as a template argument (K1 and K2 use kRows; K3
+// also 8).
 //
 // Transcendentals use expf/tanhf (no fast-math) to stay within 1e-5 of the
 // plain PyTorch recurrence per step.
@@ -15,6 +16,8 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "error_string.cuh"
 
 namespace {
 
@@ -77,6 +80,24 @@ __device__ __forceinline__ void dot_column(const float* __restrict__ w,
 #pragma unroll 8
   for (int k = 0; k < K; ++k) {
     fma_rows<R>(a_s + k * R, __ldg(w + static_cast<size_t>(k) * G + col), acc);
+  }
+}
+
+// g_s[r][col] = (g_s[r][col] + h_s[r] . whh[:, col]) + b[col] for the
+// tile's kRows rows, g_s holding the step's x . W_ih; h_s is [H][kRows].
+// The LSTM gate columns of K2 and of the wavefront probe (P2).
+__device__ __forceinline__ void recurrent_columns(const float* __restrict__ whh,
+                                                  const float* __restrict__ b,
+                                                  const float* h_s, float* g_s,
+                                                  int rows, int H, int G) {
+  for (int col = threadIdx.x; col < G; col += blockDim.x) {
+    float ah[kRows] = {0.f, 0.f, 0.f, 0.f};
+    dot_column(whh, h_s, H, G, col, ah);
+    const float bv = __ldg(b + col);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (r < rows) g_s[r * G + col] = (g_s[r * G + col] + ah[r]) + bv;
+    }
   }
 }
 
@@ -377,7 +398,3 @@ cudaError_t allow_smem(Kernel* kernel, size_t smem) {
 }
 
 }  // namespace
-
-extern "C" const char* se_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}

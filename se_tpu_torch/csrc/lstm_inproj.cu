@@ -76,7 +76,18 @@
 //
 // The chunk staging and projection, the gate products, the gate math, the
 // dh pass and the dx, dW and dbias reductions come from lstm_common.cuh,
-// shared with lstm_scan.cu and gru_inproj.cu.
+// shared with lstm_scan.cu, gru_inproj.cu and wavefront_lstm.cu.
+//
+// The bound probe (P1; se_tpu_torch/probes/bound_probe.py, replacing the
+// Pallas kernel of tools/bound_probe.py:43-138) is this forward kernel
+// with its phase 2 swapped at compile time (the template argument M): the
+// LSTM cell (kReal, the kernel K2 launches), the cell with its gate
+// pre-activations and transcendentals rounded to bf16 (kBf16Gates), the
+// transcendentals replaced by multiplies (kPolySwap), or no gate math at
+// all (kNoGates).  Its entry, se_lstm_inproj_probe_f32, runs one stack
+// (L = 1) and writes no stash.
+
+#include <cuda_bf16.h>
 
 #include "lstm_common.cuh"
 
@@ -86,24 +97,51 @@ constexpr int kMaxThreads = 512;  // scan block size cap; threads loop over colu
 constexpr int kChunk = 8;         // steps whose projections one pass over W_ih forms
 constexpr size_t kMaxSmem = 232448;  // shared memory a block can use (227 KB)
 
-// g_s[r][col] = (g_s[r][col] + h_s[r] . whh[:, col]) + b[col] for the
-// tile's rows, g_s holding the step's x . W_ih; h_s is [H][kRows].
-__device__ __forceinline__ void recurrent_columns(const float* __restrict__ whh,
-                                                  const float* __restrict__ b,
-                                                  const float* h_s, float* g_s,
-                                                  int rows, int H, int G) {
-  for (int col = threadIdx.x; col < G; col += blockDim.x) {
-    float ah[kRows] = {0.f, 0.f, 0.f, 0.f};
-    dot_column(whh, h_s, H, G, col, ah);
-    const float bv = __ldg(b + col);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (r < rows) g_s[r * G + col] = (g_s[r * G + col] + ah[r]) + bv;
-    }
+// The forward's phase 2: the LSTM's gate math, or one of the bound probe's
+// three ablations of it (tools/bound_probe.py:65-92).
+enum GateMode : int { kReal = 0, kBf16Gates = 1, kPolySwap = 2, kNoGates = 3 };
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// 1 / (1 + exp(-v)) with v, exp's result, the sum and the quotient each
+// rounded to bf16, as the probe's jnp expression on a bf16 array.
+__device__ __forceinline__ float sigmoid_bf16(float v) {
+  const float e = bf16_round(expf(-bf16_round(v)));
+  return bf16_round(1.0f / bf16_round(1.0f + e));
+}
+
+__device__ __forceinline__ float tanh_bf16(float v) { return bf16_round(tanhf(bf16_round(v))); }
+
+// The cell update of unit j under gate mode M, from a row of gate
+// pre-activations g (4H, gate order i, f, g, o): returns c and sets *h.
+template <int M>
+__device__ __forceinline__ float cell_mode(const float* g, int H, int j, float c_prev,
+                                           float* h) {
+  if constexpr (M == kReal) {
+    return cell_forward(g, H, j, c_prev, h);
+  } else if constexpr (M == kBf16Gates) {
+    const float ig = sigmoid_bf16(g[j]);
+    const float fg = sigmoid_bf16(g[H + j]);
+    const float gg = tanh_bf16(g[2 * H + j]);
+    const float og = sigmoid_bf16(g[3 * H + j]);
+    const float c = fg * c_prev + ig * gg;
+    *h = og * tanh_bf16(c);
+    return c;
+  } else if constexpr (M == kPolySwap) {
+    const float ig = g[j] * 0.25f, fg = g[H + j] * 0.25f;
+    const float gg = g[2 * H + j] * 0.5f, og = g[3 * H + j] * 0.25f;
+    const float c = fg * c_prev + ig * gg;
+    *h = og * (c * 0.5f);
+    return c;
+  } else {
+    *h = g[3 * H + j];
+    return g[H + j] * c_prev + g[j];
   }
 }
 
-template <int C>
+template <int C, int M>
 __global__ void __launch_bounds__(kMaxThreads)
 lstm_inproj_fwd_kernel(const float* __restrict__ x,
                        const float* __restrict__ wih_t,
@@ -165,7 +203,7 @@ lstm_inproj_fwd_kernel(const float* __restrict__ x,
       for (int idx = tid; idx < rows * H; idx += nthr) {
         const int r = idx / H, j = idx % H;
         float h;
-        const float cn = cell_forward(g_s + r * G, H, j, c_s[r * H + j], &h);
+        const float cn = cell_mode<M>(g_s + r * G, H, j, c_s[r * H + j], &h);
         c_s[r * H + j] = cn;
         h_s[j * kRows + r] = h;
         ys[(row0 + r) * H + j] = h;
@@ -301,7 +339,7 @@ int chunk_steps(size_t per_step, size_t fixed) {
   return 0;
 }
 
-template <int C>
+template <int C, int M = kReal>
 cudaError_t launch_fwd(const float* x, const float* wih_t, const float* bias,
                        const float* whh_t, const float* h0, const float* c0,
                        float* ys, float* cs, float* hT, float* cT,
@@ -309,12 +347,26 @@ cudaError_t launch_fwd(const float* x, const float* wih_t, const float* bias,
   const int G = 4 * H;
   const size_t smem = sizeof(float) * (static_cast<size_t>(C) * kRows * (In + G) +
                                        static_cast<size_t>(2) * H * kRows);
-  cudaError_t err = allow_smem(lstm_inproj_fwd_kernel<C>, smem);
+  cudaError_t err = allow_smem(lstm_inproj_fwd_kernel<C, M>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Bb + kRows - 1) / kRows, L);
-  lstm_inproj_fwd_kernel<C><<<grid, scan_threads(H), smem, s>>>(
+  lstm_inproj_fwd_kernel<C, M><<<grid, scan_threads(H), smem, s>>>(
       x, wih_t, bias, whh_t, h0, c0, ys, cs, hT, cT, T, L, Bb, In, H);
   return cudaGetLastError();
+}
+
+// The bound probe's launch for chunk length C: one stack, no stash.
+template <int C>
+cudaError_t launch_probe(int mode, const float* x, const float* wih_t, const float* bias,
+                         const float* whh_t, const float* h0, const float* c0, float* ys,
+                         float* hT, float* cT, int T, int Bb, int In, int H, cudaStream_t s) {
+  switch (mode) {
+    case kReal: return launch_fwd<C, kReal>(x, wih_t, bias, whh_t, h0, c0, ys, nullptr, hT, cT, T, 1, Bb, In, H, s);
+    case kBf16Gates: return launch_fwd<C, kBf16Gates>(x, wih_t, bias, whh_t, h0, c0, ys, nullptr, hT, cT, T, 1, Bb, In, H, s);
+    case kPolySwap: return launch_fwd<C, kPolySwap>(x, wih_t, bias, whh_t, h0, c0, ys, nullptr, hT, cT, T, 1, Bb, In, H, s);
+    case kNoGates: return launch_fwd<C, kNoGates>(x, wih_t, bias, whh_t, h0, c0, ys, nullptr, hT, cT, T, 1, Bb, In, H, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <int C>
@@ -357,6 +409,31 @@ extern "C" int se_lstm_inproj_fwd_f32(const float* x, const float* wih_t,
                       static_cast<size_t>(2) * H * kRows)) {
     case 8: err = launch_fwd<8>(x, wih_t, bias, whh_t, h0, c0, ys, cs, hT, cT, T, L, Bb, In, H, s); break;
     case 4: err = launch_fwd<4>(x, wih_t, bias, whh_t, h0, c0, ys, cs, hT, cT, T, L, Bb, In, H, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// Launches the bound probe's forward (one stack: x [T, Bb, In], w_ih_t
+// [In, 4H], bias [4H], w_hh_t [H, 4H], h0, c0 [Bb, H] -> ys [T, Bb, H], hT,
+// cT [Bb, H]) with the gate math of `mode` (GateMode: 0 real, 1 bf16
+// gates, 2 polyswap, 3 no gates) on `stream` of `device`.  Mode 0 is the
+// very kernel of se_lstm_inproj_fwd_f32.  Returns the cudaError_t of the
+// launch (cudaErrorInvalidValue for an unknown mode or when four steps'
+// buffers do not fit a block).
+extern "C" int se_lstm_inproj_probe_f32(const float* x, const float* wih_t,
+                                        const float* bias, const float* whh_t,
+                                        const float* h0, const float* c0,
+                                        float* ys, float* hT, float* cT,
+                                        int T, int Bb, int In, int H, int mode,
+                                        int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (chunk_steps(static_cast<size_t>(kRows) * (In + 4 * H),
+                      static_cast<size_t>(2) * H * kRows)) {
+    case 8: err = launch_probe<8>(mode, x, wih_t, bias, whh_t, h0, c0, ys, hT, cT, T, Bb, In, H, s); break;
+    case 4: err = launch_probe<4>(mode, x, wih_t, bias, whh_t, h0, c0, ys, hT, cT, T, Bb, In, H, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -6,7 +6,8 @@ transposed-conv decoder with skip connections -> mask on the noisy
 spectrum -> conv-iSTFT -> clip to +-1.  Ported: the complex LSTM and the
 real one (``lstm="real"``: a two-layer ``nn.LSTM`` over the real and
 imaginary channels together, then a linear map back), skip connections,
-real BatchNorm, and the E, C and R masks.
+real BatchNorm, the E, C and R masks, and ``use_pallas_conv``: the encoder
+convs through the hand-written kernel K4 (``ops/fused_conv.py``).
 """
 
 from __future__ import annotations
@@ -92,7 +93,8 @@ class DCCRN(nn.Module):
         self.encoder = nn.ModuleList(
             nn.Sequential(
                 ComplexConv2d(kernel_num[i], kernel_num[i + 1], kernel_size=(ks, 2),
-                              stride=(2, 1), padding=(2, 1), generator=generator),
+                              stride=(2, 1), padding=(2, 1), use_pallas=c.use_pallas_conv,
+                              generator=generator),
                 TorchBatchNorm2d(kernel_num[i + 1]),
                 PReLU(),
             )

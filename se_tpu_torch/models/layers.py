@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from ..ops import conv as conv_ops
 from ..ops import rnn as rnn_ops
 from ..ops.activations import prelu
+from ..ops.fused_conv import fused_complex_conv2d
 from ..ops.norms import batch_norm_2d
 
 
@@ -102,23 +103,45 @@ class ComplexConv2d(nn.Module):
     """Complex convolution as one real convolution with the 2x2 block
     kernel ``[[wr, -wi], [wi, wr]]``.  Channels are real block then
     imaginary block; ``in_channels``/``out_channels`` count both.  Time is
-    padded on the left only (causal); frequency inside the conv."""
+    padded on the left only (causal); frequency inside the conv.
+
+    With ``use_pallas`` and the DCCRN encoder's geometry (kernel (5, 2),
+    stride (2, 1), padding (2, 1)), the conv runs as the JAX package's fused
+    path does: the real and imaginary inputs stacked along the batch, the
+    real and imaginary filters along the channels, one hand-written kernel
+    (``ops/fused_conv.py``), then the four products recombined."""
 
     def __init__(self, in_channels, out_channels, kernel_size=(1, 1), stride=(1, 1),
-                 padding=(0, 0), *, generator: torch.Generator):
+                 padding=(0, 0), *, use_pallas: bool = False, generator: torch.Generator):
         super().__init__()
         ci, co = in_channels // 2, out_channels // 2
         self.stride, self.padding = tuple(stride), tuple(padding)
+        self.fused = use_pallas and (
+            (tuple(kernel_size), self.stride, self.padding) == ((5, 2), (2, 1), (2, 1))
+        )
         self.real_conv = _ConvWeights((co, ci, *kernel_size), co, generator)
         self.imag_conv = _ConvWeights((co, ci, *kernel_size), co, generator)
 
     def forward(self, x):
+        if self.fused:
+            return self._fused_forward(x)
         ph, pw = self.padding
         x = F.pad(x, (pw, 0))
         wr, wi = self.real_conv.weight, self.imag_conv.weight
         w = torch.cat([torch.cat([wr, -wi], 1), torch.cat([wi, wr], 1)], 0)
         bias = _complex_bias(self.real_conv, self.imag_conv)
         return conv_ops.conv2d(x, w, bias, stride=self.stride, padding=(ph, 0))
+
+    def _fused_forward(self, x):
+        B, ci = x.shape[0], x.shape[1] // 2
+        co = self.real_conv.weight.shape[0]
+        z = torch.cat([x[:, :ci], x[:, ci:]], 0)
+        w = torch.cat([self.real_conv.weight, self.imag_conv.weight], 0)
+        bias = torch.cat([self.real_conv.bias, self.imag_conv.bias])
+        y = fused_complex_conv2d(z, w, bias)
+        r2r, r2i = y[:B, :co], y[:B, co:]
+        i2r, i2i = y[B:, :co], y[B:, co:]
+        return torch.cat([r2r - i2i, r2i + i2r], 1)
 
 
 class ComplexConvTranspose2d(nn.Module):

@@ -80,7 +80,7 @@ def build(names=None) -> dict:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed.  Every
-    library exports ``se_cuda_error_string`` (``csrc/lstm_common.cuh``)."""
+    library exports ``se_cuda_error_string`` (``csrc/error_string.cuh``)."""
     lib = _LOADED.get(name)
     if lib is None:
         build([name])

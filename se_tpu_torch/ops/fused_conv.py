@@ -1,0 +1,120 @@
+"""The DCCRN encoder's causal complex convolution: the hand-written CUDA
+kernel ``csrc/complex_conv.cu`` (K4, forward) and its plain PyTorch version.
+
+Counterpart of ``se_tpu/ops/pallas_conv.py``.  ``fused_complex_conv2d(x, w,
+b)`` maps a doubled real|imag batch ``x [B2, C, F, T]`` through a (5, 2)
+kernel ``w [Co, C, 5, 2]`` with stride (2, 1), frequency padding 2 on both
+sides and causal time padding 1, plus the bias ``b [Co]``, to ``[B2, Co,
+F // 2, T]``.  F must be even: for odd F the Pallas kernel gives
+``F // 2`` bins where its own XLA reference gives ``(F + 1) // 2``, so the
+port refuses odd F rather than pick one.
+
+The backward is the gradient of the plain convolution (cuDNN on the card),
+as the JAX package's custom VJP takes the gradient of its XLA reference
+outside any Pallas kernel; there is no backward kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import build
+
+KERNEL = (5, 2)
+STRIDE = (2, 1)
+PADDING = (2, 0)  # frequency; time is padded on the left only (causal)
+
+
+def _padded(x):
+    return F.pad(x, (1, 0))  # one frame of zeros before the first
+
+
+def reference(x, w, b):
+    """The plain version: ``F.conv2d`` of the causally padded input."""
+    return F.conv2d(_padded(x), w, b, stride=STRIDE, padding=PADDING)
+
+
+def _check(x, w, b):
+    if x.ndim != 4:
+        raise ValueError(f"x must be [B2, C, F, T], got {tuple(x.shape)}")
+    B2, C, Fq, T = x.shape
+    if w.ndim != 4 or tuple(w.shape[2:]) != KERNEL:
+        raise ValueError(f"w must be [Co, C, 5, 2] (the only geometry K4 takes), "
+                         f"got {tuple(w.shape)}")
+    Co = w.shape[0]
+    if w.shape[1] != C or tuple(b.shape) != (Co,):
+        raise ValueError(f"w {tuple(w.shape)} and b {tuple(b.shape)} do not fit x "
+                         f"{tuple(x.shape)}")
+    if Fq % 2:
+        raise ValueError(f"F must be even, got {Fq}: for odd F the reference's "
+                         "kernel and its XLA conv disagree on the bin count")
+    for name, t in (("x", x), ("w", w), ("b", b)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+
+
+def _library():
+    lib = build.load("complex_conv")
+    if lib.se_complex_conv_fwd_f32.argtypes is None:
+        lib.se_complex_conv_fwd_f32.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        )
+        lib.se_complex_conv_fwd_f32.restype = ctypes.c_int
+    return lib
+
+
+def _forward(x, w, b):
+    """The plain version for CPU tensors; K4 for CUDA tensors (counted on
+    ``fused_complex_conv2d``)."""
+    if x.device.type == "cpu":
+        return reference(x, w, b)
+    B2, C, Fq, T = x.shape
+    Co = w.shape[0]
+    y = torch.empty((B2, Co, Fq // 2, T), device=x.device, dtype=torch.float32)
+    build.cuda_launch(_library(), "se_complex_conv_fwd_f32", (x, w, b), ("x", "w", "b"),
+                      (y,), (B2, C, Fq, T, Co), x.device)
+    fused_complex_conv2d.launches += 1
+    return y
+
+
+class _FusedComplexConv2d(torch.autograd.Function):
+    """The custom VJP of ``pallas_conv.fused_complex_conv2d``: the forward
+    keeps ``(x, w, b)``; the backward is the plain convolution's gradient,
+    without running its forward again."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w, b)
+        return _forward(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, b = ctx.saved_tensors
+        dxp, dw, db = torch.ops.aten.convolution_backward(
+            g.contiguous(), _padded(x), w, [b.shape[0]], list(STRIDE), list(PADDING),
+            [1, 1], False, [0, 0], 1, list(ctx.needs_input_grad),
+        )
+        return (None if dxp is None else dxp[..., 1:]), dw, db
+
+
+def fused_complex_conv2d(x, w, b):
+    """Same signature and result as :func:`reference`, for even F and the
+    (5, 2) kernel only (raises otherwise).
+
+    CPU tensors run the plain version.  CUDA tensors launch K4 on the
+    current stream, or raise: float32 and contiguous only.  Each launch
+    adds one to ``fused_complex_conv2d.launches``.  Gradients go through
+    the plain convolution's backward.
+    """
+    _check(x, w, b)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, b)):
+        return _FusedComplexConv2d.apply(x, w, b)
+    return _forward(x, w, b)
+
+
+fused_complex_conv2d.launches = 0

@@ -247,7 +247,7 @@ def test_main_loss_matches_jax(loss):
     _close(got, want, atol=0, rtol=1e-5)
 
 
-_FORBIDDEN = ("jax", "flax", "optax", "orbax", "se_tpu")
+_FORBIDDEN = ("jax", "flax", "optax", "orbax", "se_tpu", "tools")
 
 
 def _forbidden_imports(path: Path):
