@@ -21,6 +21,10 @@ in order; any failure ends the run with a nonzero exit and no result line:
    backward (K3b) at FullSubNet's four GRU layers (B = 2, 10 and 8) and two
    ragged cases, then the DCCRN encoder's fused complex conv (K4) at its six
    stages (B = 10 and 8) and a ragged case, with one cuDNN conv beside it;
+   the bf16-stream forms of K1 (DCCRN's enhance and train shapes) and K2
+   (CRN's, and FullSubNet's sub band, layer 0), each backward held on the
+   kernel's own saved ys and cs, with the f32 form's time at the same shape
+   and cuDNN's LSTM in bf16 beside them;
    then the probes (P1 bound_probe, P2 wavefront_probe, P3 vpu_probe), each
    against its plain version, then each probe's own entry point at the sub
    band's shape (B = 8, T = 163) with every launch count set to 0 just
@@ -34,24 +38,33 @@ in order; any failure ends the run with a nonzero exit and no result line:
    (its default LSTM), FullSubNet with ``sequence_model="GRU"`` and the
    default DCCRN's weights with ``use_pallas_conv=True`` (its encoder convs
    through K4; no CLI run, as no CLI takes that switch; its waveform also
-   held to the default DCCRN's);
+   held to the default DCCRN's), then DCCRN, CRN and DCCRN with
+   ``lstm="real"`` under ``compute_dtype="bfloat16"`` on the same weights
+   (the CLI with ``--compute-dtype bfloat16``; each waveform also held to
+   its f32 path's);
 5. the train paths at full width: one ``train_step`` on the card and one on
    the CPU from the same weights (loss, every gradient, the BatchNorm
    running statistics; FullSubNet's dropout set to 0 for this, since two
    devices draw different masks), the kernels' launch counts read around a
-   step with and without gradient accumulation, then 10 steps at the
+   step with and without gradient accumulation, then 10 steps (DCCRN with
+   ``use_pallas_conv``: 3) at the
    default batch of 10 on one fixed batch (the loss must fall; FullSubNet
    with its dropout of 0.8 drawn from a generator on the card), with step
    time, throughput, peak memory and a profile; for the default DCCRN, CRN,
-   both FullSubNets and DCCRN with ``use_pallas_conv``, plus one CRN
-   direct-mapping step and one DCCRN real-LSTM step against the CPU;
+   both FullSubNets, DCCRN with ``use_pallas_conv`` and the three bf16
+   paths (each bf16 gradient against the CPU's at a tolerance set by bf16's
+   noise), DCCRN-bf16's 10 steps once more with Adam's first
+   moment in bf16, plus one CRN direct-mapping step and one DCCRN real-LSTM
+   step against the CPU;
 6. report: one JSON line of kernel numbers, then the result line.
 
-TF32 is off throughout (``resolve_device`` sets it): the reference is f32.
+TF32 is off throughout (``resolve_device`` sets it, and keeps cuBLAS's bf16
+products reducing in f32): the reference is f32, or bf16 where it says so.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -88,6 +101,33 @@ TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 1e-3
 GRAD_FLOOR = 1e-2
 TRAIN_STATS_TOL = 1e-5
+# The bf16 paths, card vs CPU (both bf16, the same weights and batch).
+# cuDNN's convolutions and the CPU's sum in other orders; where two f32 sums
+# differ in their last bit a bf16 rounding tips, and the tip travels down the
+# network, so the waveform and the loss agree to bf16's precision, not f32's.
+# The same holds for one row run in batches of two sizes (cuDNN picks its
+# algorithms by shape), so the CLI is held to in-process runs of its own
+# batches at CLI_TOL and to one row at a time at BF16_SLICE_TOL.  The
+# gradients: every cotangent is rounded to bf16, so a leaf that sums
+# millions of products of both signs (a PReLU slope, a bias) carries bf16
+# noise of the order of its own size (on the CPU the JAX package's bf16
+# gradients differ from its f32 ones by up to 5x a PReLU slope's max,
+# tests/test_torch_bf16.py).  Each leaf's max |card - cpu| is held against
+# max(its max, GRAD_FLOOR x the model's largest gradient): all leaves at
+# BF16_GRAD_TOL, the recurrent bottleneck's (the hand kernels' weights and
+# the linear maps around them, ``enhance.*``) at BF16_LSTM_GRAD_TOL.  Each
+# limit is 2.3-4x the largest value measured over the three bf16 paths on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 2).
+BF16_SLICE_TOL = 5e-3  # waveform max |card - cpu|; measured 2.15e-3
+BF16_SLICE_MEAN_TOL = 5e-4  # waveform mean |card - cpu|; measured 1.81e-4
+BF16_LOSS_TOL = 1e-3  # loss, relative to max(1, |loss|); measured 4.0e-4
+BF16_GRAD_TOL = 0.5  # measured 0.173 (a conv bias that a BatchNorm cancels)
+BF16_LSTM_GRAD_TOL = 1e-2  # measured 2.39e-3
+BF16_STATS_TOL = 2e-3  # running statistics, absolute; measured 6.7e-4
+# bf16 against the f32 path on the same weights and input, mean |difference|
+# of the waveform: the JAX package's own gate
+# (tests/test_model_variants.py::test_dccrn_bf16_compute_close_to_f32)
+BF16_VS_F32_MEAN = 5e-3
 
 
 def _max_err(a, b) -> float:
@@ -582,6 +622,251 @@ def phase_inproj_kernels() -> tuple:
     return fwd, bwd
 
 
+def _bf16_errs(got, want, f32_tol) -> dict:
+    """A bf16 output against its plain version, element by element: |got -
+    want| over one bf16 ulp of max(|got|, |want|) plus ``f32_tol`` (the f32
+    form's absolute tolerance, for elements near 0 whose f32 difference
+    exceeds their ulp): ``within`` must be at most 1; ``ulps`` is the
+    largest |got - want| in ulps alone, ``abs`` in absolute terms;
+    ``share`` the share of elements that differ at all."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    mag = torch.maximum(g.abs(), w.abs())
+    ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
+    return {"within": (d / (ulp + f32_tol)).max().item(),
+            "ulps": (d / ulp.clamp_min(torch.finfo(torch.float32).tiny)).max().item(),
+            "abs": d.max().item(), "share": (d > 0).float().mean().item()}
+
+
+def _cudnn_yardstick(modules, inputs, cots) -> tuple:
+    """Yardstick only, never called by the port: CUDA-event times of cuDNN
+    LSTM modules (one per stack) on ``inputs`` ``[(x, h0, c0), ...]``: the
+    forward, and forward + backward minus forward for ``cots`` ``[(dys,
+    dhT, dcT), ...]``.  In bf16 if cuDNN takes a bf16 LSTM, else in f32 ->
+    ``(fwd_ms, bwd_ms, dtype)``."""
+    import copy
+
+    from se_tpu_torch.probes import cuda_ms
+
+    for dtype in (torch.bfloat16, torch.float32):
+        mods = [copy.deepcopy(m).to(dtype) for m in modules]
+        leaves = [[t.to(dtype).clone().requires_grad_() for t in inp] for inp in inputs]
+        cot = [[c.to(dtype) for c in cc] for cc in cots]
+
+        def fwd():
+            return [m(x, (h, c)) for m, (x, h, c) in zip(mods, leaves)]
+
+        def fwd_bwd():
+            return [torch.autograd.grad((o, hN, cN), (*lv, *m.parameters()), cc)
+                    for m, lv, (o, (hN, cN)), cc in zip(mods, leaves, fwd(), cot)]
+
+        try:
+            fwd_bwd()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            print(f"[bf16] cuDNN's LSTM refused {dtype}: {str(e).splitlines()[0]}")
+            continue
+        f_ms = cuda_ms(fwd, iters=5, warmup=1)
+        return f_ms, cuda_ms(fwd_bwd, iters=5, warmup=1) - f_ms, str(dtype)
+    raise RuntimeError("cuDNN's LSTM ran in neither bf16 nor f32")
+
+
+# The bf16 forms' shapes: K1 at DCCRN's (T, L, H) with the enhance batch's
+# Bb for the forward and the train batch's for the backward; K2 at (label,
+# T, forward Bb, backward Bb, In, H)
+_K1_BF16 = (483, 2, 128, 16, 20)
+_K2_BF16 = (("CRN", 483, 8, 10, 512, 128), ("FullSubNet sb l0", 163, 2056, 2056, 32, 384))
+
+
+def phase_bf16_kernels() -> tuple:
+    """The bf16-stream forms of K1 and K2 (x_proj or x, ys, dys and the
+    stream's gradient bf16; carry, gates, stash and weight gradients f32)
+    against their plain versions on the card: K1 at DCCRN's enhance shape
+    (forward, Bb=16) and train shape (backward, Bb=20), K2 at CRN's (forward
+    B=8, backward B=10) and at FullSubNet's sub band, layer 0 (In=32, H=384,
+    Bb=2056, T=163, B=8), both at a ragged case.  Each backward is held
+    against the plain backward on the kernel's own saved ys and cs.  Times
+    of the bf16 form, of the f32 form on the same values, of the plain
+    version and of cuDNN's LSTM (bf16 if it takes it); bounds at bf16
+    stream bytes.  Returns the entries K1f-bf16, K1b-bf16, K2f-bf16,
+    K2b-bf16."""
+    from se_tpu_torch.device import resolve_device
+    from se_tpu_torch.probes import cuda_ms
+    from se_tpu_torch.ops import fused_lstm as k1
+    from se_tpu_torch.ops import fused_lstm_inproj as k2
+
+    dev = resolve_device("cuda")
+    rng = np.random.default_rng(SEED + 8)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def cotangents(T, L, Bb, H):
+        dys, dhT, dcT = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+                         for s in ((T, L, Bb, H), (L, Bb, H), (L, Bb, H))]
+        return dys.to(bf16), dhT, dcT
+
+    # each module's wrapper, backward, plain backward and gradient names
+    calls = {k1: (k1.fused_lstm_scan, k1.fused_lstm_scan_backward,
+                  k1.fused_lstm_scan_backward_reference, ("dx_proj", "dw_hh_t", "dh0", "dc0")),
+             k2: (k2.fused_lstm_scan_inproj, k2.fused_lstm_scan_inproj_backward,
+                  k2.fused_lstm_scan_inproj_backward_reference, _K2B_NAMES)}
+
+    def check(kern, label, stream, rest, cots):
+        """Forward (stash-free and with the stash) and backward of the
+        bf16 form against the plain versions; two backward calls
+        bit-identical.  Returns ys, cs and the errors."""
+        fwd_fn, bwd_fn, bwd_ref, names = calls[kern]
+        args = (stream, *rest)
+        with torch.no_grad():
+            ys_n, (hT_n, cT_n) = fwd_fn(*args)
+            ys, cs, hT, cT = kern._forward(*args, need_cs=True)
+            assert torch.equal(ys_n, ys) and torch.equal(hT_n, hT) and torch.equal(cT_n, cT), \
+                f"{label}: the stash changed the forward's results"
+            ys_p, cs_p, hT_p, cT_p = kern._reference_forward(*args, need_cs=True)
+            got = bwd_fn(*args, ys, cs, *cots)
+            again = bwd_fn(*args, ys, cs, *cots)
+            want = bwd_ref(*args, ys, cs, *cots)
+            torch.cuda.synchronize()
+        assert ys.dtype == got[0].dtype == bf16 and all(g.dtype == f32 for g in got[1:]), label
+        fwd = {n: _max_err(g, w) for n, g, w in (("cs", cs, cs_p), ("hT", hT, hT_p),
+                                                  ("cT", cT, cT_p))}
+        ys_e = _bf16_errs(ys, ys_p, KERNEL_TOL)
+        dx_e = _bf16_errs(got[0], want[0], BWD_REL_TOL * want[0].abs().max().item())
+        rel = {n: _max_err(g, w) / max(w.abs().max().item(), 1e-30)
+               for n, g, w in zip(names[1:], got[1:], want[1:])}
+        print(f"[bf16] {label}: forward f32 max |kernel - plain| {fwd} (tolerance {KERNEL_TOL}); "
+              f"ys bf16 {ys_e}; backward on the kernel's ys and cs: {names[0]} bf16 {dx_e}, "
+              f"f32 outputs max |kernel - plain| / max |plain| {rel} (tolerance {BWD_REL_TOL})")
+        assert all(np.isfinite(v) and v <= KERNEL_TOL for v in fwd.values()), (label, fwd)
+        assert ys_e["within"] <= 1 and dx_e["within"] <= 1, (label, ys_e, dx_e)
+        assert all(np.isfinite(v) and v <= BWD_REL_TOL for v in rel.values()), (label, rel)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{label}: not repeatable"
+        bwd_abs = max(_max_err(g, w) for g, w in zip(got[1:], want[1:]))
+        return ys, cs, {"fwd_abs": max(*fwd.values(), ys_e["abs"]), "ys": ys_e, "dx": dx_e,
+                        "bwd_rel": max(rel.values()), "bwd_abs": max(bwd_abs, dx_e["abs"])}
+
+    # K1: the ragged case, then DCCRN's enhance and train shapes
+    def k1_case(T, L, Bb, H):
+        xp, w, h0, c0 = _scan_inputs(rng, dev, T, L, Bb, H)
+        return xp.to(bf16), (w, h0, c0), cotangents(T, L, Bb, H)
+
+    check(k1, "K1 ragged T=7 L=3 Bb=5 H=32", *k1_case(7, 3, 5, 32))
+    entries = {}
+    T, L, H, Bb_f, Bb_b = _K1_BF16
+    G = 4 * H
+    for kind, Bb in (("fwd", Bb_f), ("bwd", Bb_b)):
+        xp, rest, cots = k1_case(T, L, Bb, H)
+        ys, cs, errs = check(k1, f"K1 DCCRN T={T} L={L} Bb={Bb} H={H}", xp, rest, cots)
+        w, h0, c0 = rest
+        xp32 = xp.float()
+        with torch.no_grad():
+            if kind == "fwd":
+                t = {"ms": cuda_ms(lambda: k1.fused_lstm_scan(xp, *rest), 20, 2),
+                     "f32_ms": cuda_ms(lambda: k1.fused_lstm_scan(xp32, *rest), 20, 2),
+                     "plain_ms": cuda_ms(lambda: k1.fused_lstm_scan_reference(xp, *rest), 3, 1)}
+            else:
+                ys32, cs32, _, _ = k1._forward(xp32, *rest, need_cs=True)
+                cots32 = (cots[0].float(), *cots[1:])
+                t = {"ms": cuda_ms(lambda: k1.fused_lstm_scan_backward(xp, *rest, ys, cs, *cots),
+                                   10, 2),
+                     "f32_ms": cuda_ms(lambda: k1.fused_lstm_scan_backward(
+                         xp32, *rest, ys32, cs32, *cots32), 10, 2),
+                     "plain_ms": cuda_ms(lambda: k1.fused_lstm_scan_backward_reference(
+                         xp, *rest, ys, cs, *cots), 2, 1)}
+        lib_f, lib_b, lib_dtype = _cudnn_yardstick(
+            _cuda_lstms(w, dev), [(xp[:, l], h0[l : l + 1], c0[l : l + 1]) for l in range(L)],
+            [(cots[0][:, l], cots[1][l : l + 1], cots[2][l : l + 1]) for l in range(L)])
+        if kind == "fwd":
+            n_bytes = 2 * (xp.numel() + ys.numel()) + 4 * (w.numel() + 4 * h0.numel())
+            flops = 2 * T * L * Bb * H * G + T * L * Bb * G
+            library_ms, err = lib_f, errs["fwd_abs"]
+        else:
+            n_bytes = (2 * (2 * xp.numel() + 2 * ys.numel())
+                       + 4 * (2 * w.numel() + cs.numel() + 6 * h0.numel()))
+            flops = 3 * 2 * T * L * Bb * H * G
+            library_ms, err = lib_b, errs["bwd_abs"]
+        bound_ms, bound_by = _bound(n_bytes, flops)
+        print(f"[bf16] K1{kind[0]} Bb={Bb}: bf16 form {t['ms']:.4f} ms, f32 form {t['f32_ms']:.4f}, "
+              f"plain {t['plain_ms']:.4f}, cuDNN ({lib_dtype}) {library_ms:.4f}, bound "
+              f"{bound_ms:.4f} ({bound_by}: {n_bytes} B, {flops} FLOP)")
+        entries[kind] = {
+            "name": f"fused_lstm_scan_{kind}_bf16", "route": "cuda",
+            "source": "se_tpu_torch/csrc/lstm_scan.cu",
+            "replaces": ("se_tpu/ops/pallas_lstm.py:158::_fwd_call (bf16 stream: :69, :86)"
+                         if kind == "fwd" else
+                         "se_tpu/ops/pallas_lstm.py:217::_fused_bwd (bf16 stream: :133)"),
+            "shapes": f"DCCRN T={T} L={L} Bb={Bb} H={H}",
+            "max_abs_err": err, "ys_bf16": errs["ys"], "dx_bf16": errs["dx"],
+            "max_rel_err": errs["bwd_rel"], "ms": t["ms"], "kernel_ms": t["ms"],
+            "f32_form_ms": t["f32_ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "library_dtype": lib_dtype}
+    k1f, k1b = entries["fwd"], entries["bwd"]
+
+    # K2: the ragged case, CRN's shapes, then the sub band's layer 0
+    def k2_case(T, L, Bb, In, H):
+        x, *rest = _inproj_inputs(rng, dev, T, L, Bb, In, H)
+        return x.to(bf16), tuple(rest), cotangents(T, L, Bb, H)
+
+    check(k2, "K2 ragged T=7 L=3 Bb=5 In=24 H=32", *k2_case(7, 3, 5, 24, 32))
+    k2f, k2b = {}, {}
+    for label, T, Bb_f, Bb_b, In, H in _K2_BF16:
+        G = 4 * H
+        for kind, Bb in (("fwd", Bb_f), ("bwd", Bb_b)):
+            if kind == "fwd" or Bb_b != Bb_f:  # else the forward's case serves
+                x, rest, cots = k2_case(T, 1, Bb, In, H)
+                ys, cs, errs = check(k2, f"K2 {label} T={T} Bb={Bb} In={In} H={H}", x, rest, cots)
+            w_ih, bias, w_hh, h0, c0 = rest
+            x32 = x.float()
+            with torch.no_grad():
+                if kind == "fwd":
+                    t = {"ms": cuda_ms(lambda: k2.fused_lstm_scan_inproj(x, *rest), 5, 1),
+                         "f32_ms": cuda_ms(lambda: k2.fused_lstm_scan_inproj(x32, *rest), 5, 1),
+                         "plain_ms": cuda_ms(lambda: k2.fused_lstm_scan_inproj_reference(
+                             x, *rest), 1, 1)}
+                else:
+                    ys32, cs32, _, _ = k2._forward(x32, *rest, need_cs=True)
+                    cots32 = (cots[0].float(), *cots[1:])
+                    t = {"ms": cuda_ms(lambda: k2.fused_lstm_scan_inproj_backward(
+                             x, *rest, ys, cs, *cots), 3, 1),
+                         "f32_ms": cuda_ms(lambda: k2.fused_lstm_scan_inproj_backward(
+                             x32, *rest, ys32, cs32, *cots32), 3, 1),
+                         "plain_ms": cuda_ms(lambda: k2.fused_lstm_scan_inproj_backward_reference(
+                             x, *rest, ys, cs, *cots), 1, 1)}
+                    del ys32, cs32
+            lib_f, lib_b, lib_dtype = _cudnn_yardstick(
+                [_cudnn_lstm(w_ih, bias, w_hh, dev)], [(x[:, 0], h0, c0)],
+                [(cots[0][:, 0], cots[1], cots[2])])
+            n_w = w_ih.numel() + bias.numel() + w_hh.numel()
+            if kind == "fwd":
+                n_bytes = 2 * (x.numel() + ys.numel()) + 4 * (n_w + 4 * h0.numel())
+                flops = 2 * T * Bb * (In + H) * G + T * Bb * G
+                library_ms, err = lib_f, errs["fwd_abs"]
+            else:
+                n_bytes = (2 * (2 * x.numel() + 2 * ys.numel())
+                           + 4 * (2 * n_w + cs.numel() + 6 * h0.numel()))
+                flops = 3 * 2 * T * Bb * (In + H) * G
+                library_ms, err = lib_b, errs["bwd_abs"]
+            bound_ms, bound_by = _bound(n_bytes, flops)
+            print(f"[bf16] K2{kind[0]} {label} Bb={Bb}: bf16 form {t['ms']:.4f} ms, f32 form "
+                  f"{t['f32_ms']:.4f}, plain {t['plain_ms']:.4f}, cuDNN ({lib_dtype}) "
+                  f"{library_ms:.4f}, bound {bound_ms:.4f} ({bound_by}: {n_bytes} B, {flops} FLOP)")
+            row = {"ms": t["ms"], "f32_form_ms": t["f32_ms"], "plain_ms": t["plain_ms"],
+                   "library_ms": library_ms, "library_dtype": lib_dtype, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "max_abs_err": err, "ys_bf16": errs["ys"],
+                   "dx_bf16": errs["dx"], "max_rel_err": errs["bwd_rel"]}
+            entry = k2f if kind == "fwd" else k2b
+            if not entry:  # CRN's numbers head the row
+                entry.update(row, kernel_ms=t["ms"], shapes=f"CRN T={T} Bb={Bb} In={In} H={H}")
+            else:
+                entry["fullsubnet_sb_l0"] = row
+    k2f.update(name="fused_lstm_scan_inproj_fwd_bf16", route="cuda",
+               source="se_tpu_torch/csrc/lstm_inproj.cu",
+               replaces="se_tpu/ops/pallas_lstm.py:432::_inproj_call (bf16 stream: :318-321, :334)")
+    k2b.update(name="fused_lstm_scan_inproj_bwd_bf16", route="cuda",
+               source="se_tpu_torch/csrc/lstm_inproj.cu",
+               replaces="se_tpu/ops/pallas_lstm.py:503::_inproj_bwd (bf16 stream: :397, :553)")
+    return k1f, k1b, k2f, k2b
+
+
 # FullSubNet's two sequence models, two layers each, at 3 s (T = 163):
 # (label, rows per utterance, In, H).  The full band runs one row of 257
 # bins an utterance (H = 512); the sub band 257 rows of 2 * 15 + 1 noisy and
@@ -1062,31 +1347,42 @@ def _cancelled_by_batch_norm(state_dict) -> set:
 
 
 def _counters() -> dict:
-    """Every hand kernel's wrapper, by its row in PERF.md's table."""
+    """Every hand kernel form's launch count, by its row in PERF.md's
+    table: ``(wrapper, attribute)``.  The bf16-stream forms of K1 and K2
+    count on their own attribute, so a path's exact counts show which form
+    ran."""
     from se_tpu_torch.ops import fused_conv, fused_gru_inproj, fused_lstm, fused_lstm_inproj
     from se_tpu_torch.probes import bound_probe, vpu_probe, wavefront_probe
 
-    return {"K1f": fused_lstm.fused_lstm_scan, "K1b": fused_lstm.fused_lstm_scan_backward,
-            "K2f": fused_lstm_inproj.fused_lstm_scan_inproj,
-            "K2b": fused_lstm_inproj.fused_lstm_scan_inproj_backward,
-            "K3f": fused_gru_inproj.fused_gru_scan_inproj,
-            "K3b": fused_gru_inproj.fused_gru_scan_inproj_backward,
-            "K4": fused_conv.fused_complex_conv2d,
-            "P1": bound_probe.run, "P2": wavefront_probe.wavefront_lstm2, "P3": vpu_probe.run}
+    k1f, k1b = fused_lstm.fused_lstm_scan, fused_lstm.fused_lstm_scan_backward
+    k2f = fused_lstm_inproj.fused_lstm_scan_inproj
+    k2b = fused_lstm_inproj.fused_lstm_scan_inproj_backward
+    return {"K1f": (k1f, "launches"), "K1b": (k1b, "launches"),
+            "K2f": (k2f, "launches"), "K2b": (k2b, "launches"),
+            "K3f": (fused_gru_inproj.fused_gru_scan_inproj, "launches"),
+            "K3b": (fused_gru_inproj.fused_gru_scan_inproj_backward, "launches"),
+            "K4": (fused_conv.fused_complex_conv2d, "launches"),
+            "P1": (bound_probe.run, "launches"), "P2": (wavefront_probe.wavefront_lstm2, "launches"),
+            "P3": (vpu_probe.run, "launches"),
+            "K1f-bf16": (k1f, "launches_bf16"), "K1b-bf16": (k1b, "launches_bf16"),
+            "K2f-bf16": (k2f, "launches_bf16"), "K2b-bf16": (k2b, "launches_bf16")}
 
 
 def _zero_counts():
-    for fn in _counters().values():
-        fn.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def _counts() -> dict:
-    return {k: fn.launches for k, fn in _counters().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
 
 
 def _expected(per_call: dict, calls: int = 1) -> dict:
     """The launch counts of ``calls`` calls that each launch ``per_call``."""
     return {k: calls * per_call.get(k, 0) for k in _counters()}
+
+
+BF16_CLI = ("--compute-dtype", "bfloat16")
 
 
 def _paths() -> dict:
@@ -1101,6 +1397,7 @@ def _paths() -> dict:
     )
 
     dccrn, real = Config(), Config(lstm="real")
+    bf16 = lambda cfg: cfg.replace(compute_dtype="bfloat16")
     fused = Config(use_pallas_conv=True)
     crn = Config(model="CRN", loss="MSE", lstm="real", masking_mode="E")  # the tutorial config
     fsn = Config(model="FullSubNet", loss="MSE")
@@ -1126,33 +1423,44 @@ def _paths() -> dict:
                                                         fsn_gru),
                            {"K3f": 4}, {"K3b": 4},
                            ["--model", "FullSubNet", "--sequence-model", "GRU"]),
+        # compute_dtype="bfloat16" on the f32 paths' weights: the complex
+        # LSTM on K1's bf16-stream form, CRN's LSTM on K2's; DCCRN's real
+        # LSTM runs in f32 under bf16 (se_tpu/models/dccrn.py:215-222), so on
+        # K2's f32 form
+        "DCCRN-bf16": (bf16(dccrn), state_dict_from_jax(*random_dccrn_params(dccrn, SEED), dccrn),
+                       {"K1f-bf16": dccrn.dccrn.rnn_layers},
+                       {"K1b-bf16": dccrn.dccrn.rnn_layers},
+                       ["--model", "DCCRN", *BF16_CLI]),
+        "CRN-bf16": (bf16(crn), state_dict_from_jax(*random_crn_params(crn, SEED), crn),
+                     {"K2f-bf16": 1}, {"K2b-bf16": 1}, ["--model", "CRN", *BF16_CLI]),
+        "DCCRN-real-bf16": (bf16(real), state_dict_from_jax(*random_dccrn_params(real, SEED), real),
+                            {"K2f": 2}, {"K2b": 2},
+                            ["--model", "DCCRN", "--lstm", "real", *BF16_CLI]),
     }
 
 
-def phase_train(label: str, cfg, sd, per_fwd: dict, per_bwd: dict, full: bool) -> tuple:
+def phase_train(label: str, cfg, sd, per_fwd: dict, per_bwd: dict, steps: int) -> tuple:
     """A train path at full width: one step at B=2 on the card and on the CPU
-    from the same weights, launch counts read around it.  With ``full``,
-    also a step with gradient accumulation and the main path: 10 steps at
-    the default batch on one fixed batch, the counts read around them, the
-    loss falling (FullSubNet's dropout-free loss of the batch, before and
-    after).  Returns the launches of the B=2 step and of the 10 steps
-    (None without ``full``)."""
-    import dataclasses
-
+    from the same weights, launch counts read around it.  With ``steps``,
+    also a step with gradient accumulation and the main path: that many
+    steps at the default batch on one fixed batch (``_train_steps``).
+    Returns the launches of the B=2 step and of the main path (None with no
+    ``steps``)."""
     from se_tpu_torch.train.state import create_train_state
-    from se_tpu_torch.train.steps import eval_step, train_step
+    from se_tpu_torch.train.steps import train_step
 
-    fs, B, seconds = cfg.stft.fs, cfg.train.batch, 3
-    noisy, clean = _utterances(B, seconds, fs)
+    noisy, clean = _utterances(cfg.train.batch, 3, cfg.stft.fs)
+    noisy, clean = noisy[:2], clean[:2]
     per_step = {**per_fwd, **per_bwd}
-    train_cfg = cfg  # the 10 steps: FullSubNet with its dropout
+    train_cfg = cfg  # the main path: FullSubNet with its dropout
     if cfg.model == "FullSubNet":  # two devices draw different dropout masks
         cfg = cfg.replace(fullsubnet=dataclasses.replace(cfg.fullsubnet, dropout=0.0))
+    bf16 = cfg.compute_dtype == "bfloat16"
 
     # counts read around one train step
     model, opt = create_train_state(cfg, sd, device="cuda")
     _zero_counts()
-    metrics = train_step(cfg, model, opt, noisy[:2], clean[:2])
+    metrics = train_step(cfg, model, opt, noisy, clean)
     torch.cuda.synchronize()
     launches = _counts()
     print(f"[train {label}] train_step B=2: launches {launches}")
@@ -1160,60 +1468,81 @@ def phase_train(label: str, cfg, sd, per_fwd: dict, per_bwd: dict, full: bool) -
     grads, stats = _grads_and_stats(model)
 
     cpu_model, cpu_opt = create_train_state(cfg, sd, device="cpu")
-    cpu_metrics = train_step(cfg, cpu_model, cpu_opt, noisy[:2], clean[:2])
+    cpu_metrics = train_step(cfg, cpu_model, cpu_opt, noisy, clean)
     cpu_grads, cpu_stats = _grads_and_stats(cpu_model)
     loss, cpu_loss = metrics["loss"].item(), cpu_metrics["loss"].item()
     loss_err = abs(loss - cpu_loss) / max(1.0, abs(cpu_loss))
+    loss_tol = BF16_LOSS_TOL if bf16 else TRAIN_LOSS_TOL
     print(f"[train {label}] {cfg.loss} loss card {loss} cpu {cpu_loss}: relative {loss_err} "
-          f"(tolerance {TRAIN_LOSS_TOL})")
-    assert np.isfinite(loss) and loss_err <= TRAIN_LOSS_TOL, (loss, cpu_loss)
+          f"(tolerance {loss_tol})")
+    assert np.isfinite(loss) and loss_err <= loss_tol, (loss, cpu_loss)
     cancelled = _cancelled_by_batch_norm(sd)
     scale = max(g.abs().max().item() for g in cpu_grads.values())
-    for k in cancelled:
-        assert max(grads[k].abs().max().item(), cpu_grads[k].abs().max().item()) <= 1e-5 * scale, k
-    raw = _leaf_rel_errs(grads, cpu_grads, cancelled)
-    rel = _leaf_rel_errs(grads, cpu_grads, cancelled, GRAD_FLOOR * scale)
-    report = [("card vs cpu, over the leaf's max", raw)]
-    if full:  # the card against itself: a second step from the same weights
+    report = [("card vs cpu, over the leaf's max", _leaf_rel_errs(grads, cpu_grads, cancelled))]
+    if steps:  # the card against itself: a second step from the same weights
         model2, opt2 = create_train_state(cfg, sd, device="cuda")
-        train_step(cfg, model2, opt2, noisy[:2], clean[:2])
+        train_step(cfg, model2, opt2, noisy, clean)
         report.append(("card vs card rerun, over the leaf's max",
                        _leaf_rel_errs(_grads_and_stats(model2)[0], grads, cancelled)))
-    report.append((f"card vs cpu, over max(leaf's max, {GRAD_FLOOR} x {scale:.4g})", rel))
+    if bf16:
+        rel = _leaf_rel_errs(grads, cpu_grads, (), GRAD_FLOOR * scale)
+        lstm = {k: v for k, v in rel.items() if k.startswith("enhance.")}
+        report.append((f"card vs cpu, over max(leaf's max, {GRAD_FLOOR} x {scale:.4g})", rel))
+        report.append(("the bottleneck's leaves, the same", lstm))
+        lstm_key = max(lstm, key=lstm.get)
+        print(f"[train {label}] bf16: worst bottleneck leaf {lstm_key} {lstm[lstm_key]:.3g} "
+              f"(tolerance {BF16_LSTM_GRAD_TOL})")
+        assert lstm[lstm_key] <= BF16_LSTM_GRAD_TOL, (lstm_key, lstm[lstm_key])
+        grad_tol = BF16_GRAD_TOL
+    else:
+        for k in cancelled:
+            assert max(grads[k].abs().max().item(),
+                       cpu_grads[k].abs().max().item()) <= 1e-5 * scale, k
+        rel = _leaf_rel_errs(grads, cpu_grads, cancelled, GRAD_FLOOR * scale)
+        report.append((f"card vs cpu, over max(leaf's max, {GRAD_FLOOR} x {scale:.4g})", rel))
+        print(f"[train {label}] {len(cancelled)} BatchNorm-cancelled conv biases at roundoff "
+              f"(<= 1e-5 of the largest gradient)")
+        grad_tol = TRAIN_GRAD_TOL
     for what, errs in report:
         top = sorted(errs.items(), key=lambda kv: -kv[1])[:4]
         print(f"[train {label}] gradients, {what}: worst "
               + ", ".join(f"{k} {v:.3g} (max {cpu_grads[k].abs().max().item():.3g})"
-                          for k, v in top))
-    print(f"[train {label}] {len(cancelled)} BatchNorm-cancelled conv biases at roundoff "
-          f"(<= 1e-5 of the largest gradient); tolerance {TRAIN_GRAD_TOL}")
+                          for k, v in top) + f"; tolerance {grad_tol}")
     worst_key = max(rel, key=rel.get)
-    assert rel[worst_key] <= TRAIN_GRAD_TOL, (worst_key, rel[worst_key])
+    assert rel[worst_key] <= grad_tol, (worst_key, rel[worst_key])
     stats_err = max((_max_err(stats[k], cpu_stats[k]) for k in stats), default=0.0)
+    stats_tol = BF16_STATS_TOL if bf16 else TRAIN_STATS_TOL
     print(f"[train {label}] running statistics, card vs cpu: max |diff| {stats_err} "
-          f"(tolerance {TRAIN_STATS_TOL})")
-    assert stats_err <= TRAIN_STATS_TOL, stats_err
-    if not full:
+          f"(tolerance {stats_tol})")
+    assert stats_err <= stats_tol, stats_err
+    if not steps:
         return launches, None
 
     accum = cfg.replace(train=dataclasses.replace(cfg.train, grad_accum=2))
     _zero_counts()
-    train_step(accum, model, opt, noisy[:2], clean[:2])
+    train_step(accum, model, opt, noisy, clean)
     torch.cuda.synchronize()
     print(f"[train {label}] train_step B=2 grad_accum=2: launches {_counts()}")
     assert _counts() == _expected(per_step, 2), _counts()
+    return launches, _train_steps(label, train_cfg, sd, per_step, steps)
 
-    # the main path: 10 steps at the default batch on one fixed batch, the
-    # counts read around them; the loss must fall
-    steps = 10
-    cfg = train_cfg
+
+def _train_steps(label: str, cfg, sd, per_step: dict, steps: int = 10) -> dict:
+    """The main train path: ``steps`` steps at the default batch on one fixed
+    batch, every count set to 0 just before and read just after; the loss
+    must fall (FullSubNet, whose dropout makes each step's loss noisy: the
+    batch's dropout-free loss, before and after).  Step time, throughput,
+    peak memory and a profile.  Returns the launches."""
+    from se_tpu_torch.train.state import create_train_state
+    from se_tpu_torch.train.steps import eval_step, train_step
+
+    B, seconds = cfg.train.batch, 3
+    noisy, clean = _utterances(B, seconds, cfg.stft.fs)
     model, opt = create_train_state(cfg, sd, device="cuda")
     # FullSubNet's dropout masks come from a generator on the card
     gen = torch.Generator(device=next(model.parameters()).device).manual_seed(SEED)
     train_step(cfg, model, opt, noisy, clean, gen)  # warm-up: cuDNN's algorithm choice
     model, opt = create_train_state(cfg, sd, device="cuda")
-    # dropout at 0.8 makes each step's own loss noisy: FullSubNet's training
-    # is judged on the batch's dropout-free loss before and after the steps
     dropout = cfg.model == "FullSubNet"
     before = eval_step(cfg, model, noisy, clean)[0]["loss"].item() if dropout else None
     torch.cuda.reset_peak_memory_stats()
@@ -1240,8 +1569,12 @@ def phase_train(label: str, cfg, sd, per_fwd: dict, per_bwd: dict, full: bool) -
         assert after < before, (before, after)
     else:
         assert losses[-1] < losses[0], losses
+    if cfg.train.adam_mu_dtype is not None:
+        mus = {st["mu"].dtype for st in opt.state.values()}
+        print(f"[train {label}] Adam's first moments stored as {mus}")
+        assert mus == {getattr(torch, cfg.train.adam_mu_dtype)}, mus
     _profile(lambda: train_step(cfg, model, opt, noisy, clean, gen), steps=3, top=16)
-    return launches, main_launches
+    return main_launches
 
 
 def _utterances(n: int, seconds: int, fs: int) -> tuple:
@@ -1264,9 +1597,10 @@ def _utterances(n: int, seconds: int, fs: int) -> tuple:
 def phase_slice(workdir: Path, label: str, cfg, sd, per_forward: dict, cli_args) -> tuple:
     """An enhance path at full width: ``enhance_batch`` on 8 three-second
     utterances (the main path: every count set to 0 just before, read just
-    after), the validation forward, the CPU on the same weights, speed and
-    a profile, and the enhance CLI (unless ``cli_args`` is None).  Returns
-    the main path's launches and its enhanced waveform on the host."""
+    after), the validation forward, speed and a profile, then the enhance
+    CLI in a process of its own (unless ``cli_args`` is None) while this one
+    runs the same weights on the CPU.  Returns the main path's launches and
+    its enhanced waveform on the host."""
     from se_tpu_torch.data.wav import read_wav, write_wav
     from se_tpu_torch.enhance import enhance_batch
     from se_tpu_torch.models import build_model
@@ -1299,17 +1633,6 @@ def phase_slice(workdir: Path, label: str, cfg, sd, per_forward: dict, cli_args)
     print(f"[slice {label}] eval_step wav vs enhance_batch wav: max |diff| {rerun_err}")
     assert rerun_err <= 1e-5, rerun_err
 
-    cpu_model = build_model(cfg, device="cpu")
-    cpu_model.load_state_dict(sd, strict=True)
-    cpu_wav = enhance_batch(cpu_model, noisy, device="cpu")
-    cpu_metrics, _ = eval_step(cfg, cpu_model, noisy, clean)
-    err = _max_err(wav.cpu(), cpu_wav)
-    loss, cpu_loss = metrics["loss"].item(), cpu_metrics["loss"].item()
-    print(f"[slice {label}] max |card - cpu| wav {err} (tolerance {SLICE_TOL}); "
-          f"{cfg.loss} loss card {loss} cpu {cpu_loss}")
-    assert err <= SLICE_TOL, err
-    assert np.isfinite(loss) and abs(loss - cpu_loss) <= 1e-3 * max(1.0, abs(cpu_loss))
-
     reps = 10
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -1322,27 +1645,52 @@ def phase_slice(workdir: Path, label: str, cfg, sd, per_forward: dict, cli_args)
           f"{B / per_batch:.2f} utt/s, real-time factor {per_batch / (B * seconds):.6f}, "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     _profile(lambda: enhance_batch(model, noisy), steps=3)
-    if cli_args is None:
-        return launches, wav.cpu()
 
-    # the enhance CLI on the card, against the same weights in process
-    ckpt = save_reference_checkpoint(str(workdir / f"{label}.pt"), sd)
-    n = noisy.shape[1]  # 48000: files of 3, 2.5 and 1.25 s
-    lengths = {"a.wav": n, "b.wav": n * 5 // 6, "c.wav": n * 5 // 12}
-    for i, (name, L) in enumerate(lengths.items()):
-        write_wav(str(workdir / name), noisy[i, :L], fs)
-    out_dir = workdir / f"enhanced-{label}"
-    cmd = [sys.executable, "-m", "se_tpu_torch.enhance", "--checkpoint", ckpt, *cli_args,
-           "--batch", "2", "--device", "cuda",
-           *[str(workdir / n) for n in lengths], "--out-dir", str(out_dir)]
-    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
-    print(r.stdout.strip())
-    assert r.returncode == 0, r.stderr[-3000:]
-    worst = 0.0
+    # the enhance CLI on the card, against the same weights in process; it
+    # runs in its own process while this one runs the CPU on the same weights
+    proc = None
+    if cli_args is not None:
+        ckpt = save_reference_checkpoint(str(workdir / f"{label}.pt"), sd)
+        n = noisy.shape[1]  # 48000: files of 3, 2.5 and 1.25 s
+        lengths = {"a.wav": n, "b.wav": n * 5 // 6, "c.wav": n * 5 // 12}
+        for i, (name, L) in enumerate(lengths.items()):
+            write_wav(str(workdir / name), noisy[i, :L], fs)
+        out_dir = workdir / f"enhanced-{label}"
+        cmd = [sys.executable, "-m", "se_tpu_torch.enhance", "--checkpoint", ckpt, *cli_args,
+               "--batch", "2", "--device", "cuda",
+               *[str(workdir / n) for n in lengths], "--out-dir", str(out_dir)]
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+    try:
+        cpu_model = build_model(cfg, device="cpu")
+        cpu_model.load_state_dict(sd, strict=True)
+        cpu_metrics, cpu_wav = eval_step(cfg, cpu_model, noisy, clean)
+        err = _max_err(wav.cpu(), cpu_wav)
+        mean_err = (wav.cpu() - cpu_wav).abs().mean().item()
+        loss, cpu_loss = metrics["loss"].item(), cpu_metrics["loss"].item()
+        bf16 = cfg.compute_dtype == "bfloat16"
+        tol, mean_tol, loss_tol = ((BF16_SLICE_TOL, BF16_SLICE_MEAN_TOL, BF16_LOSS_TOL) if bf16
+                                   else (SLICE_TOL, SLICE_TOL, 1e-3))
+        loss_err = abs(loss - cpu_loss) / max(1.0, abs(cpu_loss))
+        print(f"[slice {label}] |card - cpu| wav max {err} (tolerance {tol}), mean {mean_err} "
+              f"(tolerance {mean_tol}); {cfg.loss} loss card {loss} cpu {cpu_loss}: relative "
+              f"{loss_err} (tolerance {loss_tol})")
+        assert err <= tol and mean_err <= mean_tol, (err, mean_err)
+        assert np.isfinite(loss) and loss_err <= loss_tol, (loss, cpu_loss)
+        if proc is None:
+            return launches, wav.cpu()
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    print(stdout.strip())
+    assert proc.returncode == 0, stderr[-3000:]
     # FullSubNet with an offline norm (an utterance-global statistic) needs
     # room for fft_len / 2 reflected samples past the end
     offline = cfg.model == "FullSubNet" and cfg.fullsubnet.norm_type.startswith("offline")
     margin = cfg.stft.fft_len // 2 if offline else 0
+    bufs = {}
     for name, L in lengths.items():
         # the buffer the CLI should build, made here on its own: zero padded
         # to whole seconds; with the offline norm, the first fft_len / 2 pad
@@ -1355,26 +1703,57 @@ def phase_slice(workdir: Path, label: str, cfg, sd, per_forward: dict, cli_args)
         if margin:
             buf[L : L + margin] = x[L - 1 - margin : L - 1][::-1]
             frames = np.array([1 + L // cfg.stft.torch_hop])
-        want = enhance_batch(model, buf[None], valid_frames=frames)[0, :L].cpu().numpy()
-        want = np.clip(want * 32768, -32768, 32767).astype(np.int16) / 32768.0
+        bufs[name] = buf, frames
+    # the CLI's own batches: files of one buffer length in argument order, two
+    # rows a batch, the last padded by repeating its last row
+    by_length, batched = {}, {}
+    for name, (buf, _) in bufs.items():
+        by_length.setdefault(len(buf), []).append(name)
+    for names in by_length.values():
+        for i in range(0, len(names), 2):
+            rows = names[i : i + 2] + names[i : i + 2][-1:] * (2 - len(names[i : i + 2]))
+            frames = None if margin == 0 else np.concatenate([bufs[n][1] for n in rows])
+            y = enhance_batch(model, np.stack([bufs[n][0] for n in rows]), valid_frames=frames)
+            batched.update(zip(names[i : i + 2], y.cpu().numpy()))
+    to_int16 = lambda y: np.clip(y * 32768, -32768, 32767).astype(np.int16) / 32768.0
+    worst_batch = worst_single = 0.0
+    for name, L in lengths.items():
+        buf, frames = bufs[name]
+        single = enhance_batch(model, buf[None], valid_frames=frames)[0, :L].cpu().numpy()
         got = read_wav(str(out_dir / name))[0]
         assert got.shape == (L,), got.shape
-        worst = max(worst, float(np.abs(got - want).max()))
-    print(f"[cli {label}] {' '.join(cli_args)}: max |CLI - in-process| {worst * 32768:.1f} LSB "
-          f"(tolerance 2 LSB)")
-    assert worst <= CLI_TOL, worst
+        worst_batch = max(worst_batch, float(np.abs(got - to_int16(batched[name][:L])).max()))
+        worst_single = max(worst_single, float(np.abs(got - to_int16(single)).max()))
+    # a row's bf16 result depends on its batch's size: cuDNN picks its
+    # algorithms by shape, and where two f32 sums differ in their last bit a
+    # bf16 rounding tips, as between two devices
+    single_tol = BF16_SLICE_TOL if cfg.compute_dtype == "bfloat16" else CLI_TOL
+    print(f"[cli {label}] {' '.join(cli_args)}: max |CLI - in-process| on the CLI's batches "
+          f"{worst_batch * 32768:.1f} LSB (tolerance 2 LSB), one row at a time "
+          f"{worst_single * 32768:.1f} LSB (tolerance {single_tol * 32768:.0f} LSB)")
+    assert worst_batch <= CLI_TOL and worst_single <= single_tol, (worst_batch, worst_single)
     return launches, wav.cpu()
 
 
 def main() -> int:
+    t0 = time.perf_counter()
+
+    def stamp(what):
+        print(f"[time] {what} done at {time.perf_counter() - t0:.1f} s", flush=True)
+
     smi = phase_environment()
     phase_build()
     fwd = phase_lstm_kernel()
     bwd, stash_times = phase_lstm_backward()
     k2f, k2b = phase_inproj_kernels()
+    stamp("K1, K2")
+    k1f16, k1b16, k2f16, k2b16 = phase_bf16_kernels()
+    stamp("K1, K2 bf16")
     k3f, k3b = phase_gru_kernels()
     k4 = phase_conv_kernel()
+    stamp("K3, K4")
     p1, p2, p3 = phase_probes()
+    stamp("probes")
     paths = _paths()
     build_dir = REPO / "build"
     build_dir.mkdir(exist_ok=True)
@@ -1383,20 +1762,34 @@ def main() -> int:
         for label, (cfg, sd, per_fwd, _, cli_args) in paths.items():
             enhanced[label], waves[label] = phase_slice(Path(tmp), label, cfg, sd, per_fwd,
                                                         cli_args)
+            stamp(f"slice {label}")
     err = _max_err(waves["DCCRN-fused-conv"], waves["DCCRN"])
     print(f"[slice DCCRN-fused-conv] max |K4 encoder - cuDNN block-form encoder| wav {err} "
           f"(tolerance {SLICE_TOL})")
     assert err <= SLICE_TOL, err
+    for label in ("DCCRN", "CRN", "DCCRN-real"):
+        diff = (waves[f"{label}-bf16"] - waves[label]).abs()
+        print(f"[slice {label}-bf16] |bf16 - f32| wav on the card, same weights and input: mean "
+              f"{diff.mean().item()} (tolerance {BF16_VS_F32_MEAN}), max {diff.max().item()}")
+        assert diff.mean().item() < BF16_VS_F32_MEAN, diff.mean().item()
     trained = {}
-    for label, full in (("DCCRN", True), ("CRN", True), ("DCCRN-real", False),
-                        ("FullSubNet", True), ("FullSubNet-GRU", True),
-                        ("DCCRN-fused-conv", True)):
+    # DCCRN-fused-conv's main path runs 3 steps, not 10, to keep the script
+    # within its time with the bf16 paths added
+    for label, steps in (("DCCRN", 10), ("CRN", 10), ("DCCRN-real", 0), ("FullSubNet", 10),
+                         ("FullSubNet-GRU", 10), ("DCCRN-fused-conv", 3), ("DCCRN-bf16", 10),
+                         ("CRN-bf16", 10), ("DCCRN-real-bf16", 10)):
         cfg, sd, per_fwd, per_bwd, _ = paths[label]
-        trained[label] = phase_train(label, cfg, sd, per_fwd, per_bwd, full)
+        trained[label] = phase_train(label, cfg, sd, per_fwd, per_bwd, steps)
+        stamp(f"train {label}")
+    # DCCRN-bf16's main path once more with Adam's first moment in bf16
+    cfg, sd, per_fwd, per_bwd, _ = paths["DCCRN-bf16"]
+    mu_cfg = cfg.replace(train=dataclasses.replace(cfg.train, adam_mu_dtype="bfloat16"))
+    trained["DCCRN-bf16-adam-mu"] = (None, _train_steps("DCCRN-bf16 adam_mu_dtype=bfloat16",
+                                                        mu_cfg, sd, {**per_fwd, **per_bwd}))
     cfg, sd, per_fwd, per_bwd, _ = paths["CRN"]
     trained["CRN-direct"] = phase_train(
         "CRN-direct", cfg.replace(masking_mode="Direct(None make)"), sd, per_fwd, per_bwd,
-        full=False)
+        steps=0)
 
     k2_paths = ("CRN", "DCCRN-real", "FullSubNet")
     k1_paths = ("DCCRN", "DCCRN-fused-conv")
@@ -1421,9 +1814,22 @@ def main() -> int:
     k4.update(launches=enhanced["DCCRN-fused-conv"]["K4"],
               launches_per_forward=enhanced["DCCRN-fused-conv"]["K4"],
               launches_per_train_step=trained["DCCRN-fused-conv"][0]["K4"],
-              launches_in_10_train_steps=trained["DCCRN-fused-conv"][1]["K4"])
+              launches_in_3_train_steps=trained["DCCRN-fused-conv"][1]["K4"])
+    k1f16.update(launches=enhanced["DCCRN-bf16"]["K1f-bf16"],
+                 launches_per_forward=enhanced["DCCRN-bf16"]["K1f-bf16"],
+                 launches_per_train_step=trained["DCCRN-bf16"][0]["K1f-bf16"])
+    k1b16.update(launches=trained["DCCRN-bf16"][1]["K1b-bf16"],
+                 launches_per_train_step=trained["DCCRN-bf16"][0]["K1b-bf16"],
+                 launches_in_10_steps_adam_mu_bf16=trained["DCCRN-bf16-adam-mu"][1]["K1b-bf16"])
+    k2f16.update(launches=enhanced["CRN-bf16"]["K2f-bf16"],
+                 launches_per_forward=enhanced["CRN-bf16"]["K2f-bf16"],
+                 launches_per_train_step=trained["CRN-bf16"][0]["K2f-bf16"])
+    k2b16.update(launches=trained["CRN-bf16"][1]["K2b-bf16"],
+                 launches_per_train_step=trained["CRN-bf16"][0]["K2b-bf16"])
+    stamp("every check")
     print(smi)
-    print(json.dumps({"kernels": [fwd, bwd, k2f, k2b, k3f, k3b, k4, p1, p2, p3]}))
+    print(json.dumps({"kernels": [fwd, bwd, k2f, k2b, k3f, k3b, k4, p1, p2, p3,
+                                  k1f16, k1b16, k2f16, k2b16]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

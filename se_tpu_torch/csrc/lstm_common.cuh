@@ -8,14 +8,24 @@
 // block's row count R as a template argument (K1 and K2 use kRows; K3
 // also 8).
 //
+// The bf16-stream forms of K1 and K2 (pallas_lstm.py:13-14) read their
+// input stream, ys and dys as bf16 and write ys and the input gradient as
+// bf16; everything else stays f32.  The helpers that touch a stream take
+// its element type as a template argument (float or __nv_bfloat16): to_f32
+// and store_as convert at the load and the store, and are the identity for
+// float, so an f32 instance compiles to the code it had before the type
+// became a parameter.
+//
 // Transcendentals use expf/tanhf (no fast-math) to stay within 1e-5 of the
 // plain PyTorch recurrence per step.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
 
 #include "error_string.cuh"
 
@@ -28,31 +38,44 @@ __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
+// A stream element as f32, and an f32 value stored into a stream (bf16:
+// rounded to nearest even, as JAX's astype).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <typename T>
+constexpr bool kIsF32 = std::is_same<T, float>::value;
+
 // xc_s[c][k][r] = x[t0 + c, l, b0 + r, k] for c < n and r < rows, else 0:
 // the C steps of a chunk of the in-projection scans, R rows a block, staged
-// as [C][In][R] so that a step's R rows at one k are adjacent.
-template <int R, int C>
-__device__ __forceinline__ void stage_chunk(float* xc_s, const float* __restrict__ x,
+// as [C][In][R] so that a step's R rows at one k are adjacent; x is f32 or
+// bf16, the staged copy f32.
+template <int R, int C, typename TX = float>
+__device__ __forceinline__ void stage_chunk(float* xc_s, const TX* __restrict__ x,
                                             int t0, int n, int L, int Bb, int l,
                                             int b0, int rows, int In) {
   for (int idx = threadIdx.x; idx < C * R * In; idx += blockDim.x) {
     const int c = idx / (R * In), r = (idx / In) % R, k = idx % In;
     float v = 0.f;
     if (c < n && r < rows) {
-      v = x[((static_cast<size_t>(t0 + c) * L + l) * Bb + b0 + r) * In + k];
+      v = to_f32(x[((static_cast<size_t>(t0 + c) * L + l) * Bb + b0 + r) * In + k]);
     }
     xc_s[(c * In + k) * R + r] = v;
   }
 }
 
 // dst[k][r] = src[r][k] for r < rows, 0 for the rows past the batch edge;
-// src is `rows` consecutive rows of K floats.
-template <int R>
-__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src,
+// src is `rows` consecutive rows of K values (f32 or bf16), dst f32.
+template <int R, typename TS = float>
+__device__ __forceinline__ void stage_rows(float* dst, const TS* __restrict__ src,
                                            int rows, int K) {
   for (int idx = threadIdx.x; idx < R * K; idx += blockDim.x) {
     const int r = idx / K, k = idx % K;
-    dst[k * R + r] = r < rows ? src[static_cast<size_t>(r) * K + k] : 0.f;
+    dst[k * R + r] = r < rows ? to_f32(src[static_cast<size_t>(r) * K + k]) : 0.f;
   }
 }
 
@@ -217,8 +240,12 @@ __device__ __forceinline__ void dh_rows(const float* __restrict__ w,
 // a0 = h0, K = H).  dg's rows are ldg floats apart and dw's ldw, so G
 // columns of a wider gate row can be summed (the GRU's r, z and n slices
 // come from two buffers).  Rows are summed in one fixed order and no
-// atomics, so two calls give the same bits.
-__global__ void lstm_dw_kernel(const float* __restrict__ a,
+// atomics, so two calls give the same bits.  The row operand a is f32 or
+// bf16 (the bf16-stream forms' x and ys), a0 and the dgates dg f32: the
+// bf16 forms sum dW from the f32 gate gradients, as pallas_lstm.py:144-153
+// and :400-420 do, never from a rounded copy.
+template <typename TA>
+__global__ void lstm_dw_kernel(const TA* __restrict__ a,
                                const float* __restrict__ a0,
                                const float* __restrict__ dg, int ldg,
                                float* __restrict__ dw, int ldw,
@@ -243,9 +270,9 @@ __global__ void lstm_dw_kernel(const float* __restrict__ a,
         const size_t row = (static_cast<size_t>(t) * L + l) * Bb + bb;
         if (k0 + c < K) {
           if (!shift) {
-            av = a[row * K + k0 + c];
+            av = to_f32(a[row * K + k0 + c]);
           } else {
-            av = t > 0 ? a[(row - static_cast<size_t>(L) * Bb) * K + k0 + c]
+            av = t > 0 ? to_f32(a[(row - static_cast<size_t>(L) * Bb) * K + k0 + c])
                        : a0[(static_cast<size_t>(l) * Bb + bb) * K + k0 + c];
           }
         }
@@ -277,11 +304,12 @@ __global__ void lstm_dw_kernel(const float* __restrict__ a,
 }
 
 // Launches lstm_dw_kernel for G columns of stacks [L, K, ldw] on stream s.
-cudaError_t launch_dw(const float* a, const float* a0, const float* dg, int ldg, float* dw,
+template <typename TA>
+cudaError_t launch_dw(const TA* a, const float* a0, const float* dg, int ldg, float* dw,
                       int ldw, int T, int L, int Bb, int K, int G, int shift,
                       cudaStream_t s) {
   const dim3 grid((G + kTile - 1) / kTile, (K + kTile - 1) / kTile, L);
-  lstm_dw_kernel<<<grid, dim3(16, 16), 0, s>>>(a, a0, dg, ldg, dw, ldw, T, L, Bb, K, G,
+  lstm_dw_kernel<TA><<<grid, dim3(16, 16), 0, s>>>(a, a0, dg, ldg, dw, ldw, T, L, Bb, K, G,
                                                shift);
   return cudaGetLastError();
 }
@@ -289,10 +317,12 @@ cudaError_t launch_dw(const float* a, const float* a0, const float* dg, int ldg,
 // dx[t, l, b, k] = sum_g dg[t, l, b, g] * w_ih_t[l][k][g], for a kTile x
 // kTile tile (rows n0 = t * Bb + b .., units k0 ..) of stack l per block;
 // 16 x 16 threads, each owning a 2 x 2 block of outputs.  The sum over g
-// runs in one fixed order.
+// runs in one fixed order.  dx is f32, or bf16 in the bf16-stream forms
+// (the sum in f32, rounded once at the store, as pallas_lstm.py:397).
+template <typename TO>
 __global__ void lstm_inproj_dx_kernel(const float* __restrict__ dg,
                                       const float* __restrict__ wih_t,
-                                      float* __restrict__ dx,
+                                      TO* __restrict__ dx,
                                       int T, int L, int Bb, int In, int G) {
   __shared__ float a_s[kTile][kTile + 1];  // [row][g]
   __shared__ float w_s[kTile][kTile + 1];  // [k][g]
@@ -336,16 +366,17 @@ __global__ void lstm_inproj_dx_kernel(const float* __restrict__ dg,
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int n = n0 + ty + 16 * i, k = k0 + tx + 16 * j;
-      if (n < N && k < In) dx[row_of(n) * In + k] = acc[i][j];
+      if (n < N && k < In) store_as(dx + row_of(n) * In + k, acc[i][j]);
     }
   }
 }
 
 // Launches lstm_inproj_dx_kernel: dx [T, L, Bb, In] = dg [T, L, Bb, G] @ w_ih_t[l]^T.
-cudaError_t launch_dx(const float* dg, const float* wih_t, float* dx, int T, int L, int Bb,
+template <typename TO>
+cudaError_t launch_dx(const float* dg, const float* wih_t, TO* dx, int T, int L, int Bb,
                       int In, int G, cudaStream_t s) {
   const dim3 grid((T * Bb + kTile - 1) / kTile, (In + kTile - 1) / kTile, L);
-  lstm_inproj_dx_kernel<<<grid, dim3(16, 16), 0, s>>>(dg, wih_t, dx, T, L, Bb, In, G);
+  lstm_inproj_dx_kernel<TO><<<grid, dim3(16, 16), 0, s>>>(dg, wih_t, dx, T, L, Bb, In, G);
   return cudaGetLastError();
 }
 

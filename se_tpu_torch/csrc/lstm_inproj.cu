@@ -78,6 +78,16 @@
 // dh pass and the dx, dW and dbias reductions come from lstm_common.cuh,
 // shared with lstm_scan.cu, gru_inproj.cu and wavefront_lstm.cu.
 //
+// The bf16-stream form (pallas_lstm.py:13-14; the kernels' :318-321, :334,
+// :397 and :553) takes x, and gives ys, as bf16, and in the backward takes
+// ys and dys as bf16 and gives dx as bf16.  x is upcast as it is staged
+// and projected in f32 with the f32 W_ih, as the Pallas kernel does; the
+// carry, the gates, the stash cs, the dgates scratch and the weight and
+// bias gradients stay f32 (dW_ih sums the upcast x, dW_hh the rounded ys
+// the backward recomputes from, :361).  Each stream value is converted at
+// its load or store (to_f32, store_as in lstm_common.cuh), so the f32 form
+// compiles as before.
+//
 // The bound probe (P1; se_tpu_torch/probes/bound_probe.py, replacing the
 // Pallas kernel of tools/bound_probe.py:43-138) is this forward kernel
 // with its phase 2 swapped at compile time (the template argument M): the
@@ -141,15 +151,15 @@ __device__ __forceinline__ float cell_mode(const float* g, int H, int j, float c
   }
 }
 
-template <int C, int M>
+template <int C, int M, typename TS = float>
 __global__ void __launch_bounds__(kMaxThreads)
-lstm_inproj_fwd_kernel(const float* __restrict__ x,
+lstm_inproj_fwd_kernel(const TS* __restrict__ x,
                        const float* __restrict__ wih_t,
                        const float* __restrict__ bias,
                        const float* __restrict__ whh_t,
                        const float* __restrict__ h0,
                        const float* __restrict__ c0,
-                       float* __restrict__ ys,
+                       TS* __restrict__ ys,
                        float* __restrict__ cs,
                        float* __restrict__ hT,
                        float* __restrict__ cT,
@@ -206,7 +216,7 @@ lstm_inproj_fwd_kernel(const float* __restrict__ x,
         const float cn = cell_mode<M>(g_s + r * G, H, j, c_s[r * H + j], &h);
         c_s[r * H + j] = cn;
         h_s[j * kRows + r] = h;
-        ys[(row0 + r) * H + j] = h;
+        store_as(ys + (row0 + r) * H + j, h);
         if (cs != nullptr) cs[(row0 + r) * H + j] = cn;
       }
       __syncthreads();
@@ -221,17 +231,17 @@ lstm_inproj_fwd_kernel(const float* __restrict__ x,
   }
 }
 
-template <int C>
+template <int C, typename TS = float>
 __global__ void __launch_bounds__(kMaxThreads)
-lstm_inproj_bwd_kernel(const float* __restrict__ x,
+lstm_inproj_bwd_kernel(const TS* __restrict__ x,
                        const float* __restrict__ wih_t,
                        const float* __restrict__ bias,
                        const float* __restrict__ whh_t,
                        const float* __restrict__ h0,
                        const float* __restrict__ c0,
-                       const float* __restrict__ ys,
+                       const TS* __restrict__ ys,
                        const float* __restrict__ cs,
-                       const float* __restrict__ dys,
+                       const TS* __restrict__ dys,
                        const float* __restrict__ dhT,
                        const float* __restrict__ dcT,
                        float* __restrict__ dh0,
@@ -257,10 +267,17 @@ lstm_inproj_bwd_kernel(const float* __restrict__ x,
   const float* b = bias + static_cast<size_t>(l) * G;
   const size_t state0 = static_cast<size_t>(l) * Bb + b0;  // row of h0/c0/dh0/dc0
 
-  // rows [L, Bb, *] of step t's h_prev: ys[t-1], or h0 at t = 0
-  auto h_prev_rows = [&](int t) {
-    return t > 0 ? ys + ((static_cast<size_t>(t - 1) * L + l) * Bb + b0) * H
-                 : h0 + state0 * H;
+  // stages step t's h_prev, rows [L, Bb, *] of ys[t-1] or h0 at t = 0
+  // (in the bf16 form ys and h0 differ in type)
+  auto stage_h_prev = [&](int t) {
+    if constexpr (kIsF32<TS>) {
+      stage_rows<kRows>(h_s, t > 0 ? ys + ((static_cast<size_t>(t - 1) * L + l) * Bb + b0) * H
+                                   : h0 + state0 * H, rows, H);
+    } else if (t > 0) {
+      stage_rows<kRows>(h_s, ys + ((static_cast<size_t>(t - 1) * L + l) * Bb + b0) * H, rows, H);
+    } else {
+      stage_rows<kRows>(h_s, h0 + state0 * H, rows, H);
+    }
   };
 
   // carries in; gate rows past the batch edge hold the projection of zero
@@ -276,7 +293,7 @@ lstm_inproj_bwd_kernel(const float* __restrict__ x,
     dh_s[r * H + j] = dh;
     dc_s[r * H + j] = dc;
   }
-  stage_rows<kRows>(h_s, h_prev_rows(T - 1), rows, H);
+  stage_h_prev(T - 1);
 
   for (int t0 = (T - 1) / C * C; t0 >= 0; t0 -= C) {
     const int n = min(C, T - t0);
@@ -302,14 +319,14 @@ lstm_inproj_bwd_kernel(const float* __restrict__ x,
         const size_t o = (row0 + r) * H + j;
         dc_s[r * H + j] = cell_backward(g_s + r * G, dg + (row0 + r) * G, H, j,
                                         c_prev[r * H + j], cs[o],
-                                        dys[o] + dh_s[r * H + j], dc_s[r * H + j]);
+                                        to_f32(dys[o]) + dh_s[r * H + j], dc_s[r * H + j]);
       }
       __syncthreads();
 
       // phase 3: dh carry = dgates @ W_hh[l]^T, one warp per unit k; then
       // stage step t-1's h_prev (phase 3 does not read h_s)
       dh_rows(whh, g_s, dh_s, rows, H, G);
-      if (t > 0) stage_rows<kRows>(h_s, h_prev_rows(t - 1), rows, H);
+      if (t > 0) stage_h_prev(t - 1);
       __syncthreads();
     }
 
@@ -339,18 +356,18 @@ int chunk_steps(size_t per_step, size_t fixed) {
   return 0;
 }
 
-template <int C, int M = kReal>
-cudaError_t launch_fwd(const float* x, const float* wih_t, const float* bias,
+template <int C, int M = kReal, typename TS = float>
+cudaError_t launch_fwd(const TS* x, const float* wih_t, const float* bias,
                        const float* whh_t, const float* h0, const float* c0,
-                       float* ys, float* cs, float* hT, float* cT,
+                       TS* ys, float* cs, float* hT, float* cT,
                        int T, int L, int Bb, int In, int H, cudaStream_t s) {
   const int G = 4 * H;
   const size_t smem = sizeof(float) * (static_cast<size_t>(C) * kRows * (In + G) +
                                        static_cast<size_t>(2) * H * kRows);
-  cudaError_t err = allow_smem(lstm_inproj_fwd_kernel<C, M>, smem);
+  cudaError_t err = allow_smem(lstm_inproj_fwd_kernel<C, M, TS>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Bb + kRows - 1) / kRows, L);
-  lstm_inproj_fwd_kernel<C, M><<<grid, scan_threads(H), smem, s>>>(
+  lstm_inproj_fwd_kernel<C, M, TS><<<grid, scan_threads(H), smem, s>>>(
       x, wih_t, bias, whh_t, h0, c0, ys, cs, hT, cT, T, L, Bb, In, H);
   return cudaGetLastError();
 }
@@ -369,23 +386,65 @@ cudaError_t launch_probe(int mode, const float* x, const float* wih_t, const flo
   }
 }
 
-template <int C>
-cudaError_t launch_bwd(const float* x, const float* wih_t, const float* bias,
+template <int C, typename TS>
+cudaError_t launch_bwd(const TS* x, const float* wih_t, const float* bias,
                        const float* whh_t, const float* h0, const float* c0,
-                       const float* ys, const float* cs, const float* dys,
+                       const TS* ys, const float* cs, const TS* dys,
                        const float* dhT, const float* dcT, float* dh0,
                        float* dc0, float* dg, int T, int L, int Bb, int In, int H,
                        cudaStream_t s) {
   const int G = 4 * H;
   const size_t smem = sizeof(float) * (static_cast<size_t>(C) * kRows * (In + G) +
                                        static_cast<size_t>(3) * H * kRows);
-  cudaError_t err = allow_smem(lstm_inproj_bwd_kernel<C>, smem);
+  cudaError_t err = allow_smem(lstm_inproj_bwd_kernel<C, TS>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Bb + kRows - 1) / kRows, L);
-  lstm_inproj_bwd_kernel<C><<<grid, scan_threads(H), smem, s>>>(
+  lstm_inproj_bwd_kernel<C, TS><<<grid, scan_threads(H), smem, s>>>(
       x, wih_t, bias, whh_t, h0, c0, ys, cs, dys, dhT, dcT, dh0, dc0, dg,
       T, L, Bb, In, H);
   return cudaGetLastError();
+}
+
+template <typename TS>
+int inproj_fwd(const TS* x, const float* wih_t, const float* bias, const float* whh_t,
+               const float* h0, const float* c0, TS* ys, float* cs, float* hT, float* cT,
+               int T, int L, int Bb, int In, int H, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (chunk_steps(static_cast<size_t>(kRows) * (In + 4 * H),
+                      static_cast<size_t>(2) * H * kRows)) {
+    case 8: err = launch_fwd<8, kReal, TS>(x, wih_t, bias, whh_t, h0, c0, ys, cs, hT, cT, T, L, Bb, In, H, s); break;
+    case 4: err = launch_fwd<4, kReal, TS>(x, wih_t, bias, whh_t, h0, c0, ys, cs, hT, cT, T, L, Bb, In, H, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+template <typename TS>
+int inproj_bwd(const TS* x, const float* wih_t, const float* bias, const float* whh_t,
+               const float* h0, const float* c0, const TS* ys, const float* cs,
+               const TS* dys, const float* dhT, const float* dcT, TS* dx, float* dwih_t,
+               float* dbias, float* dwhh_t, float* dh0, float* dc0, float* dg,
+               int T, int L, int Bb, int In, int H, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int G = 4 * H;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (chunk_steps(static_cast<size_t>(kRows) * (In + G),
+                      static_cast<size_t>(3) * H * kRows)) {
+    case 8: err = launch_bwd<8, TS>(x, wih_t, bias, whh_t, h0, c0, ys, cs, dys, dhT, dcT, dh0, dc0, dg, T, L, Bb, In, H, s); break;
+    case 4: err = launch_bwd<4, TS>(x, wih_t, bias, whh_t, h0, c0, ys, cs, dys, dhT, dcT, dh0, dc0, dg, T, L, Bb, In, H, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_dx(dg, wih_t, dx, T, L, Bb, In, G, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_dw(x, nullptr, dg, G, dwih_t, G, T, L, Bb, In, G, 0, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_dw(ys, h0, dg, G, dwhh_t, G, T, L, Bb, H, G, 1, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_dbias(dg, G, dbias, G, T, L, Bb, G, s));
 }
 
 }  // namespace
@@ -402,16 +461,19 @@ extern "C" int se_lstm_inproj_fwd_f32(const float* x, const float* wih_t,
                                       float* ys, float* cs, float* hT, float* cT,
                                       int T, int L, int Bb, int In, int H,
                                       int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (chunk_steps(static_cast<size_t>(kRows) * (In + 4 * H),
-                      static_cast<size_t>(2) * H * kRows)) {
-    case 8: err = launch_fwd<8>(x, wih_t, bias, whh_t, h0, c0, ys, cs, hT, cT, T, L, Bb, In, H, s); break;
-    case 4: err = launch_fwd<4>(x, wih_t, bias, whh_t, h0, c0, ys, cs, hT, cT, T, L, Bb, In, H, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return inproj_fwd(x, wih_t, bias, whh_t, h0, c0, ys, cs, hT, cT, T, L, Bb, In, H,
+                    device, stream);
+}
+
+// The bf16-stream forward: x and ys bf16, the rest as se_lstm_inproj_fwd_f32.
+extern "C" int se_lstm_inproj_fwd_bf16(const __nv_bfloat16* x, const float* wih_t,
+                                       const float* bias, const float* whh_t,
+                                       const float* h0, const float* c0,
+                                       __nv_bfloat16* ys, float* cs, float* hT, float* cT,
+                                       int T, int L, int Bb, int In, int H,
+                                       int device, void* stream) {
+  return inproj_fwd(x, wih_t, bias, whh_t, h0, c0, ys, cs, hT, cT, T, L, Bb, In, H,
+                    device, stream);
 }
 
 // Launches the bound probe's forward (one stack: x [T, Bb, In], w_ih_t
@@ -442,8 +504,9 @@ extern "C" int se_lstm_inproj_probe_f32(const float* x, const float* wih_t,
 // Launches the backward: the reverse scan (dh0, dc0 and the dgates
 // scratch `dg` [T, L, Bb, 4H]), then the dx product and the dW_ih, dW_hh
 // and dbias reductions that read it, all on `stream`.  Returns the first
-// cudaError_t (0 on success; cudaErrorInvalidValue as for the forward).  Shapes as above; every pointer is a device pointer to a
-// contiguous f32 array, none may be null.
+// cudaError_t (0 on success; cudaErrorInvalidValue as for the forward).
+// Shapes as above; every pointer is a device pointer to a contiguous f32
+// array, none may be null.
 extern "C" int se_lstm_inproj_bwd_f32(const float* x, const float* wih_t,
                                       const float* bias, const float* whh_t,
                                       const float* h0, const float* c0,
@@ -454,22 +517,22 @@ extern "C" int se_lstm_inproj_bwd_f32(const float* x, const float* wih_t,
                                       float* dc0, float* dg,
                                       int T, int L, int Bb, int In, int H,
                                       int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int G = 4 * H;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (chunk_steps(static_cast<size_t>(kRows) * (In + G),
-                      static_cast<size_t>(3) * H * kRows)) {
-    case 8: err = launch_bwd<8>(x, wih_t, bias, whh_t, h0, c0, ys, cs, dys, dhT, dcT, dh0, dc0, dg, T, L, Bb, In, H, s); break;
-    case 4: err = launch_bwd<4>(x, wih_t, bias, whh_t, h0, c0, ys, cs, dys, dhT, dcT, dh0, dc0, dg, T, L, Bb, In, H, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_dx(dg, wih_t, dx, T, L, Bb, In, G, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_dw(x, nullptr, dg, G, dwih_t, G, T, L, Bb, In, G, 0, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_dw(ys, h0, dg, G, dwhh_t, G, T, L, Bb, H, G, 1, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_dbias(dg, G, dbias, G, T, L, Bb, G, s));
+  return inproj_bwd(x, wih_t, bias, whh_t, h0, c0, ys, cs, dys, dhT, dcT, dx, dwih_t, dbias,
+                    dwhh_t, dh0, dc0, dg, T, L, Bb, In, H, device, stream);
+}
+
+// The bf16-stream backward: x, ys, dys and dx bf16, the rest (the dgates
+// scratch too) f32 as in se_lstm_inproj_bwd_f32.
+extern "C" int se_lstm_inproj_bwd_bf16(const __nv_bfloat16* x, const float* wih_t,
+                                       const float* bias, const float* whh_t,
+                                       const float* h0, const float* c0,
+                                       const __nv_bfloat16* ys, const float* cs,
+                                       const __nv_bfloat16* dys, const float* dhT,
+                                       const float* dcT, __nv_bfloat16* dx, float* dwih_t,
+                                       float* dbias, float* dwhh_t, float* dh0,
+                                       float* dc0, float* dg,
+                                       int T, int L, int Bb, int In, int H,
+                                       int device, void* stream) {
+  return inproj_bwd(x, wih_t, bias, whh_t, h0, c0, ys, cs, dys, dhT, dcT, dx, dwih_t, dbias,
+                    dwhh_t, dh0, dc0, dg, T, L, Bb, In, H, device, stream);
 }

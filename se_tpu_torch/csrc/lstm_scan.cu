@@ -58,15 +58,29 @@
 //
 // The backward's gate math, the gate product, the dh pass and the dW
 // reduction are shared with lstm_inproj.cu through lstm_common.cuh.
+//
+// The bf16-stream form (pallas_lstm.py:13-14; the kernels' :69, :86, :133)
+// takes x_proj, and gives ys, as bf16, and in the backward takes ys and
+// dys as bf16 and gives dx_proj as bf16: each value is converted at its
+// load or store (to_f32, store_as), so the carry, the gates, the stash cs
+// and every sum stay f32, and the f32 form compiles as before.  The carry h
+// stays f32 from step to step; only its copy in ys is rounded.  The
+// backward recomputes the gates from the rounded ys[t-1], as the Pallas
+// backward does (:105).  Its dW_hh sums the f32 dgates (:144-153), so the
+// bf16 form writes them to an f32 scratch buffer [T, L, Bb, 4H] that
+// lstm_dw_kernel reads, and writes dx_proj rounded beside it; the f32 form
+// reads dx_proj itself.  What bounds the kernels does not change: the
+// bf16 stream halves bytes that were never the limit.
 
 #include "lstm_common.cuh"
 
 namespace {
 
 // gates[r][col] = xp_t[r][col] + sum_k h_s[k][r] * w[k][col] for the
-// tile's rows; h_s is [H][kRows].
+// tile's rows; h_s is [H][kRows], xp_t f32 or bf16.
+template <typename TS>
 __device__ __forceinline__ void gate_columns(const float* __restrict__ w,
-                                             const float* __restrict__ xp_t,
+                                             const TS* __restrict__ xp_t,
                                              const float* h_s, float* g_s,
                                              int rows, int H, int G) {
   for (int col = threadIdx.x; col < G; col += blockDim.x) {
@@ -74,16 +88,17 @@ __device__ __forceinline__ void gate_columns(const float* __restrict__ w,
     dot_column(w, h_s, H, G, col, acc);
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      if (r < rows) g_s[r * G + col] = xp_t[static_cast<size_t>(r) * G + col] + acc[r];
+      if (r < rows) g_s[r * G + col] = to_f32(xp_t[static_cast<size_t>(r) * G + col]) + acc[r];
     }
   }
 }
 
-__global__ void lstm_scan_fwd_kernel(const float* __restrict__ xp,
+template <typename TS>
+__global__ void lstm_scan_fwd_kernel(const TS* __restrict__ xp,
                                      const float* __restrict__ whh_t,
                                      const float* __restrict__ h0,
                                      const float* __restrict__ c0,
-                                     float* __restrict__ ys,
+                                     TS* __restrict__ ys,
                                      float* __restrict__ cs,
                                      float* __restrict__ hT,
                                      float* __restrict__ cT,
@@ -140,7 +155,7 @@ __global__ void lstm_scan_fwd_kernel(const float* __restrict__ xp,
       const float h = og * tanhf(c);
       c_s[r * H + j] = c;
       h_s[j * kRows + r] = h;
-      ys[(row0 + r) * H + j] = h;
+      store_as(ys + (row0 + r) * H + j, h);
       if (cs != nullptr) cs[(row0 + r) * H + j] = c;
     }
     __syncthreads();
@@ -154,16 +169,20 @@ __global__ void lstm_scan_fwd_kernel(const float* __restrict__ xp,
   }
 }
 
-__global__ void lstm_scan_bwd_kernel(const float* __restrict__ xp,
+// dg receives the f32 dgates: dx_proj itself in the f32 form, the scratch
+// buffer in the bf16 form, which also writes them rounded to dxp.
+template <typename TS>
+__global__ void lstm_scan_bwd_kernel(const TS* __restrict__ xp,
                                      const float* __restrict__ whh_t,
                                      const float* __restrict__ h0,
                                      const float* __restrict__ c0,
-                                     const float* __restrict__ ys,
+                                     const TS* __restrict__ ys,
                                      const float* __restrict__ cs,
-                                     const float* __restrict__ dys,
+                                     const TS* __restrict__ dys,
                                      const float* __restrict__ dhT,
                                      const float* __restrict__ dcT,
-                                     float* __restrict__ dxp,
+                                     float* __restrict__ dg,
+                                     TS* __restrict__ dxp,
                                      float* __restrict__ dh0,
                                      float* __restrict__ dc0,
                                      int T, int L, int Bb, int H) {
@@ -200,15 +219,22 @@ __global__ void lstm_scan_bwd_kernel(const float* __restrict__ xp,
   for (int t = T - 1; t >= 0; --t) {
     const size_t row0 = (static_cast<size_t>(t) * L + l) * Bb + b0;
     // [L, Bb, H] rows of the previous step: ys/cs[t-1], or h0/c0 at t = 0
-    const float* h_prev = t > 0 ? ys + (row0 - static_cast<size_t>(L) * Bb) * H
-                                : h0 + (static_cast<size_t>(l) * Bb + b0) * H;
     const float* c_prev = t > 0 ? cs + (row0 - static_cast<size_t>(L) * Bb) * H
                                 : c0 + (static_cast<size_t>(l) * Bb + b0) * H;
 
-    // phase 0: h_prev into shared memory
-    for (int idx = tid; idx < kRows * H; idx += nthr) {
-      const int r = idx / H, j = idx % H;
-      h_s[j * kRows + r] = r < rows ? h_prev[r * H + j] : 0.f;
+    // phase 0: h_prev into shared memory (ys and h0 differ in type in the
+    // bf16 form)
+    if constexpr (kIsF32<TS>) {
+      const float* h_prev = t > 0 ? ys + (row0 - static_cast<size_t>(L) * Bb) * H
+                                  : h0 + (static_cast<size_t>(l) * Bb + b0) * H;
+      for (int idx = tid; idx < kRows * H; idx += nthr) {
+        const int r = idx / H, j = idx % H;
+        h_s[j * kRows + r] = r < rows ? h_prev[r * H + j] : 0.f;
+      }
+    } else if (t > 0) {
+      stage_rows<kRows>(h_s, ys + (row0 - static_cast<size_t>(L) * Bb) * H, rows, H);
+    } else {
+      stage_rows<kRows>(h_s, h0 + (static_cast<size_t>(l) * Bb + b0) * H, rows, H);
     }
     __syncthreads();
 
@@ -220,9 +246,15 @@ __global__ void lstm_scan_bwd_kernel(const float* __restrict__ xp,
     for (int idx = tid; idx < rows * H; idx += nthr) {
       const int r = idx / H, j = idx % H;
       const size_t o = (row0 + r) * H + j;
-      dc_s[r * H + j] = cell_backward(g_s + r * G, dxp + (row0 + r) * G, H, j,
+      dc_s[r * H + j] = cell_backward(g_s + r * G, dg + (row0 + r) * G, H, j,
                                       c_prev[r * H + j], cs[o],
-                                      dys[o] + dh_s[r * H + j], dc_s[r * H + j]);
+                                      to_f32(dys[o]) + dh_s[r * H + j], dc_s[r * H + j]);
+      if constexpr (!kIsF32<TS>) {  // the four dgates this thread just wrote
+        const float* gr = g_s + r * G;
+        TS* out = dxp + (row0 + r) * G;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) store_as(out + q * H + j, gr[q * H + j]);
+      }
     }
     __syncthreads();
 
@@ -245,6 +277,44 @@ int scan_threads(int H) {
   return (threads + 31) / 32 * 32;
 }
 
+template <typename TS>
+int launch_scan_fwd(const TS* xp, const float* whh_t, const float* h0, const float* c0,
+                    TS* ys, float* cs, float* hT, float* cT, int T, int L, int Bb, int H,
+                    int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int G = 4 * H;
+  const size_t smem = sizeof(float) * (static_cast<size_t>(2) * kRows * H +
+                                       static_cast<size_t>(kRows) * G);
+  err = allow_smem(lstm_scan_fwd_kernel<TS>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((Bb + kRows - 1) / kRows, L);
+  lstm_scan_fwd_kernel<TS><<<grid, scan_threads(H), smem, static_cast<cudaStream_t>(stream)>>>(
+      xp, whh_t, h0, c0, ys, cs, hT, cT, T, L, Bb, H);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TS>
+int launch_scan_bwd(const TS* xp, const float* whh_t, const float* h0, const float* c0,
+                    const TS* ys, const float* cs, const TS* dys, const float* dhT,
+                    const float* dcT, float* dg, TS* dxp, float* dwhh_t, float* dh0,
+                    float* dc0, int T, int L, int Bb, int H, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int G = 4 * H;
+  const size_t smem = sizeof(float) * (static_cast<size_t>(3) * kRows * H +
+                                       static_cast<size_t>(kRows) * G);
+  err = allow_smem(lstm_scan_bwd_kernel<TS>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((Bb + kRows - 1) / kRows, L);
+  lstm_scan_bwd_kernel<TS><<<grid, scan_threads(H), smem, s>>>(
+      xp, whh_t, h0, c0, ys, cs, dys, dhT, dcT, dg, dxp, dh0, dc0, T, L, Bb, H);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_dw(ys, h0, dg, G, dwhh_t, G, T, L, Bb, H, G, 1, s));
+}
+
 }  // namespace
 
 // Launches the forward scan on `stream` (a cudaStream_t) of `device`.
@@ -256,17 +326,16 @@ extern "C" int se_lstm_scan_fwd_f32(const float* xp, const float* whh_t,
                                     float* ys, float* cs, float* hT, float* cT,
                                     int T, int L, int Bb, int H,
                                     int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int G = 4 * H;
-  const size_t smem = sizeof(float) * (static_cast<size_t>(2) * kRows * H +
-                                       static_cast<size_t>(kRows) * G);
-  err = allow_smem(lstm_scan_fwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Bb + kRows - 1) / kRows, L);
-  lstm_scan_fwd_kernel<<<grid, scan_threads(H), smem, static_cast<cudaStream_t>(stream)>>>(
-      xp, whh_t, h0, c0, ys, cs, hT, cT, T, L, Bb, H);
-  return static_cast<int>(cudaGetLastError());
+  return launch_scan_fwd(xp, whh_t, h0, c0, ys, cs, hT, cT, T, L, Bb, H, device, stream);
+}
+
+// The bf16-stream forward: xp and ys bf16, the rest as se_lstm_scan_fwd_f32.
+extern "C" int se_lstm_scan_fwd_bf16(const __nv_bfloat16* xp, const float* whh_t,
+                                     const float* h0, const float* c0,
+                                     __nv_bfloat16* ys, float* cs, float* hT, float* cT,
+                                     int T, int L, int Bb, int H,
+                                     int device, void* stream) {
+  return launch_scan_fwd(xp, whh_t, h0, c0, ys, cs, hT, cT, T, L, Bb, H, device, stream);
 }
 
 // Launches the backward: the reverse scan (dx_proj, dh0, dc0), then the
@@ -281,18 +350,22 @@ extern "C" int se_lstm_scan_bwd_f32(const float* xp, const float* whh_t,
                                     float* dh0, float* dc0,
                                     int T, int L, int Bb, int H,
                                     int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int G = 4 * H;
-  const size_t smem = sizeof(float) * (static_cast<size_t>(3) * kRows * H +
-                                       static_cast<size_t>(kRows) * G);
-  err = allow_smem(lstm_scan_bwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((Bb + kRows - 1) / kRows, L);
-  lstm_scan_bwd_kernel<<<grid, scan_threads(H), smem, s>>>(
-      xp, whh_t, h0, c0, ys, cs, dys, dhT, dcT, dxp, dh0, dc0, T, L, Bb, H);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_dw(ys, h0, dxp, G, dwhh_t, G, T, L, Bb, H, G, 1, s));
+  return launch_scan_bwd(xp, whh_t, h0, c0, ys, cs, dys, dhT, dcT, dxp,
+                         static_cast<float*>(nullptr), dwhh_t, dh0, dc0, T, L, Bb, H,
+                         device, stream);
+}
+
+// The bf16-stream backward: xp, ys, dys and dxp bf16, the rest f32 as in
+// se_lstm_scan_bwd_f32, and `dg` an f32 scratch buffer [T, L, Bb, 4H] for
+// the dgates that the dW_hh reduction sums.
+extern "C" int se_lstm_scan_bwd_bf16(const __nv_bfloat16* xp, const float* whh_t,
+                                     const float* h0, const float* c0,
+                                     const __nv_bfloat16* ys, const float* cs,
+                                     const __nv_bfloat16* dys, const float* dhT,
+                                     const float* dcT, __nv_bfloat16* dxp, float* dwhh_t,
+                                     float* dh0, float* dc0, float* dg,
+                                     int T, int L, int Bb, int H,
+                                     int device, void* stream) {
+  return launch_scan_bwd(xp, whh_t, h0, c0, ys, cs, dys, dhT, dcT, dg, dxp, dwhh_t, dh0,
+                         dc0, T, L, Bb, H, device, stream);
 }

@@ -16,7 +16,10 @@ def resolve_device(device="cuda") -> torch.device:
 
     On a CUDA device this also turns TF32 off for matrix products and for
     cuDNN convolutions (cuDNN's default is TF32): the reference computes
-    in full float32, and the port is held to it.
+    in full float32, and the port is held to it.  It also keeps cuBLAS's
+    bf16 products reducing in f32: cuBLAS may otherwise sum a split-K
+    product's partial results in bf16, where the reference's bf16 einsums
+    accumulate in f32 and round once.
     """
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -27,6 +30,7 @@ def resolve_device(device="cuda") -> torch.device:
             )
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
     return dev

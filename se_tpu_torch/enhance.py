@@ -7,6 +7,8 @@
     python -m se_tpu_torch.enhance --checkpoint chkpt.pt --model CRN noisy.wav
     python -m se_tpu_torch.enhance --checkpoint chkpt.pt --model FullSubNet \\
         [--sequence-model GRU] [--fsn-norm cumulative_laplace_norm] noisy.wav
+    python -m se_tpu_torch.enhance --checkpoint chkpt.pt --model CRN \\
+        --compute-dtype bfloat16 noisy.wav
 
 The checkpoint is the reference's ``{'model', 'optimizer', 'epoch'}``
 blob, as ``python -m se_tpu.utils.torch_export`` writes it.  Runs on the
@@ -21,7 +23,9 @@ gets ``valid_frames = 1 + L // torch_hop``, so the output matches the
 exact-length run.  ``--batch N`` stacks files of the same one-second bucket
 into batches of N rows, padding the last batch of a bucket by repeating
 its last row; rows are independent, so each output matches its
-``--batch 1`` run up to float rounding.
+``--batch 1`` run up to float rounding.  ``--compute-dtype bfloat16`` runs
+DCCRN and CRN in the reference's mixed precision (``Config.compute_dtype``);
+FullSubNet's bf16 path is not ported yet.
 """
 
 from __future__ import annotations
@@ -119,17 +123,14 @@ def main(argv=None):
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--device", default="cuda")
     p.add_argument("--streaming", action="store_true")
-    p.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="activation dtype of the batch forward")
     args = p.parse_args(argv)
     if args.batch < 1:
         p.error(f"--batch must be >= 1 (got {args.batch})")
     if args.streaming:
         raise NotImplementedError(
             "--streaming is not ported yet (ROADMAP.md, Queue 1: streaming)"
-        )
-    if args.compute_dtype != "float32":
-        raise NotImplementedError(
-            "--compute-dtype bfloat16 is not ported yet (ROADMAP.md, Queue 1: bf16 streams)"
         )
     try:
         dev = resolve_device(args.device)
@@ -138,7 +139,8 @@ def main(argv=None):
 
     fsn = FullSubNetConfig(norm_type=args.fsn_norm) if args.fsn_norm else FullSubNetConfig()
     cfg = Config(model=args.model, masking_mode=args.masking_mode, lstm=args.lstm,
-                 sequence_model=args.sequence_model, fullsubnet=fsn)
+                 sequence_model=args.sequence_model, fullsubnet=fsn,
+                 compute_dtype=args.compute_dtype)
     model = build_model(cfg, device=dev)
     model.load_state_dict(load_reference_checkpoint(args.checkpoint)[0], strict=True)
     os.makedirs(args.out_dir, exist_ok=True)

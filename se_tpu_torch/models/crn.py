@@ -5,7 +5,9 @@ Conv-STFT magnitude -> real conv encoder -> one-layer LSTM bottleneck and a
 linear map back to the encoder's width -> real transposed-conv decoder with
 skip connections -> a tanh mask on the noisy magnitude (E, C and R masks
 alike) or the magnitude itself (``"Direct(None make)"``) -> noisy phase ->
-conv-iSTFT -> clip to +-1.  Module names follow the reference's state-dict
+conv-iSTFT -> clip to +-1.  Under ``compute_dtype="bfloat16"`` the network
+from the magnitudes to the decoder's output runs in bf16 (the LSTM on bf16
+streams around an f32 carry), the STFT, the mask and the iSTFT in f32.  Module names follow the reference's state-dict
 grammar (``encoder.{i}.0.conv.*``, ``enhance.weight_ih_l0``,
 ``tranform.*``, ``decoder.{i}.0.conv.*``).
 """
@@ -39,10 +41,7 @@ class CRN(nn.Module):
             raise NotImplementedError(
                 "CRN skip_type=False is not ported yet (ROADMAP.md, Queue 1 item 8)"
             )
-        if c.compute_dtype != "float32":
-            raise NotImplementedError(
-                "compute_dtype='bfloat16' is not ported yet (ROADMAP.md, Queue 1 item 6)"
-            )
+        self.compute_dtype = torch.bfloat16 if c.compute_dtype == "bfloat16" else torch.float32
         self.direct = c.masking_mode == "Direct(None make)"
         self.fft_len = c.stft.fft_len
         s = c.stft
@@ -94,7 +93,7 @@ class CRN(nn.Module):
         target_mags, out_wav)`` in direct mode; ``target_mags`` is None when
         no targets are given."""
         mags, phase = self._mag_phase(inputs)
-        out = mags[:, None, 1:]  # drop the DC bin
+        out = mags[:, None, 1:].to(self.compute_dtype)  # drop the DC bin
         encoder_out = []
         for stage in self.encoder:
             out = stage(out)
@@ -108,7 +107,7 @@ class CRN(nn.Module):
         for idx, stage in enumerate(self.decoder):
             out = torch.cat([out, encoder_out[-1 - idx]], 1)
             out = stage(out)[..., 1:]  # causal time trim per stage
-        out = F.pad(out[:, 0], (0, 0, 1, 0))  # re-pad the DC bin
+        out = F.pad(out[:, 0].float(), (0, 0, 1, 0))  # re-pad the DC bin
 
         target_mags = None if targets is None else self._mag_phase(targets)[0]
         est_mags = out if self.direct else torch.tanh(out) * mags

@@ -6,8 +6,12 @@ transposed-conv decoder with skip connections -> mask on the noisy
 spectrum -> conv-iSTFT -> clip to +-1.  Ported: the complex LSTM and the
 real one (``lstm="real"``: a two-layer ``nn.LSTM`` over the real and
 imaginary channels together, then a linear map back), skip connections,
-real BatchNorm, the E, C and R masks, and ``use_pallas_conv``: the encoder
-convs through the hand-written kernel K4 (``ops/fused_conv.py``).
+real BatchNorm, the E, C and R masks, ``use_pallas_conv``: the encoder
+convs through the hand-written kernel K4 (``ops/fused_conv.py``), and
+``compute_dtype="bfloat16"``: the reference's mixed precision (parameters
+f32, each op casting them to its activation dtype), with the STFT, the
+mask, the iSTFT and the real LSTM in f32 and the complex LSTM on bf16
+streams around an f32 carry.
 """
 
 from __future__ import annotations
@@ -76,10 +80,7 @@ class DCCRN(nn.Module):
             raise NotImplementedError(f"DCCRN skip_type=False {NOT_PORTED}")
         if c.masking_mode not in ("E", "C", "R"):
             raise NotImplementedError(f"DCCRN masking_mode={c.masking_mode!r} {NOT_PORTED}")
-        if c.compute_dtype != "float32":
-            raise NotImplementedError(
-                "compute_dtype='bfloat16' is not ported yet (ROADMAP.md, Queue 1: bf16 streams)"
-            )
+        self.compute_dtype = torch.bfloat16 if c.compute_dtype == "bfloat16" else torch.float32
         self.masking_mode = c.masking_mode
         self.real_lstm = c.lstm == "real"
         self.fft_len = c.stft.fft_len
@@ -140,7 +141,8 @@ class DCCRN(nn.Module):
         real, imag = specs[:, :dim], specs[:, dim:]
         spec_mags = torch.sqrt(real**2 + imag**2 + 1e-8)
         spec_phase = torch.atan2(imag, real)
-        out = torch.stack([real, imag], dim=1)[:, :, 1:]  # drop the DC bin
+        # drop the DC bin; the network runs in the compute dtype from here
+        out = torch.stack([real, imag], dim=1)[:, :, 1:].to(self.compute_dtype)
 
         encoder_out = []
         for stage in self.encoder:
@@ -150,7 +152,9 @@ class DCCRN(nn.Module):
         B, C, D, T = out.shape
         out = out.permute(3, 0, 1, 2)  # [T, B, C, D]
         if self.real_lstm:
-            out = self.tranform(self.enhance(out.reshape(T, B, C * D)))
+            # the real LSTM runs f32 whatever the compute dtype, as the
+            # reference's (se_tpu/models/dccrn.py:215-222)
+            out = self.tranform(self.enhance(out.float().reshape(T, B, C * D)))
             out = out.reshape(T, B, C, D)
         else:
             r_in = out[:, :, : C // 2].reshape(T, B, C // 2 * D)
@@ -160,11 +164,12 @@ class DCCRN(nn.Module):
             out = torch.cat(
                 [r_in.reshape(T, B, C // 2, D), i_in.reshape(T, B, C // 2, D)], dim=2
             )
-        out = out.permute(1, 2, 3, 0)  # [B, C, D, T]
+        out = out.permute(1, 2, 3, 0).to(self.compute_dtype)  # [B, C, D, T]
 
         for idx, stage in enumerate(self.decoder):
             out = complex_cat([out, encoder_out[-1 - idx]], 1)
             out = stage(out)[..., 1:]  # causal time trim per stage
+        out = out.float()  # the mask and the iSTFT in f32
 
         mask_real = F.pad(out[:, 0], (0, 0, 1, 0))  # re-pad the DC bin
         mask_imag = F.pad(out[:, 1], (0, 0, 1, 0))

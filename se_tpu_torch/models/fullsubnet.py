@@ -34,7 +34,8 @@ class FullSubNet(nn.Module):
             )
         if cfg.compute_dtype != "float32":
             raise NotImplementedError(
-                "compute_dtype='bfloat16' is not ported yet (ROADMAP.md, Queue 1 item 6)"
+                "FullSubNet with compute_dtype='bfloat16' is not ported yet "
+                "(ROADMAP.md, Queue 1 item 6b)"
             )
         self.cfg = cfg
         num_freqs = cfg.stft.num_freqs

@@ -91,18 +91,46 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def cuda_launch(lib, fn_name, tensors, names, outs, dims, dev):
+# The stream dtypes of the recurrent kernels' two forms, and the suffix of
+# each form's C entry (se_<kernel>_f32, se_<kernel>_bf16)
+STREAM_FORMS = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def check_dtypes(named, stream_dtype) -> None:
+    """Raise unless ``stream_dtype`` is float32 or bfloat16 and each
+    ``(name, tensor, is_stream)`` of ``named`` has ``stream_dtype`` where
+    ``is_stream`` and float32 elsewhere (weights, carries, the stash)."""
+    if stream_dtype not in STREAM_FORMS:
+        raise TypeError(f"the input stream must be float32 or bfloat16, got {stream_dtype}")
+    for name, t, is_stream in named:
+        want = stream_dtype if is_stream else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
+
+
+def count_launch(fn, stream_dtype) -> None:
+    """One launch of ``fn``'s kernel: ``fn.launches`` counts the f32 form,
+    ``fn.launches_bf16`` the bf16-stream form."""
+    if stream_dtype == torch.bfloat16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
+
+
+def cuda_launch(lib, fn_name, tensors, names, outs, dims, dev, dtypes=None):
     """Check the inputs' device, type and contiguity, launch
     ``lib.<fn_name>(*inputs, *outs, *dims, device, stream)`` on the current
-    stream, and raise on a CUDA error.  ``outs`` may hold None for a null
-    pointer."""
+    stream, and raise on a CUDA error.  ``dtypes`` gives each input's
+    expected dtype (default: float32 for all); ``outs`` may hold None for a
+    null pointer."""
     if dev.type != "cuda":
         raise ValueError(f"{fn_name} runs on cuda or cpu, not {dev}")
-    for name, t in zip(names, tensors):
+    dtypes = (torch.float32,) * len(tensors) if dtypes is None else dtypes
+    for name, t, dtype in zip(names, tensors, dtypes):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     index = dev.index if dev.index is not None else torch.cuda.current_device()

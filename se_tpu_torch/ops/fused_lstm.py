@@ -8,6 +8,13 @@ needs a gradient, the call goes through a ``torch.autograd.Function`` whose
 forward also writes the stash ``cs`` and whose backward recomputes the
 gates from ``(x_proj, h_prev)``.  The kernels' design and what bounds them
 are described at the top of their source.
+
+Two forms, as the Pallas kernel has: f32, and the bf16-stream form, in
+which ``x_proj``, ``ys``, their cotangent ``dys`` and the gradient
+``dx_proj`` are bf16 while the carry, the gate math, the stash and the
+weight gradients stay f32 (``pallas_lstm.py:13-14``).  The plain versions
+take the form from ``x_proj``'s dtype; each kernel form has its own C entry
+and its own launch count (``launches``, ``launches_bf16``).
 """
 
 from __future__ import annotations
@@ -84,6 +91,8 @@ def fused_lstm_scan_backward_reference(x_proj, w_hh_t, h0, c0, ys, cs, dys, dhT,
 
 
 def _check(x_proj, w_hh_t, h0, c0):
+    """Shapes, devices and dtypes: x_proj float32 or bfloat16, the rest
+    float32."""
     if x_proj.ndim != 4:
         raise ValueError(f"x_proj must be [T, L, Bb, 4H], got {tuple(x_proj.shape)}")
     T, L, Bb, G = x_proj.shape
@@ -94,9 +103,9 @@ def _check(x_proj, w_hh_t, h0, c0):
     for name, t in (("w_hh_t", w_hh_t), ("h0", h0), ("c0", c0)):
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} must be {want[name]}, got {tuple(t.shape)}")
-    for name, t in (("x_proj", x_proj), ("w_hh_t", w_hh_t), ("h0", h0), ("c0", c0)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    build.check_dtypes((("x_proj", x_proj, True), ("w_hh_t", w_hh_t, False),
+                        ("h0", h0, False), ("c0", c0, False)), x_proj.dtype)
+    for name, t in (("w_hh_t", w_hh_t), ("h0", h0), ("c0", c0)):
         if t.device != x_proj.device:
             raise ValueError(f"{name} is on {t.device}, x_proj on {x_proj.device}")
 
@@ -105,14 +114,14 @@ def _library():
     """The built kernel library, with its C signatures declared."""
     lib = build.load("lstm_scan")
     if lib.se_lstm_scan_fwd_f32.argtypes is None:
-        lib.se_lstm_scan_fwd_f32.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        )
-        lib.se_lstm_scan_fwd_f32.restype = ctypes.c_int
-        lib.se_lstm_scan_bwd_f32.argtypes = (
-            [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        )
-        lib.se_lstm_scan_bwd_f32.restype = ctypes.c_int
+        for form in build.STREAM_FORMS.values():
+            fwd = getattr(lib, f"se_lstm_scan_fwd_{form}")
+            bwd = getattr(lib, f"se_lstm_scan_bwd_{form}")
+            fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            # the bf16 form takes the f32 dgates scratch after dc0
+            n_ptr = 13 if form == "f32" else 14
+            bwd.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            fwd.restype = bwd.restype = ctypes.c_int
     return lib
 
 
@@ -124,14 +133,17 @@ def _forward(x_proj, w_hh_t, h0, c0, need_cs):
         return _reference_forward(x_proj, w_hh_t, h0, c0, need_cs)
     T, L, Bb, G = x_proj.shape
     H = G // 4
-    new = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
-    ys, hT, cT = new(T, L, Bb, H), new(L, Bb, H), new(L, Bb, H)
+    sdt, f32 = x_proj.dtype, torch.float32
+    new = lambda *shape: torch.empty(shape, device=dev, dtype=f32)
+    ys = torch.empty((T, L, Bb, H), device=dev, dtype=sdt)
+    hT, cT = new(L, Bb, H), new(L, Bb, H)
     cs = new(T, L, Bb, H) if need_cs else None
     build.cuda_launch(
-        _library(), "se_lstm_scan_fwd_f32", (x_proj, w_hh_t, h0, c0),
+        _library(), f"se_lstm_scan_fwd_{build.STREAM_FORMS[sdt]}", (x_proj, w_hh_t, h0, c0),
         ("x_proj", "w_hh_t", "h0", "c0"), (ys, cs, hT, cT), (T, L, Bb, H), dev,
+        (sdt, f32, f32, f32),
     )
-    fused_lstm_scan.launches += 1
+    build.count_launch(fused_lstm_scan, sdt)
     return ys, cs, hT, cT
 
 
@@ -141,30 +153,40 @@ def fused_lstm_scan_backward(x_proj, w_hh_t, h0, c0, ys, cs, dys, dhT, dcT):
 
     CPU tensors run the plain version.  CUDA tensors launch the backward
     kernels (the reverse scan, then the dW_hh reduction) on the current
-    stream, or raise: float32 and contiguous only.  Each launch adds one to
-    ``fused_lstm_scan_backward.launches``.
+    stream, or raise: contiguous only; x_proj, ys and dys all float32 or
+    all bfloat16 (then dx_proj is bfloat16 too), the rest float32.  Each
+    launch adds one to ``fused_lstm_scan_backward.launches`` (f32) or
+    ``.launches_bf16``.
     """
     _check(x_proj, w_hh_t, h0, c0)
     T, L, Bb, G = x_proj.shape
     H = G // 4
-    for name, t, shape in (("ys", ys, (T, L, Bb, H)), ("cs", cs, (T, L, Bb, H)),
-                           ("dys", dys, (T, L, Bb, H)), ("dhT", dhT, (L, Bb, H)),
-                           ("dcT", dcT, (L, Bb, H))):
+    named = (("ys", ys, (T, L, Bb, H), True), ("cs", cs, (T, L, Bb, H), False),
+             ("dys", dys, (T, L, Bb, H), True), ("dhT", dhT, (L, Bb, H), False),
+             ("dcT", dcT, (L, Bb, H), False))
+    for name, t, shape, _ in named:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    sdt = x_proj.dtype
+    build.check_dtypes([(n, t, s) for n, t, _, s in named], sdt)
     dev = x_proj.device
     if dev.type == "cpu":
         return fused_lstm_scan_backward_reference(
             x_proj, w_hh_t, h0, c0, ys, cs, dys, dhT, dcT
         )
-    new = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
-    dxp, dw, dh0, dc0 = new(T, L, Bb, G), new(L, H, G), new(L, Bb, H), new(L, Bb, H)
+    f32 = torch.float32
+    new = lambda *shape: torch.empty(shape, device=dev, dtype=f32)
+    dxp = torch.empty((T, L, Bb, G), device=dev, dtype=sdt)
+    dw, dh0, dc0 = new(L, H, G), new(L, Bb, H), new(L, Bb, H)
+    # the bf16 form sums dW_hh from f32 dgates kept in a scratch buffer
+    outs = (dxp, dw, dh0, dc0) + ((new(T, L, Bb, G),) if sdt == torch.bfloat16 else ())
     build.cuda_launch(
-        _library(), "se_lstm_scan_bwd_f32", (x_proj, w_hh_t, h0, c0, ys, cs, dys, dhT, dcT),
+        _library(), f"se_lstm_scan_bwd_{build.STREAM_FORMS[sdt]}",
+        (x_proj, w_hh_t, h0, c0, ys, cs, dys, dhT, dcT),
         ("x_proj", "w_hh_t", "h0", "c0", "ys", "cs", "dys", "dhT", "dcT"),
-        (dxp, dw, dh0, dc0), (T, L, Bb, H), dev,
+        outs, (T, L, Bb, H), dev, (sdt, f32, f32, f32, sdt, f32, sdt, f32, f32),
     )
-    fused_lstm_scan_backward.launches += 1
+    build.count_launch(fused_lstm_scan_backward, sdt)
     return dxp, dw, dh0, dc0
 
 
@@ -191,8 +213,10 @@ def fused_lstm_scan(x_proj, w_hh_t, h0, c0):
     """Same signature and result as :func:`fused_lstm_scan_reference`.
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel on
-    the current stream, or raise: float32 and contiguous only.  Each launch
-    adds one to ``fused_lstm_scan.launches``.  When gradients are on and an
+    the current stream, or raise: contiguous only, x_proj float32 or
+    bfloat16 (the bf16-stream form: ys bfloat16), the rest float32.  Each
+    launch adds one to ``fused_lstm_scan.launches`` (f32) or
+    ``.launches_bf16``.  When gradients are on and an
     input requires one, the call also writes the cell-state stash and its
     backward is :func:`fused_lstm_scan_backward`; otherwise no stash is
     allocated.
@@ -207,5 +231,5 @@ def fused_lstm_scan(x_proj, w_hh_t, h0, c0):
     return ys, (hT, cT)
 
 
-fused_lstm_scan.launches = 0
-fused_lstm_scan_backward.launches = 0
+fused_lstm_scan.launches = fused_lstm_scan.launches_bf16 = 0
+fused_lstm_scan_backward.launches = fused_lstm_scan_backward.launches_bf16 = 0

@@ -10,6 +10,14 @@ a gradient, the call goes through a ``torch.autograd.Function`` whose
 forward also writes the stash ``cs`` and whose backward recomputes the
 gates from ``(x, h_prev)``.  The kernels' design and what bounds them are
 described at the top of their source.
+
+Two forms, as the Pallas kernel has: f32, and the bf16-stream form, in
+which ``x``, ``ys``, their cotangent ``dys`` and the gradient ``dx`` are
+bf16 while the projection (``x`` upcast, f32 ``w_ih_t``), the carry, the
+gate math, the stash and the weight and bias gradients stay f32
+(``pallas_lstm.py:318-321``).  The plain versions take the form from
+``x``'s dtype; each kernel form has its own C entry and its own launch
+count (``launches``, ``launches_bf16``).
 """
 
 from __future__ import annotations
@@ -110,9 +118,8 @@ def _check(x, w_ih_t, bias, w_hh_t, h0, c0):
     for name, t in named[1:]:
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} must be {want[name]}, got {tuple(t.shape)}")
+    build.check_dtypes([(name, t, name == "x") for name, t in named], x.dtype)
     for name, t in named:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
@@ -121,14 +128,12 @@ def _library():
     """The built kernel library, with its C signatures declared."""
     lib = build.load("lstm_inproj")
     if lib.se_lstm_inproj_fwd_f32.argtypes is None:
-        lib.se_lstm_inproj_fwd_f32.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        )
-        lib.se_lstm_inproj_fwd_f32.restype = ctypes.c_int
-        lib.se_lstm_inproj_bwd_f32.argtypes = (
-            [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        )
-        lib.se_lstm_inproj_bwd_f32.restype = ctypes.c_int
+        for form in build.STREAM_FORMS.values():
+            fwd = getattr(lib, f"se_lstm_inproj_fwd_{form}")
+            bwd = getattr(lib, f"se_lstm_inproj_bwd_{form}")
+            fwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            bwd.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            fwd.restype = bwd.restype = ctypes.c_int
     return lib
 
 
@@ -143,14 +148,17 @@ def _forward(x, w_ih_t, bias, w_hh_t, h0, c0, need_cs):
         return _reference_forward(x, w_ih_t, bias, w_hh_t, h0, c0, need_cs)
     T, L, Bb, In = x.shape
     H = h0.shape[-1]
-    new = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
-    ys, hT, cT = new(T, L, Bb, H), new(L, Bb, H), new(L, Bb, H)
+    sdt, f32 = x.dtype, torch.float32
+    new = lambda *shape: torch.empty(shape, device=dev, dtype=f32)
+    ys = torch.empty((T, L, Bb, H), device=dev, dtype=sdt)
+    hT, cT = new(L, Bb, H), new(L, Bb, H)
     cs = new(T, L, Bb, H) if need_cs else None
     build.cuda_launch(
-        _library(), "se_lstm_inproj_fwd_f32", (x, w_ih_t, bias, w_hh_t, h0, c0),
-        _INPUTS, (ys, cs, hT, cT), (T, L, Bb, In, H), dev,
+        _library(), f"se_lstm_inproj_fwd_{build.STREAM_FORMS[sdt]}",
+        (x, w_ih_t, bias, w_hh_t, h0, c0), _INPUTS, (ys, cs, hT, cT), (T, L, Bb, In, H), dev,
+        (sdt,) + (f32,) * 5,
     )
-    fused_lstm_scan_inproj.launches += 1
+    build.count_launch(fused_lstm_scan_inproj, sdt)
     return ys, cs, hT, cT
 
 
@@ -161,38 +169,45 @@ def fused_lstm_scan_inproj_backward(x, w_ih_t, bias, w_hh_t, h0, c0, ys, cs, dys
 
     CPU tensors run the plain version.  CUDA tensors launch the backward
     kernels (the reverse scan, then the deterministic dW_ih, dW_hh and
-    dbias reductions over a ``[T, L, Bb, 4H]`` dgates scratch buffer) on
-    the current stream, or raise: float32 and contiguous only.  Each call
-    that launches adds one to ``fused_lstm_scan_inproj_backward.launches``.
+    dbias reductions over an f32 ``[T, L, Bb, 4H]`` dgates scratch buffer)
+    on the current stream, or raise: contiguous only; x, ys and dys all
+    float32 or all bfloat16 (then dx is bfloat16 too), the rest float32.
+    Each call that launches adds one to
+    ``fused_lstm_scan_inproj_backward.launches`` (f32) or ``.launches_bf16``.
     """
     _check(x, w_ih_t, bias, w_hh_t, h0, c0)
     T, L, Bb, In = x.shape
     H = h0.shape[-1]
     G = 4 * H
-    zeros = lambda shape: torch.zeros(shape, device=x.device, dtype=torch.float32)
-    dys = zeros((T, L, Bb, H)) if dys is None else dys
+    sdt, f32 = x.dtype, torch.float32
+    zeros = lambda shape, dtype=f32: torch.zeros(shape, device=x.device, dtype=dtype)
+    dys = zeros((T, L, Bb, H), sdt) if dys is None else dys
     dhT = zeros((L, Bb, H)) if dhT is None else dhT
     dcT = zeros((L, Bb, H)) if dcT is None else dcT
-    for name, t, shape in (("ys", ys, (T, L, Bb, H)), ("cs", cs, (T, L, Bb, H)),
-                           ("dys", dys, (T, L, Bb, H)), ("dhT", dhT, (L, Bb, H)),
-                           ("dcT", dcT, (L, Bb, H))):
+    named = (("ys", ys, (T, L, Bb, H), True), ("cs", cs, (T, L, Bb, H), False),
+             ("dys", dys, (T, L, Bb, H), True), ("dhT", dhT, (L, Bb, H), False),
+             ("dcT", dcT, (L, Bb, H), False))
+    for name, t, shape, _ in named:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    build.check_dtypes([(n, t, s) for n, t, _, s in named], sdt)
     dev = x.device
     if dev.type == "cpu":
         return fused_lstm_scan_inproj_backward_reference(
             x, w_ih_t, bias, w_hh_t, h0, c0, ys, cs, dys, dhT, dcT
         )
-    new = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
-    dx, dw_ih, db, dw_hh = new(T, L, Bb, In), new(L, In, G), new(L, G), new(L, H, G)
+    new = lambda *shape: torch.empty(shape, device=dev, dtype=f32)
+    dx = torch.empty((T, L, Bb, In), device=dev, dtype=sdt)
+    dw_ih, db, dw_hh = new(L, In, G), new(L, G), new(L, H, G)
     dh0, dc0, scratch = new(L, Bb, H), new(L, Bb, H), new(T, L, Bb, G)
     build.cuda_launch(
-        _library(), "se_lstm_inproj_bwd_f32",
+        _library(), f"se_lstm_inproj_bwd_{build.STREAM_FORMS[sdt]}",
         (x, w_ih_t, bias, w_hh_t, h0, c0, ys, cs, dys, dhT, dcT),
         (*_INPUTS, "ys", "cs", "dys", "dhT", "dcT"),
         (dx, dw_ih, db, dw_hh, dh0, dc0, scratch), (T, L, Bb, In, H), dev,
+        (sdt,) + (f32,) * 5 + (sdt, f32, sdt, f32, f32),
     )
-    fused_lstm_scan_inproj_backward.launches += 1
+    build.count_launch(fused_lstm_scan_inproj_backward, sdt)
     return dx, dw_ih, db, dw_hh, dh0, dc0
 
 
@@ -220,8 +235,10 @@ def fused_lstm_scan_inproj(x, w_ih_t, bias, w_hh_t, h0, c0):
     """Same signature and result as :func:`fused_lstm_scan_inproj_reference`.
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel on
-    the current stream, or raise: float32 and contiguous only.  Each launch
-    adds one to ``fused_lstm_scan_inproj.launches``.  When gradients are on
+    the current stream, or raise: contiguous only, x float32 or bfloat16
+    (the bf16-stream form: ys bfloat16), the rest float32.  Each launch adds
+    one to ``fused_lstm_scan_inproj.launches`` (f32) or ``.launches_bf16``.
+    When gradients are on
     and an input requires one, the call also writes the cell-state stash
     and its backward is :func:`fused_lstm_scan_inproj_backward`; otherwise
     no stash is allocated.
@@ -235,5 +252,5 @@ def fused_lstm_scan_inproj(x, w_ih_t, bias, w_hh_t, h0, c0):
     return ys, (hT, cT)
 
 
-fused_lstm_scan_inproj.launches = 0
-fused_lstm_scan_inproj_backward.launches = 0
+fused_lstm_scan_inproj.launches = fused_lstm_scan_inproj.launches_bf16 = 0
+fused_lstm_scan_inproj_backward.launches = fused_lstm_scan_inproj_backward.launches_bf16 = 0

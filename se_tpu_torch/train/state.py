@@ -3,8 +3,9 @@
 
 The JAX package threads params, batch statistics and the optax state
 through its jitted step as one pytree; here they live where PyTorch keeps
-them: parameters and BatchNorm buffers in the module, Adam's moments in a
-``torch.optim.Adam``.
+them: parameters and BatchNorm buffers in the module, Adam's moments in
+the optimiser (``torch.optim.Adam``, or :class:`AdamLowPrecisionMu` when
+``TrainConfig.adam_mu_dtype`` narrows the first moment).
 """
 
 from __future__ import annotations
@@ -17,18 +18,59 @@ from ..config import Config
 from ..models.factory import build_model
 
 
+class AdamLowPrecisionMu(torch.optim.Optimizer):
+    """optax's ``adam(lr, b1, b2, eps, mu_dtype=...)``, which
+    ``torch.optim.Adam`` cannot express: the first moment is stored in
+    ``mu_dtype`` (bf16), the second in f32.  Each step follows optax's
+    ``scale_by_adam`` operation by operation: ``mu = (1 - b1) * g + b1 *
+    mu_stored``, ``nu = (1 - b2) * g**2 + b2 * nu``, both bias-corrected in
+    f32 by ``1 - b**count``, ``p += -lr * mu_hat / (sqrt(nu_hat) + eps)``;
+    only then is ``mu`` stored in ``mu_dtype``.  The product ``b1 *
+    mu_stored`` is taken in ``mu_dtype`` with ``b1`` itself rounded to it,
+    as JAX casts a Python scalar to the array's dtype; the sum is f32."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
+                 mu_dtype: torch.dtype = torch.bfloat16):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, mu_dtype=mu_dtype))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                state = self.state[p]
+                if not state:
+                    state["count"] = 0
+                    state["mu"] = torch.zeros_like(p, dtype=group["mu_dtype"])
+                    state["nu"] = torch.zeros_like(p, dtype=torch.float32)
+                state["count"] += 1
+                b1_mu = torch.tensor(b1, dtype=group["mu_dtype"], device=g.device)
+                mu = (1 - b1) * g + b1_mu * state["mu"]
+                nu = (1 - b2) * g**2 + b2 * state["nu"]
+                n = state["count"]
+                update = (mu / (1 - b1**n)) / (torch.sqrt(nu / (1 - b2**n)) + group["eps"])
+                p.add_(update * -group["lr"])
+                state["mu"] = mu.to(group["mu_dtype"])
+                state["nu"] = nu
+
+
 def make_optimizer(cfg: Config, model: torch.nn.Module) -> torch.optim.Optimizer:
     """Adam with lr ``cfg.train.learning_rate``, betas (0.9, 0.999), eps
     1e-8 outside the square root and no weight decay: optax's ``adam`` as
-    the JAX package configures it (reference: train_interface.py:59)."""
+    the JAX package configures it (reference: train_interface.py:59).  With
+    ``cfg.train.adam_mu_dtype`` (``"bfloat16"``) the first moment is stored
+    in that dtype (:class:`AdamLowPrecisionMu`)."""
+    kw = dict(lr=cfg.train.learning_rate, betas=(0.9, 0.999), eps=1e-8)
     if cfg.train.adam_mu_dtype is not None:
-        raise NotImplementedError(
-            "adam_mu_dtype is not ported yet (ROADMAP.md, Queue 1 item 6: bf16)"
-        )
-    return torch.optim.Adam(
-        model.parameters(), lr=cfg.train.learning_rate, betas=(0.9, 0.999),
-        eps=1e-8, weight_decay=0.0,
-    )
+        mu_dtype = getattr(torch, cfg.train.adam_mu_dtype, None)
+        if not isinstance(mu_dtype, torch.dtype):
+            raise ValueError(f"adam_mu_dtype must name a torch dtype, got "
+                             f"{cfg.train.adam_mu_dtype!r}")
+        return AdamLowPrecisionMu(model.parameters(), mu_dtype=mu_dtype, **kw)
+    return torch.optim.Adam(model.parameters(), weight_decay=0.0, **kw)
 
 
 def create_train_state(

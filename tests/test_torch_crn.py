@@ -221,8 +221,9 @@ def test_rnn_lstm_matches_jax():
         grads = torch.autograd.grad(loss, params)
         for g, want in zip((ys, hT, cT, *grads), (*jout, *jgrads)):
             np.testing.assert_allclose(g.detach().numpy(), np.asarray(want), atol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        trnn.lstm(trnn.LstmParams(*map(_t, w)), _t(x).transpose(0, 1).bfloat16())
+    # a bf16 input takes the bf16-stream form (tests/test_torch_bf16.py)
+    ys16, _ = trnn.lstm(trnn.LstmParams(*map(_t, w)), _t(x).transpose(0, 1).bfloat16())
+    assert ys16.dtype == torch.bfloat16
 
 
 # --- weights -------------------------------------------------------------------

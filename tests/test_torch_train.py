@@ -39,7 +39,7 @@ from se_tpu_torch.ops.fused_lstm import (
     fused_lstm_scan_reference,
 )
 from se_tpu_torch.ops.magnitude import complex_mag, safe_arctan2
-from se_tpu_torch.train.state import create_train_state, make_optimizer
+from se_tpu_torch.train.state import AdamLowPrecisionMu, create_train_state, make_optimizer
 from se_tpu_torch.train.steps import train_step
 from se_tpu_torch.utils.weights import dccrn_state_dict_from_jax, random_dccrn_params
 
@@ -208,8 +208,10 @@ def test_make_optimizer_matches_optax_adam():
     for p, q in zip(module, jp):
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(q), atol=1e-6)
 
-    with pytest.raises(NotImplementedError, match="item 6"):
-        make_optimizer(Config(train=TrainConfig(adam_mu_dtype="bfloat16")), module)
+    # a bf16 first moment takes the port's own Adam (tests/test_torch_bf16.py)
+    assert type(opt) is torch.optim.Adam
+    bf16_mu = make_optimizer(Config(train=TrainConfig(adam_mu_dtype="bfloat16")), module)
+    assert isinstance(bf16_mu, AdamLowPrecisionMu)
 
 
 # --- the tiny DCCRN in train mode ------------------------------------------
