@@ -24,7 +24,12 @@ in order; any failure ends the run with a nonzero exit and no result line:
    the bf16-stream forms of K1 (DCCRN's enhance and train shapes) and K2
    (CRN's, and FullSubNet's sub band, layer 0), each backward held on the
    kernel's own saved ys and cs, with the f32 form's time at the same shape
-   and cuDNN's LSTM in bf16 beside them;
+   and cuDNN's LSTM in bf16 beside them; the bf16 forms of K3 (FullSubNet-
+   GRU's four layers at B = 2, 10 and 8, two ragged cases, each backward
+   held on the kernel's own saved ys) and K4 (the six stages at B = 10 and
+   8, a ragged case), by the same phases as their f32 forms, with the f32
+   form's time and cuDNN's GRU or conv in bf16 beside them (K4's bound at
+   the tensor cores' bf16 rate, its products being bf16);
    then the probes (P1 bound_probe, P2 wavefront_probe, P3 vpu_probe), each
    against its plain version, then each probe's own entry point at the sub
    band's shape (B = 8, T = 163) with every launch count set to 0 just
@@ -32,31 +37,35 @@ in order; any failure ends the run with a nonzero exit and no result line:
 4. the enhance paths at full width, each with seeded random weights carried
    over from the JAX tree layout: ``enhance_batch`` on 8 three-second
    utterances (every kernel's launch count set to 0 just before and read
-   just after), the validation forward, the same weights on the CPU, and
-   the enhance CLI as a subprocess; for the default DCCRN, then for CRN
+   just after), the validation forward and the same weights on the CPU;
+   for the default DCCRN, then for CRN
    (the tutorial configuration), DCCRN with ``lstm="real"``, FullSubNet
    (its default LSTM), FullSubNet with ``sequence_model="GRU"`` and the
    default DCCRN's weights with ``use_pallas_conv=True`` (its encoder convs
-   through K4; no CLI run, as no CLI takes that switch; its waveform also
-   held to the default DCCRN's), then DCCRN, CRN and DCCRN with
-   ``lstm="real"`` under ``compute_dtype="bfloat16"`` on the same weights
-   (the CLI with ``--compute-dtype bfloat16``; each waveform also held to
-   its f32 path's);
+   through K4; its waveform also held to the default DCCRN's), then DCCRN,
+   CRN, DCCRN with ``lstm="real"``, both FullSubNets and DCCRN with
+   ``use_pallas_conv`` under ``compute_dtype="bfloat16"`` on the same
+   weights (each waveform also held to its f32 path's, the fused conv's to
+   DCCRN-bf16's);
 5. the train paths at full width: one ``train_step`` on the card and one on
    the CPU from the same weights (loss, every gradient, the BatchNorm
    running statistics; FullSubNet's dropout set to 0 for this, since two
    devices draw different masks), the kernels' launch counts read around a
    step with and without gradient accumulation, then 10 steps (DCCRN with
-   ``use_pallas_conv``: 3) at the
+   ``use_pallas_conv`` in f32: 3) at the
    default batch of 10 on one fixed batch (the loss must fall; FullSubNet
    with its dropout of 0.8 drawn from a generator on the card), with step
    time, throughput, peak memory and a profile; for the default DCCRN, CRN,
-   both FullSubNets, DCCRN with ``use_pallas_conv`` and the three bf16
+   both FullSubNets, DCCRN with ``use_pallas_conv`` and the six bf16
    paths (each bf16 gradient against the CPU's at a tolerance set by bf16's
    noise), DCCRN-bf16's 10 steps once more with Adam's first
    moment in bf16, plus one CRN direct-mapping step and one DCCRN real-LSTM
    step against the CPU;
-6. report: one JSON line of kernel numbers, then the result line.
+6. the enhance CLI as a subprocess for every path but the two fused-conv
+   ones (no CLI takes that switch; bf16 paths with ``--compute-dtype
+   bfloat16``), all started at once after the timed phases, each output
+   held to the same weights in process;
+7. report: one JSON line of kernel numbers, then the result line.
 
 TF32 is off throughout (``resolve_device`` sets it, and keeps cuBLAS's bf16
 products reducing in f32): the reference is f32, or bf16 where it says so.
@@ -78,8 +87,9 @@ import torch
 REPO = Path(__file__).resolve().parent
 SEED = 0
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): f32 outside the tensor
-# cores and HBM3 bandwidth
+# cores, bf16 on the tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 KERNEL_TOL = 1e-4  # kernel vs plain on the card, f32 over 483 steps
@@ -115,14 +125,25 @@ TRAIN_STATS_TOL = 1e-5
 # tests/test_torch_bf16.py).  Each leaf's max |card - cpu| is held against
 # max(its max, GRAD_FLOOR x the model's largest gradient): all leaves at
 # BF16_GRAD_TOL, the recurrent bottleneck's (the hand kernels' weights and
-# the linear maps around them, ``enhance.*``) at BF16_LSTM_GRAD_TOL.  Each
-# limit is 2.3-4x the largest value measured over the three bf16 paths on an
-# NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 2).
+# the linear maps around them, ``_BOTTLENECK``) at BF16_LSTM_GRAD_TOL.  Each
+# limit is 2.3-4x the largest value measured over DCCRN-bf16, CRN-bf16 and
+# DCCRN-real-bf16 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 2);
+# DCCRN-fused-conv-bf16, the same network, reads within them, and so do the
+# FullSubNet bf16 paths but for their gradients, which have limits of their
+# own (FSN_BF16_*).
 BF16_SLICE_TOL = 5e-3  # waveform max |card - cpu|; measured 2.15e-3
 BF16_SLICE_MEAN_TOL = 5e-4  # waveform mean |card - cpu|; measured 1.81e-4
 BF16_LOSS_TOL = 1e-3  # loss, relative to max(1, |loss|); measured 4.0e-4
 BF16_GRAD_TOL = 0.5  # measured 0.173 (a conv bias that a BatchNorm cancels)
 BF16_LSTM_GRAD_TOL = 1e-2  # measured 2.39e-3
+# FullSubNet's bf16 gradients (LSTM and GRU): no convolution or BatchNorm
+# sums in cuDNN's order, so its leaves agree far more closely; each limit
+# about 4x the larger of its two paths' readings (same card)
+FSN_BF16_GRAD_TOL = 4e-3  # measured 1.04e-3 (the GRU's sb_model.fc_output_layer.weight)
+FSN_BF16_LSTM_GRAD_TOL = 7e-5  # measured 1.81e-5
+# the recurrent bottleneck's leaves: DCCRN's and CRN's ``enhance.*``,
+# FullSubNet's two sequence models' RNN weights
+_BOTTLENECK = ("enhance.", "fb_model.sequence_model.", "sb_model.sequence_model.")
 BF16_STATS_TOL = 2e-3  # running statistics, absolute; measured 6.7e-4
 # bf16 against the f32 path on the same weights and input, mean |difference|
 # of the waveform: the JAX package's own gate
@@ -134,10 +155,11 @@ def _max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-def _bound(n_bytes, flops) -> tuple:
-    """The least time for moving ``n_bytes`` and doing ``flops`` in f32 on
-    the card, in ms, and which of the two bounds it."""
-    bytes_ms, flops_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
+def _bound(n_bytes, flops, peak_flops=PEAK_F32_FLOPS) -> tuple:
+    """The least time for moving ``n_bytes`` and doing ``flops`` at
+    ``peak_flops`` (f32 products by default; bf16 products at the tensor
+    cores' bf16 rate) on the card, in ms, and which of the two bounds it."""
+    bytes_ms, flops_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * flops / peak_flops
     return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
 
 
@@ -638,37 +660,41 @@ def _bf16_errs(got, want, f32_tol) -> dict:
             "abs": d.max().item(), "share": (d > 0).float().mean().item()}
 
 
-def _cudnn_yardstick(modules, inputs, cots) -> tuple:
+def _cudnn_yardstick(modules, inputs, cots,
+                     dtypes=(torch.bfloat16, torch.float32)) -> tuple:
     """Yardstick only, never called by the port: CUDA-event times of cuDNN
-    LSTM modules (one per stack) on ``inputs`` ``[(x, h0, c0), ...]``: the
-    forward, and forward + backward minus forward for ``cots`` ``[(dys,
-    dhT, dcT), ...]``.  In bf16 if cuDNN takes a bf16 LSTM, else in f32 ->
-    ``(fwd_ms, bwd_ms, dtype)``."""
+    LSTM or GRU modules (one per stack) on ``inputs`` ``[(x, h0, c0), ...]``
+    (a GRU's ``(x, h0)``): the forward, and forward + backward minus forward
+    for ``cots`` ``[(dys, dhT, dcT), ...]`` (a GRU's ``(dys, dhT)``).  In
+    the first of ``dtypes`` that cuDNN takes -> ``(fwd_ms, bwd_ms,
+    dtype)``."""
     import copy
 
     from se_tpu_torch.probes import cuda_ms
 
-    for dtype in (torch.bfloat16, torch.float32):
+    state = lambda s: s[0] if len(s) == 1 else tuple(s)  # a GRU's h, an LSTM's (h, c)
+    finals = lambda f: f if isinstance(f, tuple) else (f,)
+    for dtype in dtypes:
         mods = [copy.deepcopy(m).to(dtype) for m in modules]
         leaves = [[t.to(dtype).clone().requires_grad_() for t in inp] for inp in inputs]
         cot = [[c.to(dtype) for c in cc] for cc in cots]
 
         def fwd():
-            return [m(x, (h, c)) for m, (x, h, c) in zip(mods, leaves)]
+            return [m(x, state(s)) for m, (x, *s) in zip(mods, leaves)]
 
         def fwd_bwd():
-            return [torch.autograd.grad((o, hN, cN), (*lv, *m.parameters()), cc)
-                    for m, lv, (o, (hN, cN)), cc in zip(mods, leaves, fwd(), cot)]
+            return [torch.autograd.grad((o, *finals(f)), (*lv, *m.parameters()), cc)
+                    for m, lv, (o, f), cc in zip(mods, leaves, fwd(), cot)]
 
         try:
             fwd_bwd()
             torch.cuda.synchronize()
         except RuntimeError as e:
-            print(f"[bf16] cuDNN's LSTM refused {dtype}: {str(e).splitlines()[0]}")
+            print(f"[bf16] cuDNN refused {dtype}: {str(e).splitlines()[0]}")
             continue
         f_ms = cuda_ms(fwd, iters=5, warmup=1)
         return f_ms, cuda_ms(fwd_bwd, iters=5, warmup=1) - f_ms, str(dtype)
-    raise RuntimeError("cuDNN's LSTM ran in neither bf16 nor f32")
+    raise RuntimeError(f"cuDNN's RNN ran in none of {dtypes}")
 
 
 # The bf16 forms' shapes: K1 at DCCRN's (T, L, H) with the enhance batch's
@@ -881,29 +907,25 @@ _FSN_TRAIN_BATCHES = (2, 10)
 
 
 def _time_scan(fwd, bwd, lib, lib_inputs, cots) -> dict:
-    """CUDA-event times of a scan's forward and backward kernels and of the
-    cuDNN module ``lib`` (``nn.LSTM`` or ``nn.GRU`` holding the same weights;
-    a yardstick, never on the port's path) on ``lib_inputs`` ``(x, h0[,
-    c0])``: its forward, and forward + backward minus forward for the
-    cotangents ``cots`` ``(dys, dhT[, dcT])`` of stack 0."""
+    """CUDA-event times of an LSTM scan's forward and backward kernels and
+    of the cuDNN ``nn.LSTM`` ``lib`` holding the same weights (a yardstick,
+    never on the port's path) on ``lib_inputs`` ``(x, h0, c0)``: its
+    forward, and forward + backward minus forward for the cotangents
+    ``cots`` ``(dys, dhT, dcT)`` of stack 0."""
     from se_tpu_torch.probes import cuda_ms
 
     with torch.no_grad():
         fwd_ms = cuda_ms(fwd, iters=3, warmup=1)
         bwd_ms = cuda_ms(bwd, iters=3, warmup=1)
     leaves = [t.clone().requires_grad_() for t in lib_inputs]
-    state = leaves[1] if len(leaves) == 2 else tuple(leaves[1:])
 
     def lib_forward():
-        return lib(leaves[0], state)
+        return lib(leaves[0], tuple(leaves[1:]))
 
     def lib_forward_backward():
         out, final = lib_forward()
-        finals = (final,) if len(leaves) == 2 else final
-        return torch.autograd.grad(
-            (out, *finals), (*leaves, *lib.parameters()),
-            (cots[0][:, 0], *cots[1:]),
-        )
+        return torch.autograd.grad((out, *final), (*leaves, *lib.parameters()),
+                                   (cots[0][:, 0], *cots[1:]))
 
     lib_fwd_ms = cuda_ms(lib_forward, iters=3, warmup=1)
     lib_bwd_ms = cuda_ms(lib_forward_backward, iters=3, warmup=1) - lib_fwd_ms
@@ -941,28 +963,39 @@ def _cudnn_gru(w_ih_t, b_ih, w_hh_t, b_hh, dev):
 _K3B_NAMES = ("dx", "dw_ih_t", "db_ih", "dw_hh_t", "db_hh", "dh0")
 
 
-def phase_gru_kernels() -> tuple:
-    """fused_gru_scan_inproj (K3f) and its backward (K3b) at every shape
+def phase_gru_kernels(dtype=torch.float32) -> tuple:
+    """fused_gru_scan_inproj (K3f) and its backward (K3b) in the form of the
+    stream ``dtype`` against their plain versions, at every shape
     FullSubNet-GRU runs: each of its four layer calls at the train
     comparison's batch (B=2), the 10 train steps' (B=10) and the enhance
-    batch (B=8), two ragged cases (Bb not a multiple of the row tile, In
-    odd; one with 4 rows a block, one with 8).  Times, with cuDNN's ``nn.GRU`` beside them, at B=8; the
-    headline numbers are the sums over one forward's (or one step's) four
-    calls.  Returns the K3f and K3b entries."""
+    batch (B=8), and two ragged cases (Bb not a multiple of the row tile, In
+    odd; one with 4 rows a block, one with 8).  Each backward is held on the
+    kernel's own ys; two backward calls bit-identical.  In the bf16-stream
+    form x, ys, dys and dx are bf16 (each within one bf16 ulp of its plain
+    version); the h carry, the gate math, the scratch and the weight, bias
+    and state gradients stay f32.  Times at B=8 with cuDNN's ``nn.GRU`` in
+    the same dtype beside them (bf16: and the f32 form on the same values);
+    the bound from the stream's bytes and the f32 products; the headline
+    numbers are the sums over one forward's (or one step's) four calls.
+    Returns the K3f and K3b entries of that form."""
     from se_tpu_torch.device import resolve_device
     from se_tpu_torch.probes import cuda_ms
     from se_tpu_torch.ops import fused_gru_inproj as k3
 
     dev = resolve_device("cuda")
-    rng = np.random.default_rng(SEED + 3)
+    bf16 = dtype == torch.bfloat16
+    tag = "k3 bf16" if bf16 else "k3"
+    rng = np.random.default_rng(SEED + (9 if bf16 else 3))
 
     def check(label, T, L, Bb, In, H):
         """The wrapper's forward against the plain version; the backward
-        against its plain version, two calls bit-identical.  Returns the
-        inputs, the kernel's ys, seeded cotangents and the errors."""
-        args = _gru_inputs(rng, dev, T, L, Bb, In, H)
-        cots = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
-                for s in ((T, L, Bb, H), (L, Bb, H))]
+        against its plain version on the kernel's ys.  Returns the inputs,
+        ys, seeded cotangents and the errors."""
+        x, *rest = _gru_inputs(rng, dev, T, L, Bb, In, H)
+        args = (x.to(dtype), *rest)
+        dys, dhT = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+                    for s in ((T, L, Bb, H), (L, Bb, H))]
+        cots = (dys.to(dtype), dhT)
         with torch.no_grad():
             ys, hT = k3.fused_gru_scan_inproj(*args)
             ys_p, hT_p = k3.fused_gru_scan_inproj_reference(*args)
@@ -970,86 +1003,127 @@ def phase_gru_kernels() -> tuple:
             again = k3.fused_gru_scan_inproj_backward(*args, ys, *cots)
             want = k3.fused_gru_scan_inproj_backward_reference(*args, ys, *cots)
             torch.cuda.synchronize()
-        fwd_errs = {"ys": _max_err(ys, ys_p), "hT": _max_err(hT, hT_p)}
+        assert ys.dtype == got[0].dtype == dtype and hT.dtype == torch.float32, label
+        assert all(g.dtype == torch.float32 for g in got[1:]), label
         rel = {n: _max_err(g, w) / max(w.abs().max().item(), 1e-30)
                for n, g, w in zip(_K3B_NAMES, got, want)}
-        bwd_abs = max(_max_err(g, w) for g, w in zip(got, want))
-        print(f"[k3] {label} T={T} L={L} Bb={Bb} In={In} H={H}: forward max |kernel - plain| "
-              f"{fwd_errs}; backward max |kernel - plain| / max |plain| {rel}, max abs {bwd_abs}")
-        assert all(np.isfinite(v) and v <= KERNEL_TOL for v in fwd_errs.values()), (label, fwd_errs)
+        e = {"fwd_abs": max(_max_err(ys, ys_p), _max_err(hT, hT_p)),
+             "bwd_abs": max(_max_err(g, w) for g, w in zip(got, want)),
+             "bwd_rel": max(rel.values())}
+        if bf16:  # the bf16 outputs element by element; hT and the rest as in f32
+            e["ys"] = _bf16_errs(ys, ys_p, KERNEL_TOL)
+            e["dx"] = _bf16_errs(got[0], want[0], BWD_REL_TOL * want[0].abs().max().item())
+            del rel["dx"]
+            e["bwd_rel"] = max(rel.values())
+            fwd_ok = _max_err(hT, hT_p) <= KERNEL_TOL and e["ys"]["within"] <= 1
+            bf16_part = f"; bf16 ys {e['ys']}, dx {e['dx']}"
+        else:
+            fwd_ok = e["fwd_abs"] <= KERNEL_TOL
+            bf16_part = ""
+        print(f"[{tag}] {label} T={T} L={L} Bb={Bb} In={In} H={H}: forward max |kernel - plain| "
+              f"{e['fwd_abs']} (tolerance {KERNEL_TOL}); backward max |kernel - plain| / "
+              f"max |plain| {rel} (tolerance {BWD_REL_TOL}), max abs {e['bwd_abs']}{bf16_part}")
+        assert np.isfinite(e["fwd_abs"]) and fwd_ok, (label, e)
+        assert not bf16 or e["dx"]["within"] <= 1, (label, e["dx"])
         assert all(np.isfinite(v) and v <= BWD_REL_TOL for v in rel.values()), (label, rel)
         assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{label}: backward not repeatable"
-        return args, ys, cots, max(fwd_errs.values()), max(rel.values()), bwd_abs
+        return args, ys, cots, e
 
     for case in (("ragged", 9, 3, 5, 33, 32), ("ragged 8-row tiles", 9, 1, 1069, 33, 64)):
         check(*case)
-    print("[k3] every case: two backward calls bit-identical")
+    print(f"[{tag}] every case: two backward calls bit-identical")
 
     T = 163
-    per_layer = {}
-    total = dict.fromkeys(("fwd_ms", "bwd_ms", "lib_fwd_ms", "lib_bwd_ms", "plain_fwd_ms",
-                           "plain_bwd_ms", "fwd_bytes", "fwd_flops", "bwd_bytes", "bwd_flops"), 0.0)
-    errs = {"fwd": 0.0, "bwd_rel": 0.0, "bwd_abs": 0.0}
+    keys = ("ms", "f32_ms", "plain_ms", "library_ms", "bytes", "flops")
+    tot = {kind: dict.fromkeys(keys, 0.0) for kind in ("fwd", "bwd")}
+    worst = {"fwd_abs": 0.0, "bwd_abs": 0.0, "bwd_rel": 0.0, "ys_ulps": 0.0, "dx_ulps": 0.0}
+    per_layer, lib_dtype = {}, None
     for label, per_utt, In, H in _FSN_LAYERS:
         for B in _FSN_TRAIN_BATCHES:
             check(f"{label} B={B}", T, 1, B * per_utt, In, H)
-        Bb8 = 8 * per_utt
-        args, ys, cots, f_err, b_rel, b_abs = check(f"{label} B=8", T, 1, Bb8, In, H)
-        errs = {"fwd": max(errs["fwd"], f_err), "bwd_rel": max(errs["bwd_rel"], b_rel),
-                "bwd_abs": max(errs["bwd_abs"], b_abs)}
-        lib = _cudnn_gru(args[1], args[2], args[3], args[4], dev)
+        args, ys, cots, e = check(f"{label} B=8", T, 1, 8 * per_utt, In, H)
+        worst.update({k: max(worst[k], e[k]) for k in ("fwd_abs", "bwd_abs", "bwd_rel")})
+        if bf16:
+            worst.update(ys_ulps=max(worst["ys_ulps"], e["ys"]["ulps"]),
+                         dx_ulps=max(worst["dx_ulps"], e["dx"]["ulps"]))
+        x, w_ih, b_ih, w_hh, b_hh, h0 = args
         with torch.no_grad():
-            lib_err = _max_err(lib(args[0][:, 0], args[5])[0], ys[:, 0])
-        print(f"[k3] {label}: max |cuDNN GRU - kernel| ys {lib_err}")
-        t = _time_scan(lambda: k3.fused_gru_scan_inproj(*args),
-                       lambda: k3.fused_gru_scan_inproj_backward(*args, ys, *cots),
-                       lib, (args[0][:, 0], args[5]), cots)
-        with torch.no_grad():
-            t["plain_fwd_ms"] = cuda_ms(lambda: k3.fused_gru_scan_inproj_reference(*args),
-                                         iters=2, warmup=1)
-            t["plain_bwd_ms"] = cuda_ms(
-                lambda: k3.fused_gru_scan_inproj_backward_reference(*args, ys, *cots),
-                iters=1, warmup=1)
-        G = 3 * H
-        n_in = sum(a.numel() for a in args)
-        # forward: read the inputs, write ys and hT; backward: read the
-        # inputs, ys, dys and dhT, write the six gradients
-        t["fwd_bytes"] = 4 * (n_in + ys.numel() + args[5].numel())
-        t["fwd_flops"] = 2 * T * Bb8 * (In + H) * G
-        t["bwd_bytes"] = 4 * (2 * n_in + 2 * ys.numel() + args[5].numel())
-        t["bwd_flops"] = 3 * 2 * T * Bb8 * (In + H) * G
-        per_layer[label] = {k: v for k, v in t.items()}
-        for k in total:
-            total[k] += t[k]
-        print(f"[k3] {label} B=8: {t}")
+            t = {"fwd": {"ms": cuda_ms(lambda: k3.fused_gru_scan_inproj(*args), 3, 1),
+                         "plain_ms": cuda_ms(lambda: k3.fused_gru_scan_inproj_reference(*args),
+                                             1, 1)},
+                 "bwd": {"ms": cuda_ms(lambda: k3.fused_gru_scan_inproj_backward(
+                             *args, ys, *cots), 3, 1),
+                         "plain_ms": cuda_ms(lambda: k3.fused_gru_scan_inproj_backward_reference(
+                             *args, ys, *cots), 1, 1)}}
+            if bf16:  # the f32 form on the same values
+                args32, cots32 = (x.float(), *args[1:]), (cots[0].float(), cots[1])
+                ys32, _ = k3.fused_gru_scan_inproj(*args32)
+                t["fwd"]["f32_ms"] = cuda_ms(lambda: k3.fused_gru_scan_inproj(*args32), 3, 1)
+                t["bwd"]["f32_ms"] = cuda_ms(lambda: k3.fused_gru_scan_inproj_backward(
+                    *args32, ys32, *cots32), 3, 1)
+                del ys32
+            else:
+                t["fwd"]["f32_ms"], t["bwd"]["f32_ms"] = t["fwd"]["ms"], t["bwd"]["ms"]
+        if not bf16:
+            with torch.no_grad():
+                lib_err = _max_err(_cudnn_gru(w_ih, b_ih, w_hh, b_hh, dev)(x[:, 0], h0)[0],
+                                   ys[:, 0])
+            print(f"[{tag}] {label}: max |cuDNN GRU - kernel| ys {lib_err}")
+        lib_f, lib_b, lib_dtype = _cudnn_yardstick(
+            [_cudnn_gru(w_ih, b_ih, w_hh, b_hh, dev)], [(x[:, 0], h0)],
+            [(cots[0][:, 0], cots[1])], dtypes=(dtype, torch.float32) if bf16 else (dtype,))
+        t["fwd"]["library_ms"], t["bwd"]["library_ms"] = lib_f, lib_b
+        Bb, G = x.shape[2], 3 * H
+        n_w = w_ih.numel() + b_ih.numel() + w_hh.numel() + b_hh.numel()
+        s = x.element_size()
+        # forward: read x, the weights and h0, write ys and hT; backward:
+        # read x, ys and dys, the weights, h0 and dhT, write dx, the weight
+        # gradients and dh0; x, ys, dys and dx in the stream's dtype
+        t["fwd"]["bytes"] = s * (x.numel() + ys.numel()) + 4 * (n_w + 2 * h0.numel())
+        t["fwd"]["flops"] = 2 * T * Bb * (In + H) * G
+        t["bwd"]["bytes"] = s * (2 * x.numel() + 2 * ys.numel()) + 4 * (2 * n_w + 3 * h0.numel())
+        t["bwd"]["flops"] = 3 * 2 * T * Bb * (In + H) * G
+        per_layer[label] = t
+        for kind in tot:
+            for k in keys:
+                tot[kind][k] += t[kind][k]
+        print(f"[{tag}] {label} B=8: {t}; cuDNN in {lib_dtype}")
 
-    f_bound, f_by = _bound(total["fwd_bytes"], total["fwd_flops"])
-    b_bound, b_by = _bound(total["bwd_bytes"], total["bwd_flops"])
-    print(f"[k3] one FullSubNet-GRU forward's four calls at B=8: kernel {total['fwd_ms']:.4f} ms, "
-          f"plain {total['plain_fwd_ms']:.4f}, cuDNN {total['lib_fwd_ms']:.4f}, bound "
-          f"{f_bound:.4f} ({f_by}: {total['fwd_bytes']:.0f} B, {total['fwd_flops']:.0f} FLOP); "
-          f"backward kernel {total['bwd_ms']:.4f} ms, plain {total['plain_bwd_ms']:.4f}, cuDNN "
-          f"{total['lib_bwd_ms']:.4f}, bound {b_bound:.4f} ({b_by}: {total['bwd_bytes']:.0f} B, "
-          f"{total['bwd_flops']:.0f} FLOP); scratch at sb l1: "
-          f"{4 * T * 2056 * 4 * 384} B")
+    print(f"[{tag}] scratch at sb l1: {4 * T * 2056 * 4 * 384} B")
+    suffix = "_bf16" if bf16 else ""
     common = {"route": "cuda", "source": "se_tpu_torch/csrc/gru_inproj.cu",
-              "shapes": "sum of FullSubNet-GRU's four layer calls at B=8 x 3 s (T=163)"}
-    fwd = {"name": "fused_gru_scan_inproj_fwd",
-           "replaces": "se_tpu/ops/pallas_lstm.py:702::_gru_call", **common,
-           "max_abs_err": errs["fwd"], "ms": total["fwd_ms"], "kernel_ms": total["fwd_ms"],
-           "plain_ms": total["plain_fwd_ms"], "bound_ms": f_bound, "bound_by": f_by,
-           "library_ms": total["lib_fwd_ms"],
-           "per_layer_ms": {k: v["fwd_ms"] for k, v in per_layer.items()},
-           "per_layer_library_ms": {k: v["lib_fwd_ms"] for k, v in per_layer.items()}}
-    bwd = {"name": "fused_gru_scan_inproj_bwd",
-           "replaces": "se_tpu/ops/pallas_lstm.py:762::_gru_bwd", **common,
-           "max_abs_err": errs["bwd_abs"], "max_rel_err": errs["bwd_rel"],
-           "ms": total["bwd_ms"], "kernel_ms": total["bwd_ms"],
-           "plain_ms": total["plain_bwd_ms"], "bound_ms": b_bound, "bound_by": b_by,
-           "library_ms": total["lib_bwd_ms"],
-           "per_layer_ms": {k: v["bwd_ms"] for k, v in per_layer.items()},
-           "per_layer_library_ms": {k: v["lib_bwd_ms"] for k, v in per_layer.items()}}
-    return fwd, bwd
+              "shapes": "sum of FullSubNet-GRU's four layer calls at B=8 x 3 s (T=163)",
+              "library_dtype": lib_dtype}
+    entries = {}
+    for kind, name, replaces in (
+            ("fwd", "fused_gru_scan_inproj_fwd", "se_tpu/ops/pallas_lstm.py:702::_gru_call"
+             + (" (bf16 stream: :614, :618, :734)" if bf16 else "")),
+            ("bwd", "fused_gru_scan_inproj_bwd", "se_tpu/ops/pallas_lstm.py:762::_gru_bwd"
+             + (" (bf16 stream: :643, :667, :807)" if bf16 else ""))):
+        t = tot[kind]
+        bound_ms, bound_by = _bound(t["bytes"], t["flops"])
+        print(f"[{tag}] K3{kind[0]} one FullSubNet-GRU "
+              f"{'forward' if kind == 'fwd' else 'step'}'s four calls at B=8: kernel "
+              f"{t['ms']:.4f} ms, f32 form {t['f32_ms']:.4f}, plain {t['plain_ms']:.4f}, cuDNN "
+              f"({lib_dtype}) {t['library_ms']:.4f}, bound {bound_ms:.4f} ({bound_by}: "
+              f"{t['bytes']:.0f} B, {t['flops']:.0f} FLOP)")
+        err = {"max_abs_err": worst[f"{kind}_abs"]}
+        if kind == "bwd":
+            err["max_rel_err"] = worst["bwd_rel"]
+        if bf16:
+            err[("ys" if kind == "fwd" else "dx") + "_max_ulps"] = worst[
+                ("ys" if kind == "fwd" else "dx") + "_ulps"]
+        entries[kind] = {"name": name + suffix, "replaces": replaces, **common, **err,
+                         "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": t["library_ms"],
+                         "per_layer_ms": {k: v[kind]["ms"] for k, v in per_layer.items()},
+                         "per_layer_library_ms": {k: v[kind]["library_ms"]
+                                                  for k, v in per_layer.items()}}
+        if bf16:
+            entries[kind].update(f32_form_ms=t["f32_ms"], per_layer_f32_form_ms={
+                k: v[kind]["f32_ms"] for k, v in per_layer.items()})
+    return entries["fwd"], entries["bwd"]
 
 
 # DCCRN's six encoder stages: (C, Co, F) of the doubled-batch conv (the
@@ -1062,13 +1136,19 @@ _CONV_STAGES = ((1, 32, 256), (16, 64, 128), (32, 128, 64), (64, 256, 32), (128,
 CONV_REL_TOL = 2e-5
 
 
-def phase_conv_kernel() -> dict:
-    """fused_complex_conv2d (K4) against its plain version (cuDNN on the
-    causally padded input) at the six encoder stages of the default DCCRN
-    at the enhance batch (B=8: B2=16) and the train batch (B=10: B2=20),
-    T=483 frames (3 s), and a ragged case; two calls bit-identical.  Times,
-    with one cuDNN conv of the same function beside them, at B=8; the
-    headline numbers are the sums over one forward's six calls."""
+def phase_conv_kernel(dtype=torch.float32) -> dict:
+    """fused_complex_conv2d (K4) in the form of ``dtype`` against its plain
+    version (cuDNN on the causally padded input) at the six encoder stages
+    of the default DCCRN at the enhance batch (B=8: B2=16) and the train
+    batch (B=10: B2=20), T=483 frames (3 s), and a ragged case, also
+    against the plain version on the CPU; two calls bit-identical.  The
+    bf16 form takes bf16 x and the f32 w and b, which the wrapper casts to
+    bf16; it sums in f32 and rounds y once (each element within one bf16
+    ulp of the plain version).  Times, with one cuDNN conv of the same
+    function in the same dtype beside them (bf16: and the f32 form on the
+    same values), at B=8; the bound from the dtype's bytes and its
+    products' peak rate (bf16's on the tensor cores); the headline numbers
+    are the sums over one forward's six calls."""
     import torch.nn.functional as F
 
     from se_tpu_torch.device import resolve_device
@@ -1076,70 +1156,95 @@ def phase_conv_kernel() -> dict:
     from se_tpu_torch.ops import fused_conv
 
     dev = resolve_device("cuda")
-    rng = np.random.default_rng(SEED + 4)
+    bf16 = dtype == torch.bfloat16
+    tag = "k4 bf16" if bf16 else "k4"
+    rng = np.random.default_rng(SEED + (10 if bf16 else 4))
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
     T = 483
+
+    def errs(got, want) -> dict:
+        scale = want.float().abs().max().item()
+        if bf16:
+            e = _bf16_errs(got, want, CONV_REL_TOL * scale)
+            return {**e, "ok": e["within"] <= 1}
+        err = _max_err(got, want)
+        return {"abs": err, "rel": err / scale, "ok": err <= CONV_REL_TOL * scale}
 
     def check(label, B2, C, Co, Fq, T):
         host = (rng.standard_normal((B2, C, Fq, T)), rng.standard_normal((Co, C, 5, 2)) * 0.05,
                 rng.standard_normal(Co))
-        args = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in host]
+        x, w, b = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in host]
+        args = (x.to(dtype), w, b)
         with torch.no_grad():
             got = fused_conv.fused_complex_conv2d(*args)
             again = fused_conv.fused_complex_conv2d(*args)
             want = fused_conv.reference(*args)
             torch.cuda.synchronize()
-        err = _max_err(got, want)
-        rel = err / want.abs().max().item()
-        print(f"[k4] {label} B2={B2} C={C} Co={Co} F={Fq} T={T}: max |kernel - plain| {err} "
-              f"({rel:.3g} of the output's max; tolerance {CONV_REL_TOL})")
-        assert tuple(got.shape) == (B2, Co, Fq // 2, T) and np.isfinite(err), label
-        assert rel <= CONV_REL_TOL, (label, rel)
+        e = errs(got, want)
+        print(f"[{tag}] {label} B2={B2} C={C} Co={Co} F={Fq} T={T}: y vs plain {e} "
+              f"(tolerance {'one bf16 ulp' if bf16 else CONV_REL_TOL} of the output's max)")
+        assert got.dtype == dtype and tuple(got.shape) == (B2, Co, Fq // 2, T), label
+        assert np.isfinite(e["abs"]) and e["ok"], (label, e)
         assert torch.equal(got, again), f"{label}: K4 not repeatable"
-        return args, got, err, rel
+        return args, got, e
 
-    args, y, _, _ = check("ragged", 3, 3, 40, 20, 37)
+    args, y, _ = check("ragged", 3, 3, 40, 20, 37)
     # the CPU sums in another order than cuDNN, which may match K4's bits
-    cpu_err = _max_err(y.cpu(), fused_conv.reference(*(a.cpu() for a in args)))
-    print(f"[k4] ragged: max |kernel - plain on the CPU| {cpu_err} (tolerance "
-          f"{CONV_REL_TOL} of the output's max)")
-    assert cpu_err <= CONV_REL_TOL * y.abs().max().item(), cpu_err
-    total = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops"), 0.0)
-    errs = {"abs": 0.0, "rel": 0.0}
+    e = errs(y.cpu(), fused_conv.reference(*(a.cpu() for a in args)))
+    print(f"[{tag}] ragged: y vs plain on the CPU {e}")
+    assert e["ok"], e
+    tot = dict.fromkeys(("ms", "f32_ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops"),
+                        0.0)
+    worst = {"abs": 0.0, "rel": 0.0, "ulps": 0.0}
     per_stage = {}
     for B in (10, 8):
         for i, (C, Co, Fq) in enumerate(_CONV_STAGES):
-            args, y, err, rel = check(f"stage {i + 1} B={B}", 2 * B, C, Co, Fq, T)
-            errs = {"abs": max(errs["abs"], err), "rel": max(errs["rel"], rel)}
+            (x, w, b), y, e = check(f"stage {i + 1} B={B}", 2 * B, C, Co, Fq, T)
+            worst = {k: max(worst[k], e.get(k, 0.0)) for k in worst}
             if B != 8:
                 continue
-            x, w, b = args
+            x32, wd, bd = x.float(), w.to(dtype), b.to(dtype)
             with torch.no_grad():
-                t = {"ms": cuda_ms(lambda: fused_conv.fused_complex_conv2d(*args), 20, 3),
-                     "plain_ms": cuda_ms(lambda: fused_conv.reference(*args), 20, 3),
-                     # yardstick, never on the port's path: one cuDNN call, the
-                     # time padding on both sides and the extra last frame unread
-                     "library_ms": cuda_ms(lambda: F.conv2d(x, w, b, stride=(2, 1),
+                t = {"ms": cuda_ms(lambda: fused_conv.fused_complex_conv2d(x, w, b), 20, 3),
+                     "plain_ms": cuda_ms(lambda: fused_conv.reference(x, w, b), 20, 3),
+                     # yardstick, never on the port's path: one cuDNN call in
+                     # the same dtype, the time padding on both sides and the
+                     # extra last frame unread
+                     "library_ms": cuda_ms(lambda: F.conv2d(x, wd, bd, stride=(2, 1),
                                                              padding=(2, 1)), 20, 3)}
-            t["bytes"] = 4 * (x.numel() + w.numel() + b.numel() + y.numel())
+                t["f32_ms"] = (cuda_ms(lambda: fused_conv.fused_complex_conv2d(x32, w, b), 20, 3)
+                               if bf16 else t["ms"])
+            s = x.element_size()
+            t["bytes"] = s * (x.numel() + w.numel() + b.numel() + y.numel())
             t["flops"] = 2 * y.numel() * 10 * C
-            t["bound_ms"] = _bound(t["bytes"], t["flops"])[0]
+            t["bound_ms"] = _bound(t["bytes"], t["flops"], peak)[0]
             per_stage[f"stage {i + 1}"] = t
-            for k in total:
-                total[k] += t[k]
-            print(f"[k4] stage {i + 1} B=8: {t}")
-    bound_by = _bound(total["bytes"], total["flops"])[1]
-    print(f"[k4] one DCCRN forward's six calls at B=8: kernel {total['ms']:.4f} ms, plain "
-          f"{total['plain_ms']:.4f}, cuDNN {total['library_ms']:.4f}, bound {total['bound_ms']:.4f} "
-          f"(sum of the stages' bounds; {total['bytes']:.0f} B, {total['flops']:.0f} FLOP)")
-    return {"name": "fused_complex_conv2d_fwd", "route": "cuda",
-            "source": "se_tpu_torch/csrc/complex_conv.cu",
-            "replaces": "se_tpu/ops/pallas_conv.py:88::_pallas_conv",
-            "shapes": "sum of the default DCCRN's six encoder convs at B=8 x 3 s (T=483)",
-            "max_abs_err": errs["abs"], "max_rel_err": errs["rel"], "ms": total["ms"],
-            "kernel_ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
-            "bound_by": bound_by, "library_ms": total["library_ms"],
-            "per_stage_ms": {k: v["ms"] for k, v in per_stage.items()},
-            "per_stage_library_ms": {k: v["library_ms"] for k, v in per_stage.items()}}
+            for k in tot:
+                tot[k] += t[k]
+            print(f"[{tag}] stage {i + 1} B=8: {t}")
+    bound_by = _bound(tot["bytes"], tot["flops"], peak)[1]
+    print(f"[{tag}] one DCCRN forward's six calls at B=8: kernel {tot['ms']:.4f} ms, f32 form "
+          f"{tot['f32_ms']:.4f}, plain {tot['plain_ms']:.4f}, cuDNN ({dtype}) "
+          f"{tot['library_ms']:.4f}, bound {tot['bound_ms']:.4f} (sum of the stages' bounds at "
+          f"{peak / 1e12:.0f} TFLOP/s and {PEAK_BYTES_PER_S / 1e12} TB/s; {tot['bytes']:.0f} B, "
+          f"{tot['flops']:.0f} FLOP)")
+    entry = {"name": "fused_complex_conv2d_fwd" + ("_bf16" if bf16 else ""), "route": "cuda",
+             "source": "se_tpu_torch/csrc/complex_conv.cu",
+             "replaces": "se_tpu/ops/pallas_conv.py:88::_pallas_conv"
+                         + (" (bf16: :81, :122-123)" if bf16 else ""),
+             "shapes": "sum of the default DCCRN's six encoder convs at B=8 x 3 s (T=483)",
+             "max_abs_err": worst["abs"], "ms": tot["ms"], "kernel_ms": tot["ms"],
+             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"], "bound_by": bound_by,
+             "bound_peak_flops": peak, "library_ms": tot["library_ms"],
+             "library_dtype": str(dtype),
+             "per_stage_ms": {k: v["ms"] for k, v in per_stage.items()},
+             "per_stage_library_ms": {k: v["library_ms"] for k, v in per_stage.items()}}
+    if bf16:
+        entry.update(y_max_ulps=worst["ulps"], f32_form_ms=tot["f32_ms"],
+                     per_stage_f32_form_ms={k: v["f32_ms"] for k, v in per_stage.items()})
+    else:
+        entry["max_rel_err"] = worst["rel"]
+    return entry
 
 
 # the probes run at FullSubNet's sub band at B=8 x 3 s, beside K2's rows
@@ -1348,24 +1453,26 @@ def _cancelled_by_batch_norm(state_dict) -> set:
 
 def _counters() -> dict:
     """Every hand kernel form's launch count, by its row in PERF.md's
-    table: ``(wrapper, attribute)``.  The bf16-stream forms of K1 and K2
-    count on their own attribute, so a path's exact counts show which form
-    ran."""
+    table: ``(wrapper, attribute)``.  The bf16 forms of K1-K4 count on their
+    own attribute, so a path's exact counts show which form ran."""
     from se_tpu_torch.ops import fused_conv, fused_gru_inproj, fused_lstm, fused_lstm_inproj
     from se_tpu_torch.probes import bound_probe, vpu_probe, wavefront_probe
 
     k1f, k1b = fused_lstm.fused_lstm_scan, fused_lstm.fused_lstm_scan_backward
     k2f = fused_lstm_inproj.fused_lstm_scan_inproj
     k2b = fused_lstm_inproj.fused_lstm_scan_inproj_backward
+    k3f = fused_gru_inproj.fused_gru_scan_inproj
+    k3b = fused_gru_inproj.fused_gru_scan_inproj_backward
+    k4 = fused_conv.fused_complex_conv2d
     return {"K1f": (k1f, "launches"), "K1b": (k1b, "launches"),
             "K2f": (k2f, "launches"), "K2b": (k2b, "launches"),
-            "K3f": (fused_gru_inproj.fused_gru_scan_inproj, "launches"),
-            "K3b": (fused_gru_inproj.fused_gru_scan_inproj_backward, "launches"),
-            "K4": (fused_conv.fused_complex_conv2d, "launches"),
+            "K3f": (k3f, "launches"), "K3b": (k3b, "launches"), "K4": (k4, "launches"),
             "P1": (bound_probe.run, "launches"), "P2": (wavefront_probe.wavefront_lstm2, "launches"),
             "P3": (vpu_probe.run, "launches"),
             "K1f-bf16": (k1f, "launches_bf16"), "K1b-bf16": (k1b, "launches_bf16"),
-            "K2f-bf16": (k2f, "launches_bf16"), "K2b-bf16": (k2b, "launches_bf16")}
+            "K2f-bf16": (k2f, "launches_bf16"), "K2b-bf16": (k2b, "launches_bf16"),
+            "K3f-bf16": (k3f, "launches_bf16"), "K3b-bf16": (k3b, "launches_bf16"),
+            "K4-bf16": (k4, "launches_bf16")}
 
 
 def _zero_counts():
@@ -1424,9 +1531,10 @@ def _paths() -> dict:
                            {"K3f": 4}, {"K3b": 4},
                            ["--model", "FullSubNet", "--sequence-model", "GRU"]),
         # compute_dtype="bfloat16" on the f32 paths' weights: the complex
-        # LSTM on K1's bf16-stream form, CRN's LSTM on K2's; DCCRN's real
-        # LSTM runs in f32 under bf16 (se_tpu/models/dccrn.py:215-222), so on
-        # K2's f32 form
+        # LSTM on K1's bf16-stream form, CRN's and FullSubNet's LSTMs on K2's,
+        # FullSubNet's GRUs on K3's, the fused encoder convs on K4's bf16
+        # form; DCCRN's real LSTM runs in f32 under bf16
+        # (se_tpu/models/dccrn.py:215-222), so on K2's f32 form
         "DCCRN-bf16": (bf16(dccrn), state_dict_from_jax(*random_dccrn_params(dccrn, SEED), dccrn),
                        {"K1f-bf16": dccrn.dccrn.rnn_layers},
                        {"K1b-bf16": dccrn.dccrn.rnn_layers},
@@ -1436,6 +1544,20 @@ def _paths() -> dict:
         "DCCRN-real-bf16": (bf16(real), state_dict_from_jax(*random_dccrn_params(real, SEED), real),
                             {"K2f": 2}, {"K2b": 2},
                             ["--model", "DCCRN", "--lstm", "real", *BF16_CLI]),
+        "FullSubNet-bf16": (bf16(fsn), state_dict_from_jax(*random_fullsubnet_params(fsn, SEED),
+                                                           fsn),
+                            {"K2f-bf16": 4}, {"K2b-bf16": 4},
+                            ["--model", "FullSubNet", *BF16_CLI]),
+        "FullSubNet-GRU-bf16": (bf16(fsn_gru), state_dict_from_jax(
+                                    *random_fullsubnet_params(fsn_gru, SEED), fsn_gru),
+                                {"K3f-bf16": 4}, {"K3b-bf16": 4},
+                                ["--model", "FullSubNet", "--sequence-model", "GRU", *BF16_CLI]),
+        # no CLI run, as for DCCRN-fused-conv
+        "DCCRN-fused-conv-bf16": (bf16(fused), state_dict_from_jax(
+                                      *random_dccrn_params(fused, SEED), fused),
+                                  {"K4-bf16": len(fused.dccrn.kernel_num),
+                                   "K1f-bf16": fused.dccrn.rnn_layers},
+                                  {"K1b-bf16": fused.dccrn.rnn_layers}, None),
     }
 
 
@@ -1486,14 +1608,16 @@ def phase_train(label: str, cfg, sd, per_fwd: dict, per_bwd: dict, steps: int) -
                        _leaf_rel_errs(_grads_and_stats(model2)[0], grads, cancelled)))
     if bf16:
         rel = _leaf_rel_errs(grads, cpu_grads, (), GRAD_FLOOR * scale)
-        lstm = {k: v for k, v in rel.items() if k.startswith("enhance.")}
+        lstm = {k: v for k, v in rel.items() if k.startswith(_BOTTLENECK)}
         report.append((f"card vs cpu, over max(leaf's max, {GRAD_FLOOR} x {scale:.4g})", rel))
         report.append(("the bottleneck's leaves, the same", lstm))
+        fsn = cfg.model == "FullSubNet"
+        grad_tol = FSN_BF16_GRAD_TOL if fsn else BF16_GRAD_TOL
+        lstm_tol = FSN_BF16_LSTM_GRAD_TOL if fsn else BF16_LSTM_GRAD_TOL
         lstm_key = max(lstm, key=lstm.get)
         print(f"[train {label}] bf16: worst bottleneck leaf {lstm_key} {lstm[lstm_key]:.3g} "
-              f"(tolerance {BF16_LSTM_GRAD_TOL})")
-        assert lstm[lstm_key] <= BF16_LSTM_GRAD_TOL, (lstm_key, lstm[lstm_key])
-        grad_tol = BF16_GRAD_TOL
+              f"(tolerance {lstm_tol})")
+        assert lstm[lstm_key] <= lstm_tol, (lstm_key, lstm[lstm_key])
     else:
         for k in cancelled:
             assert max(grads[k].abs().max().item(),
@@ -1594,18 +1718,15 @@ def _utterances(n: int, seconds: int, fs: int) -> tuple:
     return noisy, clean
 
 
-def phase_slice(workdir: Path, label: str, cfg, sd, per_forward: dict, cli_args) -> tuple:
+def phase_slice(label: str, cfg, sd, per_forward: dict) -> tuple:
     """An enhance path at full width: ``enhance_batch`` on 8 three-second
     utterances (the main path: every count set to 0 just before, read just
-    after), the validation forward, speed and a profile, then the enhance
-    CLI in a process of its own (unless ``cli_args`` is None) while this one
-    runs the same weights on the CPU.  Returns the main path's launches and
-    its enhanced waveform on the host."""
-    from se_tpu_torch.data.wav import read_wav, write_wav
+    after), the validation forward, speed and a profile, then the same
+    weights on the CPU.  Returns the main path's launches and its enhanced
+    waveform on the host."""
     from se_tpu_torch.enhance import enhance_batch
     from se_tpu_torch.models import build_model
     from se_tpu_torch.train.steps import eval_step
-    from se_tpu_torch.utils.weights import save_reference_checkpoint
 
     fs, B, seconds = cfg.stft.fs, 8, 3
     model = build_model(cfg, device="cuda")
@@ -1646,46 +1767,75 @@ def phase_slice(workdir: Path, label: str, cfg, sd, per_forward: dict, cli_args)
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     _profile(lambda: enhance_batch(model, noisy), steps=3)
 
-    # the enhance CLI on the card, against the same weights in process; it
-    # runs in its own process while this one runs the CPU on the same weights
-    proc = None
-    if cli_args is not None:
-        ckpt = save_reference_checkpoint(str(workdir / f"{label}.pt"), sd)
-        n = noisy.shape[1]  # 48000: files of 3, 2.5 and 1.25 s
-        lengths = {"a.wav": n, "b.wav": n * 5 // 6, "c.wav": n * 5 // 12}
-        for i, (name, L) in enumerate(lengths.items()):
-            write_wav(str(workdir / name), noisy[i, :L], fs)
-        out_dir = workdir / f"enhanced-{label}"
-        cmd = [sys.executable, "-m", "se_tpu_torch.enhance", "--checkpoint", ckpt, *cli_args,
-               "--batch", "2", "--device", "cuda",
-               *[str(workdir / n) for n in lengths], "--out-dir", str(out_dir)]
-        proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True)
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_model.load_state_dict(sd, strict=True)
+    cpu_metrics, cpu_wav = eval_step(cfg, cpu_model, noisy, clean)
+    err = _max_err(wav.cpu(), cpu_wav)
+    mean_err = (wav.cpu() - cpu_wav).abs().mean().item()
+    loss, cpu_loss = metrics["loss"].item(), cpu_metrics["loss"].item()
+    bf16 = cfg.compute_dtype == "bfloat16"
+    tol, mean_tol, loss_tol = ((BF16_SLICE_TOL, BF16_SLICE_MEAN_TOL, BF16_LOSS_TOL) if bf16
+                               else (SLICE_TOL, SLICE_TOL, 1e-3))
+    loss_err = abs(loss - cpu_loss) / max(1.0, abs(cpu_loss))
+    print(f"[slice {label}] |card - cpu| wav max {err} (tolerance {tol}), mean {mean_err} "
+          f"(tolerance {mean_tol}); {cfg.loss} loss card {loss} cpu {cpu_loss}: relative "
+          f"{loss_err} (tolerance {loss_tol})")
+    assert err <= tol and mean_err <= mean_tol, (err, mean_err)
+    assert np.isfinite(loss) and loss_err <= loss_tol, (loss, cpu_loss)
+    return launches, wav.cpu()
+
+
+def phase_cli(workdir: Path, paths: dict):
+    """The enhance CLI on the card for every path that has CLI arguments,
+    each in a process of its own, all started at once (nothing is timed
+    meanwhile): 3 files of 3, 2.5 and 1.25 s at ``--batch 2``, each output
+    held to ``enhance_batch`` in this process on the buffers the CLI should
+    build, batched as the CLI batches them and one row at a time.  Every
+    process is waited for, or killed."""
+    from se_tpu_torch.data.wav import write_wav
+    from se_tpu_torch.utils.weights import save_reference_checkpoint
+
+    jobs = {}
     try:
-        cpu_model = build_model(cfg, device="cpu")
-        cpu_model.load_state_dict(sd, strict=True)
-        cpu_metrics, cpu_wav = eval_step(cfg, cpu_model, noisy, clean)
-        err = _max_err(wav.cpu(), cpu_wav)
-        mean_err = (wav.cpu() - cpu_wav).abs().mean().item()
-        loss, cpu_loss = metrics["loss"].item(), cpu_metrics["loss"].item()
-        bf16 = cfg.compute_dtype == "bfloat16"
-        tol, mean_tol, loss_tol = ((BF16_SLICE_TOL, BF16_SLICE_MEAN_TOL, BF16_LOSS_TOL) if bf16
-                                   else (SLICE_TOL, SLICE_TOL, 1e-3))
-        loss_err = abs(loss - cpu_loss) / max(1.0, abs(cpu_loss))
-        print(f"[slice {label}] |card - cpu| wav max {err} (tolerance {tol}), mean {mean_err} "
-              f"(tolerance {mean_tol}); {cfg.loss} loss card {loss} cpu {cpu_loss}: relative "
-              f"{loss_err} (tolerance {loss_tol})")
-        assert err <= tol and mean_err <= mean_tol, (err, mean_err)
-        assert np.isfinite(loss) and loss_err <= loss_tol, (loss, cpu_loss)
-        if proc is None:
-            return launches, wav.cpu()
-        stdout, stderr = proc.communicate(timeout=600)
+        for label, (cfg, sd, _, _, cli_args) in paths.items():
+            if cli_args is None:
+                continue
+            fs = cfg.stft.fs
+            noisy, _ = _utterances(8, 3, fs)
+            run_dir = workdir / label
+            run_dir.mkdir()
+            ckpt = save_reference_checkpoint(str(run_dir / "checkpoint.pt"), sd)
+            n = noisy.shape[1]  # 48000: files of 3, 2.5 and 1.25 s
+            lengths = {"a.wav": n, "b.wav": n * 5 // 6, "c.wav": n * 5 // 12}
+            for i, (name, L) in enumerate(lengths.items()):
+                write_wav(str(run_dir / name), noisy[i, :L], fs)
+            cmd = [sys.executable, "-m", "se_tpu_torch.enhance", "--checkpoint", ckpt, *cli_args,
+                   "--batch", "2", "--device", "cuda",
+                   *[str(run_dir / n) for n in lengths], "--out-dir", str(run_dir / "enhanced")]
+            jobs[label] = (subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True), lengths)
+        for label, (proc, lengths) in jobs.items():
+            cfg, sd, _, _, cli_args = paths[label]
+            stdout, stderr = proc.communicate(timeout=600)
+            print(stdout.strip())
+            assert proc.returncode == 0, stderr[-3000:]
+            _check_cli(workdir / label, label, cfg, sd, cli_args, lengths)
     finally:
-        if proc is not None and proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    print(stdout.strip())
-    assert proc.returncode == 0, stderr[-3000:]
+        for proc, _ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _check_cli(run_dir: Path, label: str, cfg, sd, cli_args, lengths: dict):
+    """One CLI run's outputs against ``enhance_batch`` in this process."""
+    from se_tpu_torch.data.wav import read_wav
+    from se_tpu_torch.enhance import enhance_batch
+    from se_tpu_torch.models import build_model
+
+    fs = cfg.stft.fs
+    model = build_model(cfg, device="cuda")
+    model.load_state_dict(sd, strict=True)
     # FullSubNet with an offline norm (an utterance-global statistic) needs
     # room for fft_len / 2 reflected samples past the end
     offline = cfg.model == "FullSubNet" and cfg.fullsubnet.norm_type.startswith("offline")
@@ -1696,7 +1846,7 @@ def phase_slice(workdir: Path, label: str, cfg, sd, per_forward: dict, cli_args)
         # to whole seconds; with the offline norm, the first fft_len / 2 pad
         # samples reflect the tail, x[L + k] = x[L - 2 - k], and the frames
         # from 1 + L // torch_hop on are masked
-        x = read_wav(str(workdir / name))[0].astype(np.float32)
+        x = read_wav(str(run_dir / name))[0].astype(np.float32)
         buf = np.zeros(-(-(L + margin) // fs) * fs, np.float32)
         buf[:L] = x
         frames = None
@@ -1720,7 +1870,7 @@ def phase_slice(workdir: Path, label: str, cfg, sd, per_forward: dict, cli_args)
     for name, L in lengths.items():
         buf, frames = bufs[name]
         single = enhance_batch(model, buf[None], valid_frames=frames)[0, :L].cpu().numpy()
-        got = read_wav(str(out_dir / name))[0]
+        got = read_wav(str(run_dir / "enhanced" / name))[0]
         assert got.shape == (L,), got.shape
         worst_batch = max(worst_batch, float(np.abs(got - to_int16(batched[name][:L])).max()))
         worst_single = max(worst_single, float(np.abs(got - to_int16(single)).max()))
@@ -1732,7 +1882,6 @@ def phase_slice(workdir: Path, label: str, cfg, sd, per_forward: dict, cli_args)
           f"{worst_batch * 32768:.1f} LSB (tolerance 2 LSB), one row at a time "
           f"{worst_single * 32768:.1f} LSB (tolerance {single_tol * 32768:.0f} LSB)")
     assert worst_batch <= CLI_TOL and worst_single <= single_tol, (worst_batch, worst_single)
-    return launches, wav.cpu()
 
 
 def main() -> int:
@@ -1752,32 +1901,40 @@ def main() -> int:
     k3f, k3b = phase_gru_kernels()
     k4 = phase_conv_kernel()
     stamp("K3, K4")
+    k3f16, k3b16 = phase_gru_kernels(torch.bfloat16)
+    k4_16 = phase_conv_kernel(torch.bfloat16)
+    stamp("K3, K4 bf16")
     p1, p2, p3 = phase_probes()
     stamp("probes")
     paths = _paths()
-    build_dir = REPO / "build"
-    build_dir.mkdir(exist_ok=True)
     enhanced, waves = {}, {}
-    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-        for label, (cfg, sd, per_fwd, _, cli_args) in paths.items():
-            enhanced[label], waves[label] = phase_slice(Path(tmp), label, cfg, sd, per_fwd,
-                                                        cli_args)
-            stamp(f"slice {label}")
+    for label, (cfg, sd, per_fwd, _, _) in paths.items():
+        enhanced[label], waves[label] = phase_slice(label, cfg, sd, per_fwd)
+        stamp(f"slice {label}")
     err = _max_err(waves["DCCRN-fused-conv"], waves["DCCRN"])
     print(f"[slice DCCRN-fused-conv] max |K4 encoder - cuDNN block-form encoder| wav {err} "
           f"(tolerance {SLICE_TOL})")
     assert err <= SLICE_TOL, err
-    for label in ("DCCRN", "CRN", "DCCRN-real"):
+    for label in ("DCCRN", "CRN", "DCCRN-real", "FullSubNet", "FullSubNet-GRU",
+                  "DCCRN-fused-conv"):
         diff = (waves[f"{label}-bf16"] - waves[label]).abs()
         print(f"[slice {label}-bf16] |bf16 - f32| wav on the card, same weights and input: mean "
               f"{diff.mean().item()} (tolerance {BF16_VS_F32_MEAN}), max {diff.max().item()}")
         assert diff.mean().item() < BF16_VS_F32_MEAN, diff.mean().item()
+    # both bf16, the encoder's conv rounded once (K4) against twice (cuDNN's
+    # conv, then the bias add), so held as the card to the CPU in bf16
+    diff = (waves["DCCRN-fused-conv-bf16"] - waves["DCCRN-bf16"]).abs()
+    print(f"[slice DCCRN-fused-conv-bf16] |K4 encoder - cuDNN encoder| wav, both bf16: max "
+          f"{diff.max().item()} (tolerance {BF16_SLICE_TOL}), mean {diff.mean().item()} "
+          f"(tolerance {BF16_SLICE_MEAN_TOL})")
+    assert diff.max().item() <= BF16_SLICE_TOL and diff.mean().item() <= BF16_SLICE_MEAN_TOL
     trained = {}
     # DCCRN-fused-conv's main path runs 3 steps, not 10, to keep the script
     # within its time with the bf16 paths added
     for label, steps in (("DCCRN", 10), ("CRN", 10), ("DCCRN-real", 0), ("FullSubNet", 10),
                          ("FullSubNet-GRU", 10), ("DCCRN-fused-conv", 3), ("DCCRN-bf16", 10),
-                         ("CRN-bf16", 10), ("DCCRN-real-bf16", 10)):
+                         ("CRN-bf16", 10), ("DCCRN-real-bf16", 10), ("FullSubNet-bf16", 10),
+                         ("FullSubNet-GRU-bf16", 10), ("DCCRN-fused-conv-bf16", 10)):
         cfg, sd, per_fwd, per_bwd, _ = paths[label]
         trained[label] = phase_train(label, cfg, sd, per_fwd, per_bwd, steps)
         stamp(f"train {label}")
@@ -1790,6 +1947,12 @@ def main() -> int:
     trained["CRN-direct"] = phase_train(
         "CRN-direct", cfg.replace(masking_mode="Direct(None make)"), sd, per_fwd, per_bwd,
         steps=0)
+    stamp("train")
+    build_dir = REPO / "build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        phase_cli(Path(tmp), paths)
+    stamp("CLI")
 
     k2_paths = ("CRN", "DCCRN-real", "FullSubNet")
     k1_paths = ("DCCRN", "DCCRN-fused-conv")
@@ -1815,21 +1978,33 @@ def main() -> int:
               launches_per_forward=enhanced["DCCRN-fused-conv"]["K4"],
               launches_per_train_step=trained["DCCRN-fused-conv"][0]["K4"],
               launches_in_3_train_steps=trained["DCCRN-fused-conv"][1]["K4"])
+    k1_16 = ("DCCRN-bf16", "DCCRN-fused-conv-bf16")
     k1f16.update(launches=enhanced["DCCRN-bf16"]["K1f-bf16"],
-                 launches_per_forward=enhanced["DCCRN-bf16"]["K1f-bf16"],
-                 launches_per_train_step=trained["DCCRN-bf16"][0]["K1f-bf16"])
+                 launches_per_forward={k: enhanced[k]["K1f-bf16"] for k in k1_16},
+                 launches_per_train_step={k: trained[k][0]["K1f-bf16"] for k in k1_16})
     k1b16.update(launches=trained["DCCRN-bf16"][1]["K1b-bf16"],
-                 launches_per_train_step=trained["DCCRN-bf16"][0]["K1b-bf16"],
+                 launches_per_train_step={k: trained[k][0]["K1b-bf16"] for k in k1_16},
                  launches_in_10_steps_adam_mu_bf16=trained["DCCRN-bf16-adam-mu"][1]["K1b-bf16"])
+    k2_16 = ("CRN-bf16", "FullSubNet-bf16")
     k2f16.update(launches=enhanced["CRN-bf16"]["K2f-bf16"],
-                 launches_per_forward=enhanced["CRN-bf16"]["K2f-bf16"],
-                 launches_per_train_step=trained["CRN-bf16"][0]["K2f-bf16"])
+                 launches_per_forward={k: enhanced[k]["K2f-bf16"] for k in k2_16},
+                 launches_per_train_step={k: trained[k][0]["K2f-bf16"] for k in k2_16})
     k2b16.update(launches=trained["CRN-bf16"][1]["K2b-bf16"],
-                 launches_per_train_step=trained["CRN-bf16"][0]["K2b-bf16"])
+                 launches_per_train_step={k: trained[k][0]["K2b-bf16"] for k in k2_16},
+                 launches_in_10_steps_fullsubnet=trained["FullSubNet-bf16"][1]["K2b-bf16"])
+    k3f16.update(launches=enhanced["FullSubNet-GRU-bf16"]["K3f-bf16"],
+                 launches_per_forward=enhanced["FullSubNet-GRU-bf16"]["K3f-bf16"],
+                 launches_per_train_step=trained["FullSubNet-GRU-bf16"][0]["K3f-bf16"])
+    k3b16.update(launches=trained["FullSubNet-GRU-bf16"][1]["K3b-bf16"],
+                 launches_per_train_step=trained["FullSubNet-GRU-bf16"][0]["K3b-bf16"])
+    k4_16.update(launches=enhanced["DCCRN-fused-conv-bf16"]["K4-bf16"],
+                 launches_per_forward=enhanced["DCCRN-fused-conv-bf16"]["K4-bf16"],
+                 launches_per_train_step=trained["DCCRN-fused-conv-bf16"][0]["K4-bf16"],
+                 launches_in_10_train_steps=trained["DCCRN-fused-conv-bf16"][1]["K4-bf16"])
     stamp("every check")
     print(smi)
     print(json.dumps({"kernels": [fwd, bwd, k2f, k2b, k3f, k3b, k4, p1, p2, p3,
-                                  k1f16, k1b16, k2f16, k2b16]}))
+                                  k1f16, k1b16, k2f16, k2b16, k3f16, k3b16, k4_16]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the f32 forms of the LSTM scan kernels K1 and K2 and hash their
-outputs, to compare two checkouts on one card.
+"""Time the f32 forms of the hand kernels K1-K4 and hash their outputs, to
+compare two checkouts on one card.
 
     (cd parent_checkout && python3 /path/to/kernels_ab.py parent)
     python3 kernels_ab.py change
@@ -11,10 +11,11 @@ checkout's kernels with its own ``chip_smoke.phase_build`` (which prints
 each kernel's registers and spills), then times, with CUDA events, K1f at
 DCCRN's enhance shape (T=483, L=2, Bb=16, H=128), K1b at its train shape
 (Bb=20), K2f at CRN's enhance shape (T=483, Bb=8, In=512, H=128), K2b at
-its train shape (Bb=10), and K2f and K2b at FullSubNet's sub band, layer 0
-at B=8 (T=163, Bb=2056, In=32, H=384), on inputs drawn from a fixed seed.
-It prints one line, ``AB <tag> {kernel: [ms, sha256 of its outputs]}``:
-equal hashes mean equal bits.
+its train shape (Bb=10), K2f and K2b at FullSubNet's sub band, layer 0 at B=8 (T=163,
+Bb=2056, In=32, H=384), K3f and K3b at FullSubNet-GRU's sub band, layer 0 at
+B=8 (the same shape), and K4 at the default DCCRN's six encoder stages at
+B=8 (T=483), on inputs drawn from a fixed seed.  It prints one line, ``AB
+<tag> {kernel: [ms, sha256 of its outputs]}``: equal hashes mean equal bits.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from se_tpu_torch.ops import fused_conv  # noqa: E402
+from se_tpu_torch.ops import fused_gru_inproj as k3  # noqa: E402
 from se_tpu_torch.ops import fused_lstm as k1  # noqa: E402
 from se_tpu_torch.ops import fused_lstm_inproj as k2  # noqa: E402
 from se_tpu_torch.probes import cuda_ms  # noqa: E402
@@ -78,6 +81,23 @@ def main(tag: str) -> dict:
                 ms = cuda_ms(lambda: k2.fused_lstm_scan_inproj_backward(*args, ys, cs_, *c),
                              10 if label == "CRN train" else 3, 1)
                 out[f"K2b {label}"] = (ms, _hash(*g))
+    T, Bb, In, H = 163, 2056, 32, 384
+    args = cs._gru_inputs(rng, dev, T, 1, Bb, In, H)
+    with torch.no_grad():
+        ys, hT = k3.fused_gru_scan_inproj(*args)
+        out["K3f sb l0"] = (cuda_ms(lambda: k3.fused_gru_scan_inproj(*args), 5, 2), _hash(ys, hT))
+        c = cots((T, 1, Bb, H), (1, Bb, H))
+        g = k3.fused_gru_scan_inproj_backward(*args, ys, *c)
+        ms = cuda_ms(lambda: k3.fused_gru_scan_inproj_backward(*args, ys, *c), 3, 1)
+        out["K3b sb l0"] = (ms, _hash(*g))
+    for i, (C, Co, Fq) in enumerate(cs._CONV_STAGES):
+        x, w, b = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+            rng.standard_normal((16, C, Fq, 483)), rng.standard_normal((Co, C, 5, 2)) * 0.05,
+            rng.standard_normal(Co))]
+        with torch.no_grad():
+            y = fused_conv.fused_complex_conv2d(x, w, b)
+            ms = cuda_ms(lambda: fused_conv.fused_complex_conv2d(x, w, b), 20, 3)
+        out[f"K4 stage {i + 1}"] = (ms, _hash(y))
     print("AB", tag, json.dumps(out))
     return out
 

@@ -149,11 +149,6 @@ class Config:
             raise ValueError("This setting is not created (Direct + perceptual)")
         if self.model == "FullSubNet" and self.perceptual is not False:
             raise ValueError("This setting is not created (FullSubNet + perceptual)")
-        if self.use_pallas_conv and self.compute_dtype == "bfloat16":
-            raise NotImplementedError(
-                "use_pallas_conv=True with compute_dtype='bfloat16' needs K4's bf16 form, "
-                "not ported yet (ROADMAP.md, Queue 2 A4)"
-            )
 
     def replace(self, **kwargs) -> "Config":
         return dataclasses.replace(self, **kwargs)

@@ -76,8 +76,20 @@
 // The chunk staging and projection, the h . W_hh product and the dh pass
 // are K2's, from lstm_common.cuh, at R rows.
 //
+// The bf16-stream form (pallas_lstm.py:614, :618, :643, :667, :734, :807)
+// takes x, and gives ys, as bf16, and in the backward takes ys and dys as
+// bf16 and gives dx as bf16.  x is upcast as it is staged and projected in
+// f32 with the f32 W_ih; the h carry, the gates, hp_n, the dxp and dhp
+// scratch, hT, dh0 and the weight and bias gradients stay f32.  The
+// backward recomputes from h_prev = the bf16 ys[t-1] upcast (h0, f32, at
+// t = 0), as the Pallas kernel does, so dW_hh sums the rounded ys.  Each
+// stream value is converted at its load or store (to_f32, store_as in
+// lstm_common.cuh), so the f32 form compiles as before.
+//
 // Transcendentals use expf/tanhf (no fast-math) to stay within 1e-5 of the
 // plain PyTorch recurrence per step.
+
+#include <cuda_bf16.h>
 
 #include "lstm_common.cuh"
 
@@ -114,15 +126,15 @@ __device__ __forceinline__ void gru_recurrent_columns(const float* __restrict__ 
   }
 }
 
-template <int R, int C>
+template <int R, int C, typename TS = float>
 __global__ void __launch_bounds__(kMaxThreads)
-gru_inproj_fwd_kernel(const float* __restrict__ x,
+gru_inproj_fwd_kernel(const TS* __restrict__ x,
                       const float* __restrict__ wih_t,
                       const float* __restrict__ b_ih,
                       const float* __restrict__ whh_t,
                       const float* __restrict__ b_hh,
                       const float* __restrict__ h0,
-                      float* __restrict__ ys,
+                      TS* __restrict__ ys,
                       float* __restrict__ hT,
                       int T, int L, int Bb, int In, int H) {
   extern __shared__ float4 smem4[];
@@ -170,7 +182,7 @@ gru_inproj_fwd_kernel(const float* __restrict__ x,
         const float ng = tanhf(g[2 * H + j] + rg * hn_s[r * H + j]);
         const float h = (1.0f - zg) * ng + zg * h_s[j * R + r];
         h_s[j * R + r] = h;
-        ys[(row0 + r) * H + j] = h;
+        store_as(ys + (row0 + r) * H + j, h);
       }
       __syncthreads();
     }
@@ -182,16 +194,16 @@ gru_inproj_fwd_kernel(const float* __restrict__ x,
   }
 }
 
-template <int R, int C>
+template <int R, int C, typename TS = float>
 __global__ void __launch_bounds__(kMaxThreads)
-gru_inproj_bwd_kernel(const float* __restrict__ x,
+gru_inproj_bwd_kernel(const TS* __restrict__ x,
                       const float* __restrict__ wih_t,
                       const float* __restrict__ b_ih,
                       const float* __restrict__ whh_t,
                       const float* __restrict__ b_hh,
                       const float* __restrict__ h0,
-                      const float* __restrict__ ys,
-                      const float* __restrict__ dys,
+                      const TS* __restrict__ ys,
+                      const TS* __restrict__ dys,
                       const float* __restrict__ dhT,
                       float* __restrict__ dh0,
                       float* __restrict__ dg,
@@ -216,10 +228,17 @@ gru_inproj_bwd_kernel(const float* __restrict__ x,
   const float* bhh = b_hh + static_cast<size_t>(l) * G;
   const size_t state0 = static_cast<size_t>(l) * Bb + b0;  // row of h0/dhT/dh0
 
-  // rows [L, Bb, *] of step t's h_prev: ys[t-1], or h0 at t = 0
-  auto h_prev_rows = [&](int t) {
-    return t > 0 ? ys + ((static_cast<size_t>(t - 1) * L + l) * Bb + b0) * H
-                 : h0 + state0 * H;
+  // stages step t's h_prev, rows [L, Bb, *] of ys[t-1] or h0 at t = 0
+  // (in the bf16 form ys and h0 differ in type)
+  auto stage_h_prev = [&](int t) {
+    if constexpr (kIsF32<TS>) {
+      stage_rows<R>(h_s, t > 0 ? ys + ((static_cast<size_t>(t - 1) * L + l) * Bb + b0) * H
+                               : h0 + state0 * H, rows, H);
+    } else if (t > 0) {
+      stage_rows<R>(h_s, ys + ((static_cast<size_t>(t - 1) * L + l) * Bb + b0) * H, rows, H);
+    } else {
+      stage_rows<R>(h_s, h0 + state0 * H, rows, H);
+    }
   };
 
   // the dh carry in; gate rows past the batch edge are never read into a
@@ -228,7 +247,7 @@ gru_inproj_bwd_kernel(const float* __restrict__ x,
     const int r = idx / H, j = idx % H;
     dh_s[r * H + j] = r < rows ? dhT[(state0 + r) * H + j] : 0.f;
   }
-  stage_rows<R>(h_s, h_prev_rows(T - 1), rows, H);
+  stage_h_prev(T - 1);
 
   for (int t0 = (T - 1) / C * C; t0 >= 0; t0 -= C) {
     const int n = min(C, T - t0);
@@ -256,7 +275,7 @@ gru_inproj_bwd_kernel(const float* __restrict__ x,
         const float hpn = hn_s[r * H + j];
         const float ng = tanhf(g[2 * H + j] + rg * hpn);
         const float h_prev = h_s[j * R + r];
-        const float dh = dys[(row0 + r) * H + j] + dh_s[r * H + j];
+        const float dh = to_f32(dys[(row0 + r) * H + j]) + dh_s[r * H + j];
         const float da_z = dh * (h_prev - ng) * zg * (1.0f - zg);
         const float da_n = dh * (1.0f - zg) * (1.0f - ng * ng);
         const float da_r = da_n * hpn * rg * (1.0f - rg);
@@ -275,7 +294,7 @@ gru_inproj_bwd_kernel(const float* __restrict__ x,
       // phase 3: dh carry += dhp @ W_hh[l]^T, one warp per unit k; then
       // stage step t-1's h_prev (phase 3 does not read h_s)
       dh_rows<R, true>(whh, g_s, dh_s, rows, H, G);
-      if (t > 0) stage_rows<R>(h_s, h_prev_rows(t - 1), rows, H);
+      if (t > 0) stage_h_prev(t - 1);
       __syncthreads();
     }
   }
@@ -317,48 +336,39 @@ int chunk_steps(int R, int In, int H, int carries) {
   return 0;
 }
 
-template <int R, int C>
-cudaError_t launch_fwd(const float* x, const float* wih_t, const float* b_ih,
+template <int R, int C, typename TS>
+cudaError_t launch_fwd(const TS* x, const float* wih_t, const float* b_ih,
                        const float* whh_t, const float* b_hh, const float* h0,
-                       float* ys, float* hT, int T, int L, int Bb, int In, int H,
+                       TS* ys, float* hT, int T, int L, int Bb, int In, int H,
                        cudaStream_t s) {
   const size_t smem = smem_bytes(R, C, In, H, 2);
-  cudaError_t err = allow_smem(gru_inproj_fwd_kernel<R, C>, smem);
+  cudaError_t err = allow_smem(gru_inproj_fwd_kernel<R, C, TS>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Bb + R - 1) / R, L);
-  gru_inproj_fwd_kernel<R, C><<<grid, scan_threads(3 * H), smem, s>>>(
+  gru_inproj_fwd_kernel<R, C, TS><<<grid, scan_threads(3 * H), smem, s>>>(
       x, wih_t, b_ih, whh_t, b_hh, h0, ys, hT, T, L, Bb, In, H);
   return cudaGetLastError();
 }
 
-template <int R, int C>
-cudaError_t launch_bwd(const float* x, const float* wih_t, const float* b_ih,
+template <int R, int C, typename TS>
+cudaError_t launch_bwd(const TS* x, const float* wih_t, const float* b_ih,
                        const float* whh_t, const float* b_hh, const float* h0,
-                       const float* ys, const float* dys, const float* dhT, float* dh0,
+                       const TS* ys, const TS* dys, const float* dhT, float* dh0,
                        float* dg, float* dgn, int T, int L, int Bb, int In, int H,
                        cudaStream_t s) {
   const size_t smem = smem_bytes(R, C, In, H, 3);
-  cudaError_t err = allow_smem(gru_inproj_bwd_kernel<R, C>, smem);
+  cudaError_t err = allow_smem(gru_inproj_bwd_kernel<R, C, TS>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Bb + R - 1) / R, L);
-  gru_inproj_bwd_kernel<R, C><<<grid, scan_threads(3 * H), smem, s>>>(
+  gru_inproj_bwd_kernel<R, C, TS><<<grid, scan_threads(3 * H), smem, s>>>(
       x, wih_t, b_ih, whh_t, b_hh, h0, ys, dys, dhT, dh0, dg, dgn, T, L, Bb, In, H);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Launches the forward scan on `stream` (a cudaStream_t) of `device`.
-// Returns the cudaError_t of the launch (0 on success;
-// cudaErrorInvalidValue when the smallest chunk's buffers do not fit a
-// block's shared memory).  All pointers are device pointers to contiguous
-// f32 arrays of the shapes above.
-extern "C" int se_gru_inproj_fwd_f32(const float* x, const float* wih_t,
-                                     const float* b_ih, const float* whh_t,
-                                     const float* b_hh, const float* h0,
-                                     float* ys, float* hT,
-                                     int T, int L, int Bb, int In, int H,
-                                     int device, void* stream) {
+template <typename TS>
+int gru_fwd(const TS* x, const float* wih_t, const float* b_ih, const float* whh_t,
+            const float* b_hh, const float* h0, TS* ys, float* hT,
+            int T, int L, int Bb, int In, int H, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -373,21 +383,12 @@ extern "C" int se_gru_inproj_fwd_f32(const float* x, const float* wih_t,
   return static_cast<int>(err);
 }
 
-// Launches the backward: the reverse scan (dh0 and the scratch buffers
-// dg [T, L, Bb, 3H] and dgn [T, L, Bb, H]), then the dx product and the
-// dW_ih, db_ih, dW_hh and db_hh reductions that read them, all on
-// `stream`.  Returns the first cudaError_t (0 on success;
-// cudaErrorInvalidValue as for the forward).  Shapes as above; every
-// pointer is a device pointer to a contiguous f32 array, none may be null.
-extern "C" int se_gru_inproj_bwd_f32(const float* x, const float* wih_t,
-                                     const float* b_ih, const float* whh_t,
-                                     const float* b_hh, const float* h0,
-                                     const float* ys, const float* dys,
-                                     const float* dhT, float* dx, float* dwih_t,
-                                     float* db_ih, float* dwhh_t, float* db_hh,
-                                     float* dh0, float* dg, float* dgn,
-                                     int T, int L, int Bb, int In, int H,
-                                     int device, void* stream) {
+template <typename TS>
+int gru_bwd(const TS* x, const float* wih_t, const float* b_ih, const float* whh_t,
+            const float* b_hh, const float* h0, const TS* ys, const TS* dys,
+            const float* dhT, TS* dx, float* dwih_t, float* db_ih, float* dwhh_t,
+            float* db_hh, float* dh0, float* dg, float* dgn,
+            int T, int L, int Bb, int In, int H, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int G = 3 * H;
@@ -417,4 +418,64 @@ extern "C" int se_gru_inproj_bwd_f32(const float* x, const float* wih_t,
   err = cudaMemcpy2DAsync(db_hh, sizeof(float) * G, db_ih, sizeof(float) * G,
                           sizeof(float) * 2 * H, L, cudaMemcpyDeviceToDevice, s);
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// Launches the forward scan on `stream` (a cudaStream_t) of `device`.
+// Returns the cudaError_t of the launch (0 on success;
+// cudaErrorInvalidValue when the smallest chunk's buffers do not fit a
+// block's shared memory).  All pointers are device pointers to contiguous
+// f32 arrays of the shapes above.
+extern "C" int se_gru_inproj_fwd_f32(const float* x, const float* wih_t,
+                                     const float* b_ih, const float* whh_t,
+                                     const float* b_hh, const float* h0,
+                                     float* ys, float* hT,
+                                     int T, int L, int Bb, int In, int H,
+                                     int device, void* stream) {
+  return gru_fwd(x, wih_t, b_ih, whh_t, b_hh, h0, ys, hT, T, L, Bb, In, H, device, stream);
+}
+
+// The bf16-stream forward: x and ys bf16, the rest as se_gru_inproj_fwd_f32.
+extern "C" int se_gru_inproj_fwd_bf16(const __nv_bfloat16* x, const float* wih_t,
+                                      const float* b_ih, const float* whh_t,
+                                      const float* b_hh, const float* h0,
+                                      __nv_bfloat16* ys, float* hT,
+                                      int T, int L, int Bb, int In, int H,
+                                      int device, void* stream) {
+  return gru_fwd(x, wih_t, b_ih, whh_t, b_hh, h0, ys, hT, T, L, Bb, In, H, device, stream);
+}
+
+// Launches the backward: the reverse scan (dh0 and the scratch buffers
+// dg [T, L, Bb, 3H] and dgn [T, L, Bb, H]), then the dx product and the
+// dW_ih, db_ih, dW_hh and db_hh reductions that read them, all on
+// `stream`.  Returns the first cudaError_t (0 on success;
+// cudaErrorInvalidValue as for the forward).  Shapes as above; every
+// pointer is a device pointer to a contiguous f32 array, none may be null.
+extern "C" int se_gru_inproj_bwd_f32(const float* x, const float* wih_t,
+                                     const float* b_ih, const float* whh_t,
+                                     const float* b_hh, const float* h0,
+                                     const float* ys, const float* dys,
+                                     const float* dhT, float* dx, float* dwih_t,
+                                     float* db_ih, float* dwhh_t, float* db_hh,
+                                     float* dh0, float* dg, float* dgn,
+                                     int T, int L, int Bb, int In, int H,
+                                     int device, void* stream) {
+  return gru_bwd(x, wih_t, b_ih, whh_t, b_hh, h0, ys, dys, dhT, dx, dwih_t, db_ih, dwhh_t,
+                 db_hh, dh0, dg, dgn, T, L, Bb, In, H, device, stream);
+}
+
+// The bf16-stream backward: x, ys, dys and dx bf16, the rest (the dg and
+// dgn scratch too) f32 as in se_gru_inproj_bwd_f32.
+extern "C" int se_gru_inproj_bwd_bf16(const __nv_bfloat16* x, const float* wih_t,
+                                      const float* b_ih, const float* whh_t,
+                                      const float* b_hh, const float* h0,
+                                      const __nv_bfloat16* ys, const __nv_bfloat16* dys,
+                                      const float* dhT, __nv_bfloat16* dx, float* dwih_t,
+                                      float* db_ih, float* dwhh_t, float* db_hh,
+                                      float* dh0, float* dg, float* dgn,
+                                      int T, int L, int Bb, int In, int H,
+                                      int device, void* stream) {
+  return gru_bwd(x, wih_t, b_ih, whh_t, b_hh, h0, ys, dys, dhT, dx, dwih_t, db_ih, dwhh_t,
+                 db_hh, dh0, dg, dgn, T, L, Bb, In, H, device, stream);
 }

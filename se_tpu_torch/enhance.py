@@ -9,6 +9,8 @@
         [--sequence-model GRU] [--fsn-norm cumulative_laplace_norm] noisy.wav
     python -m se_tpu_torch.enhance --checkpoint chkpt.pt --model CRN \\
         --compute-dtype bfloat16 noisy.wav
+    python -m se_tpu_torch.enhance --checkpoint chkpt.pt --model FullSubNet \\
+        [--sequence-model GRU] --compute-dtype bfloat16 noisy.wav
 
 The checkpoint is the reference's ``{'model', 'optimizer', 'epoch'}``
 blob, as ``python -m se_tpu.utils.torch_export`` writes it.  Runs on the
@@ -24,8 +26,8 @@ exact-length run.  ``--batch N`` stacks files of the same one-second bucket
 into batches of N rows, padding the last batch of a bucket by repeating
 its last row; rows are independent, so each output matches its
 ``--batch 1`` run up to float rounding.  ``--compute-dtype bfloat16`` runs
-DCCRN and CRN in the reference's mixed precision (``Config.compute_dtype``);
-FullSubNet's bf16 path is not ported yet.
+DCCRN, CRN and FullSubNet in the reference's mixed precision
+(``Config.compute_dtype``); FullSubNet's bucketing is the same in bf16.
 """
 
 from __future__ import annotations

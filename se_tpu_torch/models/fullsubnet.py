@@ -8,6 +8,13 @@ bin's neighbourhood of the full-band output and of the noisy magnitudes
 batch of ``B * F`` sequences -> the first ``look_ahead`` frames dropped ->
 ``[B, F, T, 2]``.  Module names follow the reference's state-dict grammar
 (``fb_model.sequence_model.weight_ih_l0``, ``sb_model.fc_output_layer.*``).
+
+Under ``compute_dtype="bfloat16"`` the magnitudes are cast to bf16 before
+the look-ahead pad and the network runs on bf16 activations, as the
+reference's (``se_tpu/models/fullsubnet.py:87-91``): the norms take their
+statistics in f32 and divide in bf16, the sequence models run their RNNs'
+bf16-stream forms around f32 carries, the linear maps cast their f32
+weights to bf16, and the cRM is cast back to f32.
 """
 
 from __future__ import annotations
@@ -32,12 +39,8 @@ class FullSubNet(nn.Module):
             raise NotImplementedError(
                 "FullSubNet weight_init=True is not ported yet (ROADMAP.md, Queue 1 item 14)"
             )
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                "FullSubNet with compute_dtype='bfloat16' is not ported yet "
-                "(ROADMAP.md, Queue 1 item 6b)"
-            )
         self.cfg = cfg
+        self.compute_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
         num_freqs = cfg.stft.num_freqs
         self.fb_model = SequenceModel(
             num_freqs, num_freqs, fsn.fb_model_hidden_size, 2, cfg.sequence_model,
@@ -74,7 +77,7 @@ class FullSubNet(nn.Module):
             frames = torch.arange(noisy_mag.shape[-1], device=noisy_mag.device)
             noisy_mag = noisy_mag * (frames < vf).to(noisy_mag.dtype)
             stat_frames = vf + self.look_ahead
-        noisy_mag = F.pad(noisy_mag, (0, self.look_ahead))
+        noisy_mag = F.pad(noisy_mag.to(self.compute_dtype), (0, self.look_ahead))
         B, C, Fq, T = noisy_mag.shape
         if C != 1:
             raise ValueError(f"{type(self).__name__} takes the mag feature as inputs.")

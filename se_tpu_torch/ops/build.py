@@ -91,8 +91,8 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-# The stream dtypes of the recurrent kernels' two forms, and the suffix of
-# each form's C entry (se_<kernel>_f32, se_<kernel>_bf16)
+# The stream dtypes of the hand kernels' two forms, and the suffix of each
+# form's C entry (se_<kernel>_f32, se_<kernel>_bf16)
 STREAM_FORMS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 

@@ -12,6 +12,17 @@ port refuses odd F rather than pick one.
 The backward is the gradient of the plain convolution (cuDNN on the card),
 as the JAX package's custom VJP takes the gradient of its XLA reference
 outside any Pallas kernel; there is no backward kernel.
+
+Two forms, as the Pallas kernel has: f32, and bf16 for a bf16 ``x``.  The
+weights ``w`` and ``b`` are f32 in both (the master weights); the bf16 form
+casts them to bf16 itself, as ``_pallas_conv`` does (``pallas_conv.py:122-123``),
+sums the products in f32, adds the bias in f32 and rounds ``y`` to bf16 once.
+That rounds once where the unfused bf16 conv (``ops/conv.py``) rounds the
+conv's output and then its sum with the bias, as the reference's two paths
+do.  Its backward is the gradient of the reference's bf16 conv: ``g``, ``x``
+and the bf16 ``w`` in, ``dx`` in bf16, ``dw`` and ``db`` as f32 of their
+bf16 values.  Each form has its own C entry and launch count
+(``launches``, ``launches_bf16``).
 """
 
 from __future__ import annotations
@@ -33,7 +44,13 @@ def _padded(x):
 
 
 def reference(x, w, b):
-    """The plain version: ``F.conv2d`` of the causally padded input."""
+    """The plain version: ``F.conv2d`` of the causally padded input.  For a
+    bf16 ``x``: in f32 on ``x``, ``w`` and ``b`` rounded to bf16, the result
+    rounded to bf16."""
+    if x.dtype == torch.bfloat16:
+        bf = lambda t: t.to(torch.bfloat16).float()
+        y = F.conv2d(_padded(x.float()), bf(w), bf(b), stride=STRIDE, padding=PADDING)
+        return y.to(torch.bfloat16)
     return F.conv2d(_padded(x), w, b, stride=STRIDE, padding=PADDING)
 
 
@@ -51,9 +68,9 @@ def _check(x, w, b):
     if Fq % 2:
         raise ValueError(f"F must be even, got {Fq}: for odd F the reference's "
                          "kernel and its XLA conv disagree on the bin count")
-    for name, t in (("x", x), ("w", w), ("b", b)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    named = (("x", x), ("w", w), ("b", b))
+    build.check_dtypes([(name, t, name == "x") for name, t in named], x.dtype)
+    for name, t in named:
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
@@ -61,31 +78,34 @@ def _check(x, w, b):
 def _library():
     lib = build.load("complex_conv")
     if lib.se_complex_conv_fwd_f32.argtypes is None:
-        lib.se_complex_conv_fwd_f32.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        )
-        lib.se_complex_conv_fwd_f32.restype = ctypes.c_int
+        for form in build.STREAM_FORMS.values():
+            fn = getattr(lib, f"se_complex_conv_fwd_{form}")
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     return lib
 
 
 def _forward(x, w, b):
     """The plain version for CPU tensors; K4 for CUDA tensors (counted on
-    ``fused_complex_conv2d``)."""
+    ``fused_complex_conv2d``), with ``w`` and ``b`` cast to x's dtype."""
     if x.device.type == "cpu":
         return reference(x, w, b)
     B2, C, Fq, T = x.shape
     Co = w.shape[0]
-    y = torch.empty((B2, Co, Fq // 2, T), device=x.device, dtype=torch.float32)
-    build.cuda_launch(_library(), "se_complex_conv_fwd_f32", (x, w, b), ("x", "w", "b"),
-                      (y,), (B2, C, Fq, T, Co), x.device)
-    fused_complex_conv2d.launches += 1
+    dt = x.dtype
+    y = torch.empty((B2, Co, Fq // 2, T), device=x.device, dtype=dt)
+    build.cuda_launch(_library(), f"se_complex_conv_fwd_{build.STREAM_FORMS[dt]}",
+                      (x, w.to(dt), b.to(dt)), ("x", "w", "b"), (y,), (B2, C, Fq, T, Co),
+                      x.device, (dt,) * 3)
+    build.count_launch(fused_complex_conv2d, dt)
     return y
 
 
 class _FusedComplexConv2d(torch.autograd.Function):
     """The custom VJP of ``pallas_conv.fused_complex_conv2d``: the forward
     keeps ``(x, w, b)``; the backward is the plain convolution's gradient,
-    without running its forward again."""
+    without running its forward again: in x's dtype, the weights cast to it
+    and their gradients returned as f32."""
 
     @staticmethod
     def forward(ctx, x, w, b):
@@ -96,10 +116,11 @@ class _FusedComplexConv2d(torch.autograd.Function):
     def backward(ctx, g):
         x, w, b = ctx.saved_tensors
         dxp, dw, db = torch.ops.aten.convolution_backward(
-            g.contiguous(), _padded(x), w, [b.shape[0]], list(STRIDE), list(PADDING),
-            [1, 1], False, [0, 0], 1, list(ctx.needs_input_grad),
+            g.contiguous(), _padded(x), w.to(x.dtype), [b.shape[0]], list(STRIDE),
+            list(PADDING), [1, 1], False, [0, 0], 1, list(ctx.needs_input_grad),
         )
-        return (None if dxp is None else dxp[..., 1:]), dw, db
+        f32 = lambda t: None if t is None else t.float()
+        return (None if dxp is None else dxp[..., 1:]), f32(dw), f32(db)
 
 
 def fused_complex_conv2d(x, w, b):
@@ -107,9 +128,10 @@ def fused_complex_conv2d(x, w, b):
     (5, 2) kernel only (raises otherwise).
 
     CPU tensors run the plain version.  CUDA tensors launch K4 on the
-    current stream, or raise: float32 and contiguous only.  Each launch
-    adds one to ``fused_complex_conv2d.launches``.  Gradients go through
-    the plain convolution's backward.
+    current stream, or raise: contiguous only, x float32 or bfloat16 (then
+    y is bfloat16), w and b float32.  Each launch adds one to
+    ``fused_complex_conv2d.launches`` (f32) or ``.launches_bf16``.
+    Gradients go through the plain convolution's backward.
     """
     _check(x, w, b)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, b)):
@@ -117,4 +139,4 @@ def fused_complex_conv2d(x, w, b):
     return _forward(x, w, b)
 
 
-fused_complex_conv2d.launches = 0
+fused_complex_conv2d.launches = fused_complex_conv2d.launches_bf16 = 0

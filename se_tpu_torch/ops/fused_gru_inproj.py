@@ -10,6 +10,15 @@ when an input needs a gradient, the call goes through a
 ``torch.autograd.Function`` whose backward recomputes the gates from
 ``(x, h_prev)``.  The kernels' design and what bounds them are described
 at the top of their source.
+
+Two forms, as the Pallas kernel has: f32, and the bf16-stream form, in
+which ``x``, ``ys``, their cotangent ``dys`` and the gradient ``dx`` are
+bf16 while the projection (``x`` upcast, f32 ``w_ih_t``), the carry, the
+gate math and the weight, bias and state gradients stay f32
+(``pallas_lstm.py:614, :618, :643, :667``); the backward recomputes from
+the rounded ``ys``.  The plain versions take the form from ``x``'s dtype;
+each kernel form has its own C entry and its own launch count
+(``launches``, ``launches_bf16``).
 """
 
 from __future__ import annotations
@@ -98,9 +107,8 @@ def _check(x, w_ih_t, b_ih, w_hh_t, b_hh, h0):
     for name, t in named[1:]:
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} must be {want[name]}, got {tuple(t.shape)}")
+    build.check_dtypes([(name, t, name == "x") for name, t in named], x.dtype)
     for name, t in named:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
@@ -109,14 +117,12 @@ def _library():
     """The built kernel library, with its C signatures declared."""
     lib = build.load("gru_inproj")
     if lib.se_gru_inproj_fwd_f32.argtypes is None:
-        lib.se_gru_inproj_fwd_f32.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        )
-        lib.se_gru_inproj_fwd_f32.restype = ctypes.c_int
-        lib.se_gru_inproj_bwd_f32.argtypes = (
-            [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        )
-        lib.se_gru_inproj_bwd_f32.restype = ctypes.c_int
+        for form in build.STREAM_FORMS.values():
+            fwd = getattr(lib, f"se_gru_inproj_fwd_{form}")
+            bwd = getattr(lib, f"se_gru_inproj_bwd_{form}")
+            fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            bwd.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            fwd.restype = bwd.restype = ctypes.c_int
     return lib
 
 
@@ -128,13 +134,15 @@ def _forward(x, w_ih_t, b_ih, w_hh_t, b_hh, h0):
         return fused_gru_scan_inproj_reference(x, w_ih_t, b_ih, w_hh_t, b_hh, h0)
     T, L, Bb, In = x.shape
     H = h0.shape[-1]
-    ys = torch.empty((T, L, Bb, H), device=dev, dtype=torch.float32)
-    hT = torch.empty((L, Bb, H), device=dev, dtype=torch.float32)
+    sdt, f32 = x.dtype, torch.float32
+    ys = torch.empty((T, L, Bb, H), device=dev, dtype=sdt)
+    hT = torch.empty((L, Bb, H), device=dev, dtype=f32)
     build.cuda_launch(
-        _library(), "se_gru_inproj_fwd_f32", (x, w_ih_t, b_ih, w_hh_t, b_hh, h0),
-        _INPUTS, (ys, hT), (T, L, Bb, In, H), dev,
+        _library(), f"se_gru_inproj_fwd_{build.STREAM_FORMS[sdt]}",
+        (x, w_ih_t, b_ih, w_hh_t, b_hh, h0), _INPUTS, (ys, hT), (T, L, Bb, In, H), dev,
+        (sdt,) + (f32,) * 5,
     )
-    fused_gru_scan_inproj.launches += 1
+    build.count_launch(fused_gru_scan_inproj, sdt)
     return ys, hT
 
 
@@ -146,37 +154,43 @@ def fused_gru_scan_inproj_backward(x, w_ih_t, b_ih, w_hh_t, b_hh, h0, ys, dys, d
     CPU tensors run the plain version.  CUDA tensors launch the backward
     kernels (the reverse scan, then the deterministic dx, dW and dbias
     reductions over the ``[T, L, Bb, 3H]`` and ``[T, L, Bb, H]`` scratch
-    buffers) on the current stream, or raise: float32 and contiguous only.
-    Each call that launches adds one to
-    ``fused_gru_scan_inproj_backward.launches``.
+    buffers) on the current stream, or raise: contiguous only; x, ys and
+    dys all float32 or all bfloat16 (then dx is bfloat16 too), the rest
+    float32.  Each call that launches adds one to
+    ``fused_gru_scan_inproj_backward.launches`` (f32) or ``.launches_bf16``.
     """
     _check(x, w_ih_t, b_ih, w_hh_t, b_hh, h0)
     T, L, Bb, In = x.shape
     H = h0.shape[-1]
     G = 3 * H
-    zeros = lambda shape: torch.zeros(shape, device=x.device, dtype=torch.float32)
-    dys = zeros((T, L, Bb, H)) if dys is None else dys
+    sdt, f32 = x.dtype, torch.float32
+    zeros = lambda shape, dtype=f32: torch.zeros(shape, device=x.device, dtype=dtype)
+    dys = zeros((T, L, Bb, H), sdt) if dys is None else dys
     dhT = zeros((L, Bb, H)) if dhT is None else dhT
-    for name, t, shape in (("ys", ys, (T, L, Bb, H)), ("dys", dys, (T, L, Bb, H)),
-                           ("dhT", dhT, (L, Bb, H))):
+    named = (("ys", ys, (T, L, Bb, H), True), ("dys", dys, (T, L, Bb, H), True),
+             ("dhT", dhT, (L, Bb, H), False))
+    for name, t, shape, _ in named:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    build.check_dtypes([(n, t, s) for n, t, _, s in named], sdt)
     dev = x.device
     if dev.type == "cpu":
         return fused_gru_scan_inproj_backward_reference(
             x, w_ih_t, b_ih, w_hh_t, b_hh, h0, ys, dys, dhT
         )
-    new = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
-    dx, dw_ih, db_ih = new(T, L, Bb, In), new(L, In, G), new(L, G)
+    new = lambda *shape: torch.empty(shape, device=dev, dtype=f32)
+    dx = torch.empty((T, L, Bb, In), device=dev, dtype=sdt)
+    dw_ih, db_ih = new(L, In, G), new(L, G)
     dw_hh, db_hh, dh0 = new(L, H, G), new(L, G), new(L, Bb, H)
     dg, dgn = new(T, L, Bb, G), new(T, L, Bb, H)
     build.cuda_launch(
-        _library(), "se_gru_inproj_bwd_f32",
+        _library(), f"se_gru_inproj_bwd_{build.STREAM_FORMS[sdt]}",
         (x, w_ih_t, b_ih, w_hh_t, b_hh, h0, ys, dys, dhT),
         (*_INPUTS, "ys", "dys", "dhT"),
         (dx, dw_ih, db_ih, dw_hh, db_hh, dh0, dg, dgn), (T, L, Bb, In, H), dev,
+        (sdt,) + (f32,) * 5 + (sdt, sdt, f32),
     )
-    fused_gru_scan_inproj_backward.launches += 1
+    build.count_launch(fused_gru_scan_inproj_backward, sdt)
     return dx, dw_ih, db_ih, dw_hh, db_hh, dh0
 
 
@@ -202,8 +216,10 @@ def fused_gru_scan_inproj(x, w_ih_t, b_ih, w_hh_t, b_hh, h0):
     """Same signature and result as :func:`fused_gru_scan_inproj_reference`.
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel on
-    the current stream, or raise: float32 and contiguous only.  Each launch
-    adds one to ``fused_gru_scan_inproj.launches``.  When gradients are on
+    the current stream, or raise: contiguous only, x float32 or bfloat16
+    (the bf16-stream form: ys bfloat16), the rest float32.  Each launch adds
+    one to ``fused_gru_scan_inproj.launches`` (f32) or ``.launches_bf16``.
+    When gradients are on
     and an input requires one, the call's backward is
     :func:`fused_gru_scan_inproj_backward`.
     """
@@ -214,5 +230,5 @@ def fused_gru_scan_inproj(x, w_ih_t, b_ih, w_hh_t, b_hh, h0):
     return _forward(*args)
 
 
-fused_gru_scan_inproj.launches = 0
-fused_gru_scan_inproj_backward.launches = 0
+fused_gru_scan_inproj.launches = fused_gru_scan_inproj.launches_bf16 = 0
+fused_gru_scan_inproj_backward.launches = fused_gru_scan_inproj_backward.launches_bf16 = 0

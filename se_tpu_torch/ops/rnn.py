@@ -22,10 +22,10 @@ hands it to ``fused_gru_scan_inproj``; the two biases stay separate.
 bf16 inputs get the reference's mixed semantics: bf16 streams around an
 f32 ``(h, c)`` carry and f32 gate math, the weights kept f32.
 ``lstm_stack`` projects in bf16 (``x`` and ``w_ih`` cast, the bf16 bias
-sum added) and runs the scan's bf16-stream form; ``lstm`` hands the bf16
-``x`` to the in-projection scan's bf16-stream form, which projects it in
-f32, as the reference's Pallas branch does (its scan branch projects in
-bf16; the two differ by bf16 rounding).  ``gru`` runs f32 only.
+sum added) and runs the scan's bf16-stream form; ``lstm`` and ``gru`` hand
+the bf16 ``x`` to their in-projection scan's bf16-stream form, which
+projects it in f32, as the reference's Pallas branch does (its scan branch
+projects in bf16; the two differ by bf16 rounding).
 """
 
 from __future__ import annotations
@@ -113,22 +113,22 @@ def lstm(params: LstmParams, x, h0=None, c0=None):
 
 def gru(params: LstmParams, x, h0=None):
     """One unidirectional GRU layer with torch gate semantics: ``x [T, B,
-    In]`` -> ``(ys [T, B, H], hT [B, H])``, ``h0 [B, H]`` (zeros when None).
-    float32 only."""
-    if x.dtype != torch.float32:
-        raise NotImplementedError(
-            "gru runs float32 only; its bf16 streams (K3's bf16-stream form) are "
-            "ROADMAP.md, Queue 1 item 6b"
-        )
+    In]`` (f32 or bf16) -> ``(ys [T, B, H] in x's dtype, hT [B, H] f32)``,
+    ``h0 [B, H]`` (zeros when None; taken as f32).  The weights go to the
+    kernel as f32 whatever x's dtype, as the reference's Pallas branch casts
+    them (``se_tpu/ops/rnn.py:408-428``)."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"gru takes float32 or bfloat16 inputs, got {x.dtype}")
     T, B, _ = x.shape
     H = params.w_hh.shape[1]
-    h0 = x.new_zeros((B, H)) if h0 is None else h0
+    h0 = _f32_state(h0, (B, H), x)
+    f32 = torch.float32
     ys, hT = fused_gru_scan_inproj(
         x[:, None].contiguous(),
-        params.w_ih.T[None].contiguous(),
-        params.b_ih[None].contiguous(),
-        params.w_hh.T[None].contiguous(),
-        params.b_hh[None].contiguous(),
-        h0[None].contiguous(),
+        params.w_ih.to(f32).T[None].contiguous(),
+        params.b_ih.to(f32)[None].contiguous(),
+        params.w_hh.to(f32).T[None].contiguous(),
+        params.b_hh.to(f32)[None].contiguous(),
+        h0[None],
     )
     return ys[:, 0], hT[0]

@@ -4,7 +4,7 @@ bf16-stream forms of the LSTM scans K1 and K2 (plain versions) against
 the Pallas kernels run in interpret mode, ``rnn.lstm`` against both of the
 reference's bf16 forms, the DCCRN (complex and real LSTM) and CRN forwards,
 DCCRN's gradients and train steps, CRN's eval and training, Adam with a
-bf16 first moment, the enhance CLI, and what still refuses bf16.
+bf16 first moment, the enhance CLI, and what a bf16 form refuses.
 
 The JAX side runs its Pallas LSTM kernels (``use_pallas_lstm="on"``, the
 form ``"auto"`` takes on a TPU) and is jitted; its weights are numpy trees
@@ -454,17 +454,9 @@ def test_wrappers_refuse_a_bf16_weight(kernel):
 
 
 def test_bf16_paths_not_ported_raise():
-    """bf16 with the fused encoder conv (K4's bf16 form), bf16 ``gru`` (K3's
-    bf16 form) and FullSubNet under bf16 raise, naming their ROADMAP items;
-    the bf16 stream of one LSTM scan must match its ys and dys."""
-    with pytest.raises(NotImplementedError, match="A4"):
-        Config(compute_dtype="bfloat16", use_pallas_conv=True)
-    w = [torch.zeros(s) for s in ((12, 3), (12, 4), (12,), (12,))]
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        trnn.gru(trnn.LstmParams(*w), torch.zeros(2, 1, 3, dtype=torch.bfloat16))
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        build_model(Config(model="FullSubNet", loss="MSE", compute_dtype="bfloat16"),
-                    device="cpu")
+    """The bf16 stream of one LSTM scan must match its ys and dys.  (The
+    bf16 paths this test once saw refused, the fused encoder conv, ``gru``
+    and FullSubNet, are ported: tests/test_torch_fullsubnet_bf16.py.)"""
     inputs, _ = _case(2, 3, 1, 2, 4)
     xp = _t(inputs[0]).bfloat16()
     w_hh, h0, c0 = map(_t, inputs[1:])

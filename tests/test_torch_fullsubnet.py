@@ -185,8 +185,8 @@ def test_gru_wrapper_on_cpu_runs_plain_without_counting():
 def test_rnn_gru_matches_jax():
     """``rnn.gru`` on a transposed (non-contiguous) input, from zeros and
     from a given state, against JAX ``rnn.gru(use_pallas=True)``: outputs,
-    final state and the gradients of the four weights at atol 1e-5; bf16
-    raises, naming its ROADMAP item."""
+    final state and the gradients of the four weights at atol 1e-5 (bf16:
+    tests/test_torch_fullsubnet_bf16.py)."""
     rng = np.random.default_rng(3)
     T, B, In, H = 8, 3, 10, 12
     k = 1 / np.sqrt(H)
@@ -211,8 +211,6 @@ def test_rnn_gru_matches_jax():
         grads = torch.autograd.grad(loss, params)
         for g, want in zip((ys, hT, *grads), (*jout, *jgrads)):
             np.testing.assert_allclose(g.detach().numpy(), np.asarray(want), atol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        trnn.gru(trnn.LstmParams(*map(_t, w)), _t(x).transpose(0, 1).bfloat16())
 
 
 # --- DSP and the feature ops -----------------------------------------------------
@@ -545,15 +543,13 @@ def test_fullsubnet_entry_points_default_to_cuda(tiny, tmp_path):
 
 
 def test_pieces_left_out_raise():
-    """weight_init=True, bf16, the EMA norms (not in ``norm_wrapper``'s
-    table) and FullSubNet with a perceptual loss each raise; the first two
-    name their ROADMAP items."""
+    """weight_init=True, the EMA norms (not in ``norm_wrapper``'s table) and
+    FullSubNet with a perceptual loss each raise; the first names its
+    ROADMAP item.  (bf16 is ported: tests/test_torch_fullsubnet_bf16.py.)"""
     _, cfg = _cfgs("GRU")
     with pytest.raises(NotImplementedError, match="item 14"):
         build_model(cfg.replace(fullsubnet=FullSubNetConfig(**TINY_FSN, weight_init=True)),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        build_model(cfg.replace(compute_dtype="bfloat16"), device="cpu")
     with pytest.raises(NotImplementedError):
         norms.norm_wrapper("forgetting_norm")
     with pytest.raises(ValueError, match="perceptual"):
