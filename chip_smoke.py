@@ -16,13 +16,17 @@ in order; any failure ends the run with a nonzero exit and no result line:
    backward (K1b, train shapes) with the forward's cell-state stash, then
    the in-projection LSTM scan's forward (K2f) and backward (K2b) at CRN's
    enhance and train shapes, DCCRN's real-LSTM shapes, FullSubNet's four
-   LSTM layers (at B = 2, 10 and 8), a ragged and a wide (4H = 2048,
-   In = 257) case, then the in-projection GRU scan's forward (K3f) and
+   LSTM layers (at B = 2, 10 and 8), two ragged cases (one where neither
+   the rows divide by the cluster's tile nor the units by its CTAs) and a
+   wide (4H = 2048, In = 257) case, each with the planner's tiling printed
+   (clusters, CTAs, rows, the W_hh slice resident or streamed, shared
+   bytes), then the in-projection GRU scan's forward (K3f) and
    backward (K3b) at FullSubNet's four GRU layers (B = 2, 10 and 8) and two
    ragged cases, then the DCCRN encoder's fused complex conv (K4) at its six
    stages (B = 10 and 8) and a ragged case, with one cuDNN conv beside it;
    the bf16-stream forms of K1 (DCCRN's enhance and train shapes) and K2
-   (CRN's, and FullSubNet's sub band, layer 0), each backward held on the
+   (CRN's, FullSubNet's sub band and full band, layer 0, and the two ragged
+   cases), each backward held on the
    kernel's own saved ys and cs, with the f32 form's time at the same shape
    and cuDNN's LSTM in bf16 beside them; the bf16 forms of K3 (FullSubNet-
    GRU's four layers at B = 2, 10 and 8, two ragged cases, each backward
@@ -463,11 +467,48 @@ def _cudnn_lstm(w_ih_t, bias, w_hh_t, dev):
 _K2B_NAMES = ("dx", "dw_ih_t", "dbias", "dw_hh_t", "dh0", "dc0")
 
 
+def _k2_tiling(Bb, In, H) -> str:
+    """The planner's choice for K2's forward and backward scans at a shape:
+    clusters x CTAs, rows a cluster, units a CTA, the W_hh slice resident or
+    streamed, chunk steps, shared bytes a CTA, and how many such clusters
+    the card runs at once."""
+    from se_tpu_torch.ops.fused_lstm_inproj import active_clusters, plan
+
+    def one(backward):
+        p = plan(Bb, In, H, backward)
+        return (f"{p.tiles} x {p.N} CTAs, R={p.R}, U={p.U}, "
+                f"{'resident' if p.resident else 'streamed'}, C={p.C}, {p.smem} B, "
+                f"{active_clusters(Bb, In, H, backward)} clusters at once")
+
+    return f"forward {one(False)}; backward {one(True)}"
+
+
+def _k2_bound(T, L, Bb, In, H, stream_bytes=4, backward=False) -> tuple:
+    """K2's bound at a shape -> ``(bound_ms, bound_by, bytes, FLOP)``: the
+    forward reads x, the weights, h0 and c0 and writes ys, hT and cT (2 T L
+    Bb (In + H) 4H FLOP, + the bias); the backward reads x, the weights,
+    h0, c0, ys, cs, dys, dhT and dcT and writes dx, the weight gradients,
+    dh0 and dc0 (three times the products).  x, ys, dys and dx at
+    ``stream_bytes`` each (bf16: 2), the rest f32."""
+    G = 4 * H
+    n_w = L * (In * G + G + H * G)
+    if backward:
+        n_bytes = (stream_bytes * (2 * T * L * Bb * In + 2 * T * L * Bb * H)
+                   + 4 * (2 * n_w + T * L * Bb * H + 6 * L * Bb * H))
+        flops = 3 * 2 * T * L * Bb * (In + H) * G
+    else:
+        n_bytes = stream_bytes * T * L * Bb * (In + H) + 4 * (n_w + 4 * L * Bb * H)
+        flops = 2 * T * L * Bb * (In + H) * G + T * L * Bb * G
+    return (*_bound(n_bytes, flops), n_bytes, flops)
+
+
 def phase_inproj_kernels() -> tuple:
     """fused_lstm_scan_inproj (K2f) and its backward (K2b): CRN's bottleneck
     at the enhance shape (T=483, L=1, Bb=8, In=512, H=128) and the train
     shape (Bb=10); DCCRN's real LSTM layers (In=1024 and 256, H=256) at
-    Bb=8 and 2; a ragged case (T=7, L=3, Bb=5, In=24, H=32); a wide case
+    Bb=8 and 2; two ragged cases (T=7, L=3, Bb=5, In=24, H=32; T=7, L=2,
+    Bb=37, In=20, H=44: two tiles of 20 rows, 6 CTAs of 8 units but the
+    last of 4); a wide case
     with 4H above the block's threads and an odd In (FullSubNet's full band:
     T=193, Bb=2, In=257, H=512).  Returns the K2f and K2b entries."""
     from se_tpu_torch.device import resolve_device
@@ -502,7 +543,7 @@ def phase_inproj_kernels() -> tuple:
         rel = {n: _max_err(g, w) / max(w.abs().max().item(), 1e-30)
                for n, g, w in zip(_K2B_NAMES, got, want_b)}
         bwd_abs = max(_max_err(g, w) for g, w in zip(got, want_b))
-        print(f"[k2] {label} T={T} L={L} Bb={Bb} In={In} H={H} ({-(-Bb // 4) * L} blocks): "
+        print(f"[k2] {label} T={T} L={L} Bb={Bb} In={In} H={H}: {_k2_tiling(Bb, In, H)}; "
               f"forward max |kernel - plain| {fwd_errs}; backward max |kernel - plain| / "
               f"max |plain| {rel}, max abs {bwd_abs}")
         assert all(np.isfinite(v) and v <= KERNEL_TOL for v in fwd_errs.values()), (label, fwd_errs)
@@ -510,7 +551,8 @@ def phase_inproj_kernels() -> tuple:
         assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{label}: backward not repeatable"
         return args, ys, cs, cots, max(fwd_errs.values()), max(rel.values()), bwd_abs
 
-    for case in (("ragged", 7, 3, 5, 24, 32), ("wide", 193, 1, 2, 257, 512)):
+    for case in (("ragged", 7, 3, 5, 24, 32), ("ragged tiles and units", 7, 2, 37, 20, 44),
+                 ("wide", 193, 1, 2, 257, 512)):
         check(*case)
     print("[k2] every case: ys, hT, cT bit-identical with and without the stash; "
           "two backward calls bit-identical")
@@ -528,9 +570,7 @@ def phase_inproj_kernels() -> tuple:
         plain_ms = cuda_ms(lambda: k2.fused_lstm_scan_inproj_reference(*args), iters=3, warmup=1)
         library_ms = cuda_ms(lambda: lib(x[:, 0], (h0, c0)), iters=20, warmup=2)
         stash_ms = cuda_ms(lambda: k2._forward(*args, need_cs=True), iters=20, warmup=2)
-    n_bytes = 4 * (sum(a.numel() for a in args) + ys.numel() + 2 * h0.numel())
-    flops = 2 * T * L * Bb * (In + H) * G + T * L * Bb * G  # the two products, + bias
-    bound_ms, bound_by = _bound(n_bytes, flops)
+    bound_ms, bound_by, n_bytes, flops = _k2_bound(T, L, Bb, In, H)
     print(f"[k2] forward kernel_ms {kernel_ms:.4f} (with the stash {stash_ms:.4f}) plain_ms "
           f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {bound_ms:.4f} "
           f"({bound_by}: {n_bytes} B, {flops} FLOP)")
@@ -577,11 +617,7 @@ def phase_inproj_kernels() -> tuple:
     print(f"[k2] max |cuDNN dx - kernel dx| {_max_err(lib_forward_backward()[0], got[0][:, 0])}")
     lib_fwd_ms = cuda_ms(lib_forward, iters=10, warmup=2)
     library_ms = cuda_ms(lib_forward_backward, iters=10, warmup=2) - lib_fwd_ms
-    # read x, the weights, h0, c0, ys, cs, dys, dhT, dcT; write dx, dW_ih,
-    # dbias, dW_hh, dh0, dc0
-    n_bytes = 4 * (2 * sum(a.numel() for a in args) + 3 * ys.numel() + 2 * dhT.numel())
-    flops = 3 * 2 * T * L * Bb * (In + H) * G  # the recompute, dx/dh and dW products
-    bound_ms, bound_by = _bound(n_bytes, flops)
+    bound_ms, bound_by, n_bytes, flops = _k2_bound(T, L, Bb, In, H, backward=True)
     print(f"[k2] backward kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms "
           f"{library_ms:.4f} (cuDNN forward {lib_fwd_ms:.4f}) bound_ms {bound_ms:.4f} "
           f"({bound_by}: {n_bytes} B, {flops} FLOP); dgates scratch {4 * T * L * Bb * G} B")
@@ -605,20 +641,25 @@ def phase_inproj_kernels() -> tuple:
     # steps) then layer 1 (In=256, chunks of 8), H=256: checked at the
     # enhance batch (8) and the card-vs-CPU train batch (2); the forward
     # timed at B=8 on the checked inputs
-    dccrn = {}
+    dccrn_fwd, dccrn_bwd = {}, {}
     for layer, In_l in ((0, 1024), (1, 256)):
         check(f"DCCRN real l{layer} train", T, 1, 2, In_l, 256)
-        a, _, _, _, f_err, b_rel, _ = check(f"DCCRN real l{layer}", T, 1, 8, In_l, 256)
-        dccrn[f"dccrn_real_l{layer}_max_abs_err"] = f_err
-        dccrn[f"dccrn_real_l{layer}_bwd_max_rel_err"] = b_rel
-        with torch.inference_mode():
-            dccrn[f"dccrn_real_l{layer}_ms"] = cuda_ms(
-                lambda: k2.fused_lstm_scan_inproj(*a), iters=5, warmup=1)
-            m = _cudnn_lstm(a[1], a[2], a[3], dev)
-            dccrn[f"dccrn_real_l{layer}_library_ms"] = cuda_ms(
-                lambda: m(a[0][:, 0], (a[4], a[5])), iters=10, warmup=2)
-    print(f"[k2] DCCRN real LSTM at B=8 (H=256): {dccrn}")
-    fwd.update(dccrn)
+        a, ys_l, cs_l, cots_l, f_err, b_rel, _ = check(f"DCCRN real l{layer}", T, 1, 8, In_l, 256)
+        m = _cudnn_lstm(a[1], a[2], a[3], dev)
+        t = _time_scan(
+            lambda: k2.fused_lstm_scan_inproj(*a),
+            lambda: k2.fused_lstm_scan_inproj_backward(*a, ys_l, cs_l, *cots_l),
+            m, (a[0][:, 0], a[4], a[5]), cots_l)
+        f_bound = _k2_bound(T, 1, 8, In_l, 256)[0]
+        b_bound = _k2_bound(T, 1, 8, In_l, 256, backward=True)[0]
+        dccrn_fwd[f"dccrn_real_l{layer}"] = {"ms": t["fwd_ms"], "library_ms": t["lib_fwd_ms"],
+                                             "bound_ms": f_bound, "max_abs_err": f_err}
+        dccrn_bwd[f"dccrn_real_l{layer}"] = {"ms": t["bwd_ms"], "library_ms": t["lib_bwd_ms"],
+                                             "bound_ms": b_bound, "max_rel_err": b_rel}
+    print(f"[k2] DCCRN real LSTM at B=8 (T={T}, H=256): forward {dccrn_fwd}; "
+          f"backward {dccrn_bwd}")
+    fwd.update(dccrn_fwd)
+    bwd.update(dccrn_bwd)
 
     # FullSubNet with the LSTM at its own shapes (T=163: 3 s at hop 300 plus
     # the look-ahead): each layer checked at every batch of its paths, timed
@@ -634,9 +675,13 @@ def phase_inproj_kernels() -> tuple:
             lambda: k2.fused_lstm_scan_inproj(*a),
             lambda: k2.fused_lstm_scan_inproj_backward(*a, ys_l, cs_l, *cots_l),
             m, (a[0][:, 0], a[4], a[5]), cots_l)
+        Bb_l = 8 * per_utt
         fsn_fwd[f"fullsubnet_{label}"] = {"ms": t["fwd_ms"], "library_ms": t["lib_fwd_ms"],
+                                          "bound_ms": _k2_bound(163, 1, Bb_l, In_l, H_l)[0],
                                           "max_abs_err": f_err}
         fsn_bwd[f"fullsubnet_{label}"] = {"ms": t["bwd_ms"], "library_ms": t["lib_bwd_ms"],
+                                          "bound_ms": _k2_bound(163, 1, Bb_l, In_l, H_l,
+                                                                backward=True)[0],
                                           "max_rel_err": b_rel}
     print(f"[k2] FullSubNet LSTM at B=8 (T=163): forward {fsn_fwd}; backward {fsn_bwd}")
     fwd.update(fsn_fwd)
@@ -701,7 +746,8 @@ def _cudnn_yardstick(modules, inputs, cots,
 # Bb for the forward and the train batch's for the backward; K2 at (label,
 # T, forward Bb, backward Bb, In, H)
 _K1_BF16 = (483, 2, 128, 16, 20)
-_K2_BF16 = (("CRN", 483, 8, 10, 512, 128), ("FullSubNet sb l0", 163, 2056, 2056, 32, 384))
+_K2_BF16 = (("CRN", 483, 8, 10, 512, 128), ("FullSubNet sb l0", 163, 2056, 2056, 32, 384),
+            ("FullSubNet fb l0", 163, 8, 8, 257, 512))
 
 
 def phase_bf16_kernels() -> tuple:
@@ -709,8 +755,10 @@ def phase_bf16_kernels() -> tuple:
     stream's gradient bf16; carry, gates, stash and weight gradients f32)
     against their plain versions on the card: K1 at DCCRN's enhance shape
     (forward, Bb=16) and train shape (backward, Bb=20), K2 at CRN's (forward
-    B=8, backward B=10) and at FullSubNet's sub band, layer 0 (In=32, H=384,
-    Bb=2056, T=163, B=8), both at a ragged case.  Each backward is held
+    B=8, backward B=10), at FullSubNet's sub band, layer 0 (In=32, H=384,
+    Bb=2056, T=163, B=8: many rows, the W_hh slice resident) and full band,
+    layer 0 (In=257, H=512, Bb=8: the slice streamed); K1 at a ragged case,
+    K2 at two.  Each backward is held
     against the plain backward on the kernel's own saved ys and cs.  Times
     of the bf16 form, of the f32 form on the same values, of the plain
     version and of cuDNN's LSTM (bf16 if it takes it); bounds at bf16
@@ -833,13 +881,14 @@ def phase_bf16_kernels() -> tuple:
         return x.to(bf16), tuple(rest), cotangents(T, L, Bb, H)
 
     check(k2, "K2 ragged T=7 L=3 Bb=5 In=24 H=32", *k2_case(7, 3, 5, 24, 32))
+    check(k2, "K2 ragged tiles and units T=7 L=2 Bb=37 In=20 H=44", *k2_case(7, 2, 37, 20, 44))
     k2f, k2b = {}, {}
     for label, T, Bb_f, Bb_b, In, H in _K2_BF16:
-        G = 4 * H
         for kind, Bb in (("fwd", Bb_f), ("bwd", Bb_b)):
             if kind == "fwd" or Bb_b != Bb_f:  # else the forward's case serves
                 x, rest, cots = k2_case(T, 1, Bb, In, H)
-                ys, cs, errs = check(k2, f"K2 {label} T={T} Bb={Bb} In={In} H={H}", x, rest, cots)
+                ys, cs, errs = check(k2, f"K2 {label} T={T} Bb={Bb} In={In} H={H} "
+                                     f"({_k2_tiling(Bb, In, H)})", x, rest, cots)
             w_ih, bias, w_hh, h0, c0 = rest
             x32 = x.float()
             with torch.no_grad():
@@ -861,17 +910,12 @@ def phase_bf16_kernels() -> tuple:
             lib_f, lib_b, lib_dtype = _cudnn_yardstick(
                 [_cudnn_lstm(w_ih, bias, w_hh, dev)], [(x[:, 0], h0, c0)],
                 [(cots[0][:, 0], cots[1], cots[2])])
-            n_w = w_ih.numel() + bias.numel() + w_hh.numel()
             if kind == "fwd":
-                n_bytes = 2 * (x.numel() + ys.numel()) + 4 * (n_w + 4 * h0.numel())
-                flops = 2 * T * Bb * (In + H) * G + T * Bb * G
                 library_ms, err = lib_f, errs["fwd_abs"]
             else:
-                n_bytes = (2 * (2 * x.numel() + 2 * ys.numel())
-                           + 4 * (2 * n_w + cs.numel() + 6 * h0.numel()))
-                flops = 3 * 2 * T * Bb * (In + H) * G
                 library_ms, err = lib_b, errs["bwd_abs"]
-            bound_ms, bound_by = _bound(n_bytes, flops)
+            bound_ms, bound_by, n_bytes, flops = _k2_bound(T, 1, Bb, In, H, stream_bytes=2,
+                                                           backward=kind == "bwd")
             print(f"[bf16] K2{kind[0]} {label} Bb={Bb}: bf16 form {t['ms']:.4f} ms, f32 form "
                   f"{t['f32_ms']:.4f}, plain {t['plain_ms']:.4f}, cuDNN ({lib_dtype}) "
                   f"{library_ms:.4f}, bound {bound_ms:.4f} ({bound_by}: {n_bytes} B, {flops} FLOP)")
@@ -883,7 +927,7 @@ def phase_bf16_kernels() -> tuple:
             if not entry:  # CRN's numbers head the row
                 entry.update(row, kernel_ms=t["ms"], shapes=f"CRN T={T} Bb={Bb} In={In} H={H}")
             else:
-                entry["fullsubnet_sb_l0"] = row
+                entry[label.lower().replace(" ", "_")] = row
     k2f.update(name="fused_lstm_scan_inproj_fwd_bf16", route="cuda",
                source="se_tpu_torch/csrc/lstm_inproj.cu",
                replaces="se_tpu/ops/pallas_lstm.py:432::_inproj_call (bf16 stream: :318-321, :334)")

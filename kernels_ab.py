@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the f32 forms of the hand kernels K1-K4 and hash their outputs, to
-compare two checkouts on one card.
+"""Time the f32 forms of the hand kernels K1-K4, and K2's bf16-stream form,
+and hash their outputs, to compare two checkouts on one card.
 
     (cd parent_checkout && python3 /path/to/kernels_ab.py parent)
     python3 kernels_ab.py change
@@ -11,10 +11,14 @@ checkout's kernels with its own ``chip_smoke.phase_build`` (which prints
 each kernel's registers and spills), then times, with CUDA events, K1f at
 DCCRN's enhance shape (T=483, L=2, Bb=16, H=128), K1b at its train shape
 (Bb=20), K2f at CRN's enhance shape (T=483, Bb=8, In=512, H=128), K2b at
-its train shape (Bb=10), K2f and K2b at FullSubNet's sub band, layer 0 at B=8 (T=163,
-Bb=2056, In=32, H=384), K3f and K3b at FullSubNet-GRU's sub band, layer 0 at
-B=8 (the same shape), and K4 at the default DCCRN's six encoder stages at
-B=8 (T=483), on inputs drawn from a fixed seed.  It prints one line, ``AB
+its train shape (Bb=10), K2f and K2b at DCCRN's real LSTM, both layers at
+B=8 (T=483, Bb=8, In=1024 and 256, H=256) and at FullSubNet's four LSTM
+layers at B=8 (T=163; full band Bb=8, In=257 and 512, H=512; sub band
+Bb=2056, In=32 and 384, H=384), K3f and K3b at FullSubNet-GRU's sub band,
+layer 0 at B=8 (T=163, Bb=2056, In=32, H=384), and K4 at the default
+DCCRN's six encoder stages at B=8 (T=483), and last the bf16-stream forms
+of K2f and K2b at FullSubNet's four LSTM layers, on inputs drawn from a
+fixed seed.  It prints one line, ``AB
 <tag> {kernel: [ms, sha256 of its outputs]}``: equal hashes mean equal bits.
 """
 
@@ -35,6 +39,11 @@ from se_tpu_torch.ops import fused_gru_inproj as k3  # noqa: E402
 from se_tpu_torch.ops import fused_lstm as k1  # noqa: E402
 from se_tpu_torch.ops import fused_lstm_inproj as k2  # noqa: E402
 from se_tpu_torch.probes import cuda_ms  # noqa: E402
+
+
+# (label, T, Bb, In, H) of FullSubNet's four LSTM layers at B=8
+FULLSUBNET_LSTM = (("fb l0", 163, 8, 257, 512), ("fb l1", 163, 8, 512, 512),
+                   ("sb l0", 163, 2056, 32, 384), ("sb l1", 163, 2056, 384, 384))
 
 
 def _hash(*tensors) -> str:
@@ -68,7 +77,9 @@ def main(tag: str) -> dict:
                 ms = cuda_ms(lambda: k1.fused_lstm_scan_backward(xp, w, h0, c0, ys, cs_, *c), 20, 2)
                 out[kind] = (ms, _hash(*g))
     for label, T, Bb, In, H in (("CRN", 483, 8, 512, 128), ("CRN train", 483, 10, 512, 128),
-                                ("sb l0", 163, 2056, 32, 384)):
+                                ("DCCRN real l0", 483, 8, 1024, 256),
+                                ("DCCRN real l1", 483, 8, 256, 256),
+                                *FULLSUBNET_LSTM):
         args = cs._inproj_inputs(rng, dev, T, 1, Bb, In, H)
         with torch.no_grad():
             ys, cs_, hT, cT = k2._forward(*args, need_cs=True)
@@ -98,6 +109,20 @@ def main(tag: str) -> dict:
             y = fused_conv.fused_complex_conv2d(x, w, b)
             ms = cuda_ms(lambda: fused_conv.fused_complex_conv2d(x, w, b), 20, 3)
         out[f"K4 stage {i + 1}"] = (ms, _hash(y))
+    bf16 = torch.bfloat16
+    for label, T, Bb, In, H in FULLSUBNET_LSTM:
+        x, *rest = cs._inproj_inputs(rng, dev, T, 1, Bb, In, H)
+        x = x.to(bf16)
+        with torch.no_grad():
+            ys, cs_, hT, cT = k2._forward(x, *rest, need_cs=True)
+            ms = cuda_ms(lambda: k2.fused_lstm_scan_inproj(x, *rest), 5, 2)
+            out[f"K2f-bf16 {label}"] = (ms, _hash(ys, hT, cT))
+            dys, dhT, dcT = cots((T, 1, Bb, H), (1, Bb, H), (1, Bb, H))
+            dys = dys.to(bf16)
+            g = k2.fused_lstm_scan_inproj_backward(x, *rest, ys, cs_, dys, dhT, dcT)
+            ms = cuda_ms(lambda: k2.fused_lstm_scan_inproj_backward(x, *rest, ys, cs_, dys, dhT,
+                                                                    dcT), 3, 1)
+            out[f"K2b-bf16 {label}"] = (ms, _hash(*g))
     print("AB", tag, json.dumps(out))
     return out
 

@@ -387,8 +387,8 @@ template <typename TS>
 int gru_bwd(const TS* x, const float* wih_t, const float* b_ih, const float* whh_t,
             const float* b_hh, const float* h0, const TS* ys, const TS* dys,
             const float* dhT, TS* dx, float* dwih_t, float* db_ih, float* dwhh_t,
-            float* db_hh, float* dh0, float* dg, float* dgn,
-            int T, int L, int Bb, int In, int H, int device, void* stream) {
+            float* db_hh, float* dh0, float* dg, float* dgn, float* ws,
+            int T, int L, int Bb, int In, int H, int ws_floats, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int G = 3 * H;
@@ -404,15 +404,16 @@ int gru_bwd(const TS* x, const float* wih_t, const float* b_ih, const float* whh
   if (err != cudaSuccess) return static_cast<int>(err);
   err = launch_dx(dg, wih_t, dx, T, L, Bb, In, G, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_dw(x, nullptr, dg, G, dwih_t, G, T, L, Bb, In, G, 0, s);
+  const size_t wsf = static_cast<size_t>(ws_floats);
+  err = launch_dw(x, nullptr, dg, G, dwih_t, G, ws, wsf, T, L, Bb, In, G, 0, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_dw(ys, h0, dg, G, dwhh_t, G, T, L, Bb, H, 2 * H, 1, s);  // r, z columns
+  err = launch_dw(ys, h0, dg, G, dwhh_t, G, ws, wsf, T, L, Bb, H, 2 * H, 1, s);  // r, z columns
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_dw(ys, h0, dgn, H, dwhh_t + 2 * H, G, T, L, Bb, H, H, 1, s);  // n columns
+  err = launch_dw(ys, h0, dgn, H, dwhh_t + 2 * H, G, ws, wsf, T, L, Bb, H, H, 1, s);  // n columns
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_dbias(dg, G, db_ih, G, T, L, Bb, G, s);
+  err = launch_dbias(dg, G, db_ih, G, ws, wsf, T, L, Bb, G, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_dbias(dgn, H, db_hh + 2 * H, G, T, L, Bb, H, s);
+  err = launch_dbias(dgn, H, db_hh + 2 * H, G, ws, wsf, T, L, Bb, H, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   // db_hh's r and z slices: the same sums as db_ih's
   err = cudaMemcpy2DAsync(db_hh, sizeof(float) * G, db_ih, sizeof(float) * G,
@@ -448,7 +449,8 @@ extern "C" int se_gru_inproj_fwd_bf16(const __nv_bfloat16* x, const float* wih_t
 
 // Launches the backward: the reverse scan (dh0 and the scratch buffers
 // dg [T, L, Bb, 3H] and dgn [T, L, Bb, H]), then the dx product and the
-// dW_ih, db_ih, dW_hh and db_hh reductions that read them, all on
+// dW_ih, db_ih, dW_hh and db_hh reductions that read them, their rows split
+// over the workspace `ws` (ws_floats floats; lstm_common.cuh), all on
 // `stream`.  Returns the first cudaError_t (0 on success;
 // cudaErrorInvalidValue as for the forward).  Shapes as above; every
 // pointer is a device pointer to a contiguous f32 array, none may be null.
@@ -458,11 +460,11 @@ extern "C" int se_gru_inproj_bwd_f32(const float* x, const float* wih_t,
                                      const float* ys, const float* dys,
                                      const float* dhT, float* dx, float* dwih_t,
                                      float* db_ih, float* dwhh_t, float* db_hh,
-                                     float* dh0, float* dg, float* dgn,
-                                     int T, int L, int Bb, int In, int H,
+                                     float* dh0, float* dg, float* dgn, float* ws,
+                                     int T, int L, int Bb, int In, int H, int ws_floats,
                                      int device, void* stream) {
   return gru_bwd(x, wih_t, b_ih, whh_t, b_hh, h0, ys, dys, dhT, dx, dwih_t, db_ih, dwhh_t,
-                 db_hh, dh0, dg, dgn, T, L, Bb, In, H, device, stream);
+                 db_hh, dh0, dg, dgn, ws, T, L, Bb, In, H, ws_floats, device, stream);
 }
 
 // The bf16-stream backward: x, ys, dys and dx bf16, the rest (the dg and
@@ -473,9 +475,9 @@ extern "C" int se_gru_inproj_bwd_bf16(const __nv_bfloat16* x, const float* wih_t
                                       const __nv_bfloat16* ys, const __nv_bfloat16* dys,
                                       const float* dhT, __nv_bfloat16* dx, float* dwih_t,
                                       float* db_ih, float* dwhh_t, float* db_hh,
-                                      float* dh0, float* dg, float* dgn,
-                                      int T, int L, int Bb, int In, int H,
+                                      float* dh0, float* dg, float* dgn, float* ws,
+                                      int T, int L, int Bb, int In, int H, int ws_floats,
                                       int device, void* stream) {
   return gru_bwd(x, wih_t, b_ih, whh_t, b_hh, h0, ys, dys, dhT, dx, dwih_t, db_ih, dwhh_t,
-                 db_hh, dh0, dg, dgn, T, L, Bb, In, H, device, stream);
+                 db_hh, dh0, dg, dgn, ws, T, L, Bb, In, H, ws_floats, device, stream);
 }

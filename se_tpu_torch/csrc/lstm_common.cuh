@@ -24,6 +24,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 #include <type_traits>
 
@@ -32,7 +33,7 @@
 namespace {
 
 constexpr int kRows = 4;   // batch rows per scan block; a row operand is read as one float4
-constexpr int kTile = 32;  // dW tile edge and rows per reduction chunk
+constexpr int kTile = 32;  // dx tile edge, dbias columns per block
 
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -232,40 +233,99 @@ __device__ __forceinline__ void dh_rows(const float* __restrict__ w,
   }
 }
 
+// The second passes below sum over the T * Bb rows n = t * Bb + b of a
+// gate-gradient scratch buffer.  A call splits those rows into S segments of
+// consecutive rows, enough to fill the card: each block sums its segment's
+// rows in order into a partial, and sum_partials adds the S partials in
+// order 0..S-1.  Fixed segments, fixed orders and no atomics: two calls
+// give the same bits.  The partials live in the caller's workspace `ws`
+// (ws_floats floats); S is cut so that they fit it, and with S = 1 a block
+// writes its sum straight to the output.
+constexpr int kDwTile = 64;        // dW output tile edge
+constexpr int kDwRows = 32;        // rows staged per pass of a dW block
+constexpr int kBlocksPerSm = 4;    // the blocks a split aims at, per SM
+constexpr int kMinSegmentRows = 256;  // fewest rows worth a segment of their own
+
+// The segment count for a reduction of `rows` rows whose L * K * G outputs
+// fall into `tiles` blocks per segment.
+inline int split_rows(int rows, int tiles, size_t outputs, size_t ws_floats) {
+  int device = 0, sms = 132;
+  if (cudaGetDevice(&device) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  int S = (kBlocksPerSm * sms + tiles - 1) / tiles;
+  S = std::min(S, std::max(1, rows / kMinSegmentRows));
+  S = static_cast<int>(std::min(static_cast<size_t>(S), ws_floats / outputs));
+  S = std::max(S, 1);
+  const int per = (rows + S - 1) / S;  // no empty segment
+  return (rows + per - 1) / per;
+}
+
+// out[l][k][g] (rows ldo apart) = sum over s = 0..S-1 of ws[s][l][k][g]
+// (packed, G wide).
+__global__ void sum_partials_kernel(const float* __restrict__ ws, int S, int L, int K, int G,
+                                    float* __restrict__ out, int ldo) {
+  const size_t count = static_cast<size_t>(L) * K * G;
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < count;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    float v = ws[i];
+    for (int s = 1; s < S; ++s) v += ws[s * count + i];
+    const size_t lk = i / G;
+    out[lk * ldo + i % G] = v;
+  }
+}
+
+cudaError_t launch_sum_partials(const float* ws, int S, int L, int K, int G, float* out,
+                                int ldo, cudaStream_t s) {
+  const size_t count = static_cast<size_t>(L) * K * G;
+  const int blocks = static_cast<int>(std::min<size_t>((count + 255) / 256, 4096));
+  sum_partials_kernel<<<blocks, 256, 0, s>>>(ws, S, L, K, G, out, ldo);
+  return cudaGetLastError();
+}
+
 // dw[l][k][g] = sum over n = t * Bb + b of a_n[k] * dg[t, l, b, g], for a
-// kTile x kTile tile (k0, g0) of stack l per block; 16 x 16 threads, each
-// owning a 2 x 2 block of outputs.  The row operand a_n is a[t, l, b, :]
-// (shift = 0: dW_ih from a = x, K = In) or the previous step's row,
-// a[t-1, l, b, :] and a0[l, b, :] at t = 0 (shift = 1: dW_hh from a = ys,
-// a0 = h0, K = H).  dg's rows are ldg floats apart and dw's ldw, so G
-// columns of a wider gate row can be summed (the GRU's r, z and n slices
-// come from two buffers).  Rows are summed in one fixed order and no
-// atomics, so two calls give the same bits.  The row operand a is f32 or
-// bf16 (the bf16-stream forms' x and ys), a0 and the dgates dg f32: the
-// bf16 forms sum dW from the f32 gate gradients, as pallas_lstm.py:144-153
-// and :400-420 do, never from a rounded copy.
+// kDwTile x kDwTile tile (k0, g0) of stack l and one segment of rows per
+// block (blockIdx.z = segment * L + l); 16 x 16 threads, each owning a
+// 4 x 4 block of outputs (k0 + 4 ty + i, g0 + 4 tx + j), read from shared
+// memory as float4s.  The row operand a_n is a[t, l, b, :] (shift = 0:
+// dW_ih from a = x, K = In) or the previous step's row, a[t-1, l, b, :] and
+// a0[l, b, :] at t = 0 (shift = 1: dW_hh from a = ys, a0 = h0, K = H).
+// dg's rows are ldg floats apart and dw's ldw, so G columns of a wider gate
+// row can be summed (the GRU's r, z and n slices come from two buffers).
+// With S > 1 segments the block writes its partial to ws[segment][l][k][g]
+// (G wide) for sum_partials.  The row operand a is f32 or bf16 (the
+// bf16-stream forms' x and ys), a0 and the dgates dg f32: the bf16 forms sum
+// dW from the f32 gate gradients, as pallas_lstm.py:144-153 and :400-420
+// do, never from a rounded copy.
 template <typename TA>
-__global__ void lstm_dw_kernel(const TA* __restrict__ a,
-                               const float* __restrict__ a0,
-                               const float* __restrict__ dg, int ldg,
-                               float* __restrict__ dw, int ldw,
-                               int T, int L, int Bb, int K, int G, int shift) {
-  __shared__ float a_s[kTile][kTile + 1];  // [row][k]
-  __shared__ float b_s[kTile][kTile];      // [row][g]
-  const int l = blockIdx.z;
-  const int k0 = blockIdx.y * kTile;
-  const int g0 = blockIdx.x * kTile;
+__global__ void __launch_bounds__(256)
+lstm_dw_kernel(const TA* __restrict__ a, const float* __restrict__ a0,
+               const float* __restrict__ dg, int ldg, float* __restrict__ dw, int ldw,
+               float* __restrict__ ws, int T, int L, int Bb, int K, int G, int shift,
+               int S, int seg_rows) {
+  __shared__ __align__(16) float a_s[kDwRows][kDwTile];  // [row][k]
+  __shared__ __align__(16) float b_s[kDwRows][kDwTile];  // [row][g]
+  const int l = blockIdx.z % L;
+  const int seg = blockIdx.z / L;
+  const int k0 = blockIdx.y * kDwTile;
+  const int g0 = blockIdx.x * kDwTile;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * 16 + tx;
   const int N = T * Bb;
-  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  const int n_begin = seg * seg_rows;
+  const int n_end = min(N, n_begin + seg_rows);
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
 
-  for (int n0 = 0; n0 < N; n0 += kTile) {
-    for (int idx = tid; idx < kTile * kTile; idx += 256) {
-      const int i = idx / kTile, c = idx % kTile;
+  for (int n0 = n_begin; n0 < n_end; n0 += kDwRows) {
+    for (int idx = tid; idx < kDwRows * kDwTile; idx += 256) {
+      const int i = idx / kDwTile, c = idx % kDwTile;
       const int n = n0 + i;
       float av = 0.f, bv = 0.f;
-      if (n < N) {
+      if (n < n_end) {
         const int t = n / Bb, bb = n % Bb;
         const size_t row = (static_cast<size_t>(t) * L + l) * Bb + bb;
         if (k0 + c < K) {
@@ -283,35 +343,47 @@ __global__ void lstm_dw_kernel(const TA* __restrict__ a,
     }
     __syncthreads();
 #pragma unroll 8
-    for (int i = 0; i < kTile; ++i) {
-      const float a0v = a_s[i][ty], a1v = a_s[i][ty + 16];
-      const float v0 = b_s[i][tx], v1 = b_s[i][tx + 16];
-      acc[0][0] = fmaf(a0v, v0, acc[0][0]);
-      acc[0][1] = fmaf(a0v, v1, acc[0][1]);
-      acc[1][0] = fmaf(a1v, v0, acc[1][0]);
-      acc[1][1] = fmaf(a1v, v1, acc[1][1]);
+    for (int i = 0; i < kDwRows; ++i) {
+      const float4 av = *reinterpret_cast<const float4*>(&a_s[i][4 * ty]);
+      const float4 bv = *reinterpret_cast<const float4*>(&b_s[i][4 * tx]);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[p][q] = fmaf(ar[p], br[q], acc[p][q]);
+      }
     }
     __syncthreads();
   }
+  float* out = S > 1 ? ws + (static_cast<size_t>(seg) * L + l) * K * G : dw + static_cast<size_t>(l) * K * ldw;
+  const int ld = S > 1 ? G : ldw;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int p = 0; p < 4; ++p) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int k = k0 + ty + 16 * i, g = g0 + tx + 16 * j;
-      if (k < K && g < G) dw[(static_cast<size_t>(l) * K + k) * ldw + g] = acc[i][j];
+    for (int q = 0; q < 4; ++q) {
+      const int k = k0 + 4 * ty + p, g = g0 + 4 * tx + q;
+      if (k < K && g < G) out[static_cast<size_t>(k) * ld + g] = acc[p][q];
     }
   }
 }
 
-// Launches lstm_dw_kernel for G columns of stacks [L, K, ldw] on stream s.
+// Launches lstm_dw_kernel for G columns of stacks [L, K, ldw] on stream s,
+// its rows split over the workspace ws (ws_floats floats), then the sum of
+// the partials.
 template <typename TA>
 cudaError_t launch_dw(const TA* a, const float* a0, const float* dg, int ldg, float* dw,
-                      int ldw, int T, int L, int Bb, int K, int G, int shift,
-                      cudaStream_t s) {
-  const dim3 grid((G + kTile - 1) / kTile, (K + kTile - 1) / kTile, L);
-  lstm_dw_kernel<TA><<<grid, dim3(16, 16), 0, s>>>(a, a0, dg, ldg, dw, ldw, T, L, Bb, K, G,
-                                               shift);
-  return cudaGetLastError();
+                      int ldw, float* ws, size_t ws_floats, int T, int L, int Bb, int K,
+                      int G, int shift, cudaStream_t s) {
+  const int gx = (G + kDwTile - 1) / kDwTile, ky = (K + kDwTile - 1) / kDwTile;
+  const int N = T * Bb;
+  const int S = split_rows(N, gx * ky * L, static_cast<size_t>(L) * K * G, ws_floats);
+  const int seg_rows = (N + S - 1) / S;
+  lstm_dw_kernel<TA><<<dim3(gx, ky, L * S), dim3(16, 16), 0, s>>>(
+      a, a0, dg, ldg, dw, ldw, ws, T, L, Bb, K, G, shift, S, seg_rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || S == 1) return err;
+  return launch_sum_partials(ws, S, L, K, G, dw, ldw, s);
 }
 
 // dx[t, l, b, k] = sum_g dg[t, l, b, g] * w_ih_t[l][k][g], for a kTile x
@@ -383,19 +455,23 @@ cudaError_t launch_dx(const float* dg, const float* wih_t, TO* dx, int T, int L,
 constexpr int kSumGroups = 8;  // row groups of the dbias column sum
 
 // db[l][g] = sum over n = t * Bb + b of dg[t, l, b, g] (dg's rows ldg floats
-// apart, db's stacks ldb): kTile columns x kSumGroups row groups per block;
-// group y sums rows y, y + kSumGroups, ... in order, and one thread adds the
-// groups' partial sums in order.
+// apart, db's stacks ldb): kTile columns x kSumGroups row groups per block
+// and one segment of rows per block (blockIdx.y = segment * L + l); group y
+// sums the segment's rows y, y + kSumGroups, ... in order, and one thread
+// adds the groups' sums in order, into db (S = 1) or the partial
+// ws[segment][l][g] (G wide).
 __global__ void lstm_inproj_dbias_kernel(const float* __restrict__ dg, int ldg,
                                          float* __restrict__ db, int ldb,
-                                         int T, int L, int Bb, int G) {
+                                         float* __restrict__ ws,
+                                         int T, int L, int Bb, int G, int S, int seg_rows) {
   __shared__ float part[kSumGroups][kTile];
-  const int l = blockIdx.y;
+  const int l = blockIdx.y % L;
+  const int seg = blockIdx.y / L;
   const int g = blockIdx.x * kTile + threadIdx.x;
-  const int N = T * Bb;
+  const int n_end = min(T * Bb, (seg + 1) * seg_rows);
   float acc = 0.f;
   if (g < G) {
-    for (int n = threadIdx.y; n < N; n += kSumGroups) {
+    for (int n = seg * seg_rows + threadIdx.y; n < n_end; n += kSumGroups) {
       const int t = n / Bb, bb = n % Bb;
       acc += dg[((static_cast<size_t>(t) * L + l) * Bb + bb) * ldg + g];
     }
@@ -406,16 +482,27 @@ __global__ void lstm_inproj_dbias_kernel(const float* __restrict__ dg, int ldg,
     float s = 0.f;
 #pragma unroll
     for (int i = 0; i < kSumGroups; ++i) s += part[i][threadIdx.x];
-    db[static_cast<size_t>(l) * ldb + g] = s;
+    if (S > 1) {
+      ws[(static_cast<size_t>(seg) * L + l) * G + g] = s;
+    } else {
+      db[static_cast<size_t>(l) * ldb + g] = s;
+    }
   }
 }
 
-// Launches lstm_inproj_dbias_kernel for G columns.
-cudaError_t launch_dbias(const float* dg, int ldg, float* db, int ldb, int T, int L, int Bb,
-                         int G, cudaStream_t s) {
-  lstm_inproj_dbias_kernel<<<dim3((G + kTile - 1) / kTile, L), dim3(kTile, kSumGroups), 0, s>>>(
-      dg, ldg, db, ldb, T, L, Bb, G);
-  return cudaGetLastError();
+// Launches lstm_inproj_dbias_kernel for G columns, its rows split over the
+// workspace ws as launch_dw's.
+cudaError_t launch_dbias(const float* dg, int ldg, float* db, int ldb, float* ws,
+                         size_t ws_floats, int T, int L, int Bb, int G, cudaStream_t s) {
+  const int gx = (G + kTile - 1) / kTile;
+  const int N = T * Bb;
+  const int S = split_rows(N, gx * L, static_cast<size_t>(L) * G, ws_floats);
+  const int seg_rows = (N + S - 1) / S;
+  lstm_inproj_dbias_kernel<<<dim3(gx, L * S), dim3(kTile, kSumGroups), 0, s>>>(
+      dg, ldg, db, ldb, ws, T, L, Bb, G, S, seg_rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || S == 1) return err;
+  return launch_sum_partials(ws, S, L, 1, G, db, ldb, s);
 }
 
 // Lets `kernel` take `smem` bytes of dynamic shared memory (above 48 KB it

@@ -48,8 +48,9 @@
 //      16 columns for all kRows rows, and a shuffle reduction ends it.
 // dW_hh is summed over all T * Bb rows by a second kernel, lstm_dw_kernel
 // (lstm_common.cuh): dw_hh_t[l][k][g] = sum_{t,b} h_prev[t,l,b,k] *
-// dx_proj[t,l,b,g], a 32 x 32 output tile per block with the rows in a
-// fixed order, so two calls give the same bits (no atomics).
+// dx_proj[t,l,b,g], a 64 x 64 output tile and a segment of the rows per
+// block, the rows and then the segments' partials summed in fixed orders,
+// so two calls give the same bits (no atomics).
 // W_hh[l] does not fit in one block's 227 KB of shared memory, so every
 // step streams it from L2 through one SM: that read, not the arithmetic,
 // sets the step time.  The faster design splits the 4H columns over a
@@ -298,7 +299,8 @@ template <typename TS>
 int launch_scan_bwd(const TS* xp, const float* whh_t, const float* h0, const float* c0,
                     const TS* ys, const float* cs, const TS* dys, const float* dhT,
                     const float* dcT, float* dg, TS* dxp, float* dwhh_t, float* dh0,
-                    float* dc0, int T, int L, int Bb, int H, int device, void* stream) {
+                    float* dc0, float* ws, int T, int L, int Bb, int H, int ws_floats,
+                    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int G = 4 * H;
@@ -312,7 +314,8 @@ int launch_scan_bwd(const TS* xp, const float* whh_t, const float* h0, const flo
       xp, whh_t, h0, c0, ys, cs, dys, dhT, dcT, dg, dxp, dh0, dc0, T, L, Bb, H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_dw(ys, h0, dg, G, dwhh_t, G, T, L, Bb, H, G, 1, s));
+  return static_cast<int>(launch_dw(ys, h0, dg, G, dwhh_t, G, ws, ws_floats, T, L, Bb, H, G,
+                                    1, s));
 }
 
 }  // namespace
@@ -339,20 +342,21 @@ extern "C" int se_lstm_scan_fwd_bf16(const __nv_bfloat16* xp, const float* whh_t
 }
 
 // Launches the backward: the reverse scan (dx_proj, dh0, dc0), then the
-// dW_hh reduction that reads its dx_proj, both on `stream`.  Returns the
-// first cudaError_t (0 on success).  Shapes as above; every pointer is a
-// device pointer to a contiguous f32 array, none may be null.
+// dW_hh reduction that reads its dx_proj, its rows split over the
+// workspace `ws` (ws_floats floats; lstm_common.cuh), all on `stream`.
+// Returns the first cudaError_t (0 on success).  Shapes as above; every
+// pointer is a device pointer to a contiguous f32 array, none may be null.
 extern "C" int se_lstm_scan_bwd_f32(const float* xp, const float* whh_t,
                                     const float* h0, const float* c0,
                                     const float* ys, const float* cs,
                                     const float* dys, const float* dhT,
                                     const float* dcT, float* dxp, float* dwhh_t,
-                                    float* dh0, float* dc0,
-                                    int T, int L, int Bb, int H,
+                                    float* dh0, float* dc0, float* ws,
+                                    int T, int L, int Bb, int H, int ws_floats,
                                     int device, void* stream) {
   return launch_scan_bwd(xp, whh_t, h0, c0, ys, cs, dys, dhT, dcT, dxp,
-                         static_cast<float*>(nullptr), dwhh_t, dh0, dc0, T, L, Bb, H,
-                         device, stream);
+                         static_cast<float*>(nullptr), dwhh_t, dh0, dc0, ws, T, L, Bb, H,
+                         ws_floats, device, stream);
 }
 
 // The bf16-stream backward: xp, ys, dys and dxp bf16, the rest f32 as in
@@ -363,9 +367,9 @@ extern "C" int se_lstm_scan_bwd_bf16(const __nv_bfloat16* xp, const float* whh_t
                                      const __nv_bfloat16* ys, const float* cs,
                                      const __nv_bfloat16* dys, const float* dhT,
                                      const float* dcT, __nv_bfloat16* dxp, float* dwhh_t,
-                                     float* dh0, float* dc0, float* dg,
-                                     int T, int L, int Bb, int H,
+                                     float* dh0, float* dc0, float* dg, float* ws,
+                                     int T, int L, int Bb, int H, int ws_floats,
                                      int device, void* stream) {
   return launch_scan_bwd(xp, whh_t, h0, c0, ys, cs, dys, dhT, dcT, dg, dxp, dwhh_t, dh0,
-                         dc0, T, L, Bb, H, device, stream);
+                         dc0, ws, T, L, Bb, H, ws_floats, device, stream);
 }

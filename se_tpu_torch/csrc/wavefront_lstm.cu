@@ -14,7 +14,8 @@
 //   y1[t] with its own weights; gate order i, f, g, o
 //   -> ys2, ys1 [T, Bb, H], hT, cT [2, Bb, H]
 //
-// Design.  K2's, with both layers in one block per tile of kRows rows and
+// Design.  K2's first one (PRs 3-7: one block per tile of rows, W from L2
+// every step), with both layers in one block per tile of kRows rows and
 // T + 1 iterations.  Iteration t:
 //   0. at the start of a chunk of C steps, layer 1's input projections of
 //      the chunk, in one pass over W_ih1 (stage_chunk, project_chunk);
@@ -23,9 +24,10 @@
 //      h (dot_column over W_ih2, then recurrent_columns over W_hh2);
 //   2. after one barrier, both cell updates (cell_forward).
 // Layer 1 idles at t = T and layer 2 at t = 0.  Each gate is the same sum
-// in the same order as K2's, so the result equals two K2 calls bit for bit.
-// What bounds it is what bounds K2: a step of either layer reads its W_hh
-// (and layer 2 its W_ih2) from L2 through one SM.
+// in the same order as K2's (the cluster design kept that order), so the
+// result equals two K2 calls bit for bit.  What bounds it is what bounded
+// K2's first design: a step of either layer reads its W_hh (and layer 2
+// its W_ih2) from L2 through one SM.
 
 #include "lstm_common.cuh"
 

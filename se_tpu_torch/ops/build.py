@@ -91,6 +91,18 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+# The workspace of the backward kernels' split reductions (dW, dbias:
+# csrc/lstm_common.cuh), in floats: each segment of rows sums into a
+# partial there, and a split is cut to fit it.  16 MiB holds the splits of
+# every shape the paths run.
+DW_WORKSPACE_FLOATS = 1 << 22
+
+
+def dw_workspace(dev) -> torch.Tensor:
+    """A workspace for the split reductions on ``dev``."""
+    return torch.empty(DW_WORKSPACE_FLOATS, device=dev, dtype=torch.float32)
+
+
 # The stream dtypes of the hand kernels' two forms, and the suffix of each
 # form's C entry (se_<kernel>_f32, se_<kernel>_bf16)
 STREAM_FORMS = {torch.float32: "f32", torch.bfloat16: "bf16"}

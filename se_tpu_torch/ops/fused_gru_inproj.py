@@ -121,7 +121,7 @@ def _library():
             fwd = getattr(lib, f"se_gru_inproj_fwd_{form}")
             bwd = getattr(lib, f"se_gru_inproj_bwd_{form}")
             fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-            bwd.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            bwd.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
             fwd.restype = bwd.restype = ctypes.c_int
     return lib
 
@@ -187,7 +187,8 @@ def fused_gru_scan_inproj_backward(x, w_ih_t, b_ih, w_hh_t, b_hh, h0, ys, dys, d
         _library(), f"se_gru_inproj_bwd_{build.STREAM_FORMS[sdt]}",
         (x, w_ih_t, b_ih, w_hh_t, b_hh, h0, ys, dys, dhT),
         (*_INPUTS, "ys", "dys", "dhT"),
-        (dx, dw_ih, db_ih, dw_hh, db_hh, dh0, dg, dgn), (T, L, Bb, In, H), dev,
+        (dx, dw_ih, db_ih, dw_hh, db_hh, dh0, dg, dgn, build.dw_workspace(dev)),
+        (T, L, Bb, In, H, build.DW_WORKSPACE_FLOATS), dev,
         (sdt,) + (f32,) * 5 + (sdt, sdt, f32),
     )
     build.count_launch(fused_gru_scan_inproj_backward, sdt)

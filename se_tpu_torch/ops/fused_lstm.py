@@ -118,9 +118,10 @@ def _library():
             fwd = getattr(lib, f"se_lstm_scan_fwd_{form}")
             bwd = getattr(lib, f"se_lstm_scan_bwd_{form}")
             fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-            # the bf16 form takes the f32 dgates scratch after dc0
-            n_ptr = 13 if form == "f32" else 14
-            bwd.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            # the bf16 form takes the f32 dgates scratch after dc0; both
+            # the reductions' workspace last, and its size after H
+            n_ptr = 14 if form == "f32" else 15
+            bwd.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [ctypes.c_void_p]
             fwd.restype = bwd.restype = ctypes.c_int
     return lib
 
@@ -184,7 +185,8 @@ def fused_lstm_scan_backward(x_proj, w_hh_t, h0, c0, ys, cs, dys, dhT, dcT):
         _library(), f"se_lstm_scan_bwd_{build.STREAM_FORMS[sdt]}",
         (x_proj, w_hh_t, h0, c0, ys, cs, dys, dhT, dcT),
         ("x_proj", "w_hh_t", "h0", "c0", "ys", "cs", "dys", "dhT", "dcT"),
-        outs, (T, L, Bb, H), dev, (sdt, f32, f32, f32, sdt, f32, sdt, f32, f32),
+        (*outs, build.dw_workspace(dev)), (T, L, Bb, H, build.DW_WORKSPACE_FLOATS), dev,
+        (sdt, f32, f32, f32, sdt, f32, sdt, f32, f32),
     )
     build.count_launch(fused_lstm_scan_backward, sdt)
     return dxp, dw, dh0, dc0

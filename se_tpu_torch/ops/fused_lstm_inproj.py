@@ -23,10 +23,111 @@ count (``launches``, ``launches_bf16``).
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from . import build
+
+# The kernels' tiling (csrc/lstm_inproj.cu): a cluster of N CTAs holds a
+# tile of R batch rows of one stack, CTA q the U = ceil(H / N) units q U ..
+# and their four gate columns; C steps a chunk of the input projection.
+MAX_SMEM = 232448  # bytes of shared memory a block may use on an H100
+MAX_CLUSTER = 16  # CTAs a cluster (above 8: the card's non-portable size)
+MAX_ROWS = 32  # rows a tile
+ROW_QUANTUM = 4  # a thread's rows, read as one float4
+MAX_CHUNK = 8  # steps a chunk projects at once
+THREADS = 512  # a CTA's threads
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One launch's tiling: ``tiles`` clusters of ``N`` CTAs per stack,
+    ``R`` rows a cluster, ``U`` units a CTA (the last one fewer where N does
+    not divide H), chunks of ``C`` steps, the CTA's W_hh slice ``resident``
+    in shared memory (else read from L2 every step), ``smem`` bytes a
+    CTA."""
+
+    R: int
+    N: int
+    U: int
+    C: int
+    resident: bool
+    smem: int
+    tiles: int
+
+    def args(self) -> tuple:
+        """The entries' tiling arguments ``(R, N, C, resident)``."""
+        return self.R, self.N, self.C, int(self.resident)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def cell_threads(U: int, R: int) -> int:
+    """The threads of a CTA's cell update: a warp per 8 units x 4 row groups
+    of 4 rows."""
+    return 32 * _cdiv(U, 8) * _cdiv(R // ROW_QUANTUM, 4)
+
+
+def cluster_split(H: int) -> tuple:
+    """``(N, U)``: a CTA per 8 units, at most ``MAX_CLUSTER``: H = 128 and
+    more on 16 CTAs, which share the chunk's input projection too."""
+    N = min(MAX_CLUSTER, max(1, _cdiv(H, 8)))
+    U = _cdiv(H, N)
+    return _cdiv(H, U), U
+
+
+def smem_bytes(R: int, N: int, U: int, C: int, In: int, H: int, resident: bool,
+               backward: bool) -> int:
+    """A CTA's shared memory: the chunk's x [C][In][R] and gates [C][4U][R];
+    forward h [H][R] and c [U][R], backward h_prev [H][R], the partial dh it
+    receives [N][U][R] and the dh and dc carries [U][R]; the resident W_hh
+    slice [H][4U + 4]."""
+    floats = C * R * (In + 4 * U)
+    floats += (H + N * U + 2 * U) * R if backward else (H + U) * R
+    if resident:
+        floats += H * (4 * U + 4)
+    return 4 * floats
+
+
+def plan(Bb: int, In: int, H: int, backward: bool = False) -> Plan:
+    """The tiling of a K2 launch (forward, or the backward's reverse scan)
+    over ``Bb`` rows of ``In`` inputs and ``H`` units.  The W_hh slice is
+    resident wherever a tile of 4 rows fits beside it.  A tile takes as many
+    rows (up to ``MAX_ROWS``) as fit, the tiles then evened out over the
+    batch; the chunk is the longest up to ``MAX_CHUNK`` steps that fits.
+    The stream dtype does not enter: x is staged as f32 in both forms."""
+    N, U = cluster_split(H)
+
+    def fits(R, C, resident):  # in shared memory, a cell item a thread
+        return (smem_bytes(R, N, U, C, In, H, resident, backward) <= MAX_SMEM
+                and cell_threads(U, R) <= THREADS)
+
+    resident = fits(ROW_QUANTUM, 1, True)
+    top = min(MAX_ROWS, _cdiv(Bb, ROW_QUANTUM) * ROW_QUANTUM)
+    widest = next((R for R in range(top, 0, -ROW_QUANTUM) if fits(R, 1, resident)), None)
+    if widest is None:
+        raise ValueError(f"no K2 tiling fits Bb={Bb}, In={In}, H={H} in {MAX_SMEM} bytes")
+    tiles = _cdiv(Bb, widest)
+    R = _cdiv(_cdiv(Bb, tiles), ROW_QUANTUM) * ROW_QUANTUM
+    C = next(c for c in range(MAX_CHUNK, 0, -1) if fits(R, c, resident))
+    return Plan(R, N, U, C, resident, smem_bytes(R, N, U, C, In, H, resident, backward), tiles)
+
+
+def active_clusters(Bb: int, In: int, H: int, backward: bool = False, device=None) -> int:
+    """How many clusters of :func:`plan`'s tiling fit on the CUDA ``device``
+    at once (the runtime's occupancy query; 0: none, and a launch raises)."""
+    p = plan(Bb, In, H, backward)
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    lib = _library()
+    n = lib.se_lstm_inproj_active_clusters(int(backward), In, H, *p.args(), index)
+    if n < 0:
+        msg = lib.se_cuda_error_string(-n).decode()
+        raise RuntimeError(f"K2 occupancy query failed: CUDA error {-n} ({msg})")
+    return n
 
 
 def _gates(x_t, w_ih_t, bias, h, w_hh_t):
@@ -131,9 +232,11 @@ def _library():
         for form in build.STREAM_FORMS.values():
             fwd = getattr(lib, f"se_lstm_inproj_fwd_{form}")
             bwd = getattr(lib, f"se_lstm_inproj_bwd_{form}")
-            fwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-            bwd.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            fwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+            bwd.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
             fwd.restype = bwd.restype = ctypes.c_int
+        lib.se_lstm_inproj_active_clusters.argtypes = [ctypes.c_int] * 8
+        lib.se_lstm_inproj_active_clusters.restype = ctypes.c_int
     return lib
 
 
@@ -155,8 +258,8 @@ def _forward(x, w_ih_t, bias, w_hh_t, h0, c0, need_cs):
     cs = new(T, L, Bb, H) if need_cs else None
     build.cuda_launch(
         _library(), f"se_lstm_inproj_fwd_{build.STREAM_FORMS[sdt]}",
-        (x, w_ih_t, bias, w_hh_t, h0, c0), _INPUTS, (ys, cs, hT, cT), (T, L, Bb, In, H), dev,
-        (sdt,) + (f32,) * 5,
+        (x, w_ih_t, bias, w_hh_t, h0, c0), _INPUTS, (ys, cs, hT, cT),
+        (T, L, Bb, In, H, *plan(Bb, In, H).args()), dev, (sdt,) + (f32,) * 5,
     )
     build.count_launch(fused_lstm_scan_inproj, sdt)
     return ys, cs, hT, cT
@@ -168,9 +271,10 @@ def fused_lstm_scan_inproj_backward(x, w_ih_t, bias, w_hh_t, h0, c0, ys, cs, dys
     None counts as zeros.
 
     CPU tensors run the plain version.  CUDA tensors launch the backward
-    kernels (the reverse scan, then the deterministic dW_ih, dW_hh and
-    dbias reductions over an f32 ``[T, L, Bb, 4H]`` dgates scratch buffer)
-    on the current stream, or raise: contiguous only; x, ys and dys all
+    kernels (the reverse scan on :func:`plan`'s tiling, then the
+    deterministic dx product and dW_ih, dW_hh and dbias reductions over an
+    f32 ``[T, L, Bb, 4H]`` dgates scratch buffer) on the current stream, or
+    raise: contiguous only; x, ys and dys all
     float32 or all bfloat16 (then dx is bfloat16 too), the rest float32.
     Each call that launches adds one to
     ``fused_lstm_scan_inproj_backward.launches`` (f32) or ``.launches_bf16``.
@@ -200,12 +304,16 @@ def fused_lstm_scan_inproj_backward(x, w_ih_t, bias, w_hh_t, h0, c0, ys, cs, dys
     dx = torch.empty((T, L, Bb, In), device=dev, dtype=sdt)
     dw_ih, db, dw_hh = new(L, In, G), new(L, G), new(L, H, G)
     dh0, dc0, scratch = new(L, Bb, H), new(L, Bb, H), new(T, L, Bb, G)
+    tiling = plan(Bb, In, H, backward=True)
+    # [L, 4H, H], read only by the dh pass of a streamed slice (else unread)
+    w_hh = w_hh_t if tiling.resident else w_hh_t.transpose(1, 2).contiguous()
     build.cuda_launch(
         _library(), f"se_lstm_inproj_bwd_{build.STREAM_FORMS[sdt]}",
-        (x, w_ih_t, bias, w_hh_t, h0, c0, ys, cs, dys, dhT, dcT),
-        (*_INPUTS, "ys", "cs", "dys", "dhT", "dcT"),
-        (dx, dw_ih, db, dw_hh, dh0, dc0, scratch), (T, L, Bb, In, H), dev,
-        (sdt,) + (f32,) * 5 + (sdt, f32, sdt, f32, f32),
+        (x, w_ih_t, bias, w_hh_t, w_hh, h0, c0, ys, cs, dys, dhT, dcT),
+        ("x", "w_ih_t", "bias", "w_hh_t", "w_hh", "h0", "c0", "ys", "cs", "dys", "dhT", "dcT"),
+        (dx, dw_ih, db, dw_hh, dh0, dc0, scratch, build.dw_workspace(dev)),
+        (T, L, Bb, In, H, *tiling.args(), build.DW_WORKSPACE_FLOATS),
+        dev, (sdt,) + (f32,) * 6 + (sdt, f32, sdt, f32, f32),
     )
     build.count_launch(fused_lstm_scan_inproj_backward, sdt)
     return dx, dw_ih, db, dw_hh, dh0, dc0
@@ -235,7 +343,7 @@ def fused_lstm_scan_inproj(x, w_ih_t, bias, w_hh_t, h0, c0):
     """Same signature and result as :func:`fused_lstm_scan_inproj_reference`.
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel on
-    the current stream, or raise: contiguous only, x float32 or bfloat16
+    :func:`plan`'s tiling on the current stream, or raise: contiguous only, x float32 or bfloat16
     (the bf16-stream form: ys bfloat16), the rest float32.  Each launch adds
     one to ``fused_lstm_scan_inproj.launches`` (f32) or ``.launches_bf16``.
     When gradients are on

@@ -3,9 +3,9 @@
     python -m se_tpu_torch.probes.bound_probe [B] [T]
 
 Counterpart of ``tools/bound_probe.py``.  It times the in-projection LSTM
-forward kernel that FullSubNet's sub band runs (K2, ``csrc/lstm_inproj.cu``)
-at the sub band's first layer (B * 257 rows, In = 32, H = 384, T frames),
-with its per-step gate math swapped at compile time:
+forward kernel that FullSubNet's sub band runs (K2, ``csrc/lstm_inproj.cu``,
+on K2's own tiling) at the sub band's first layer (B * 257 rows, In = 32,
+H = 384, T frames), with its per-step gate math swapped at compile time:
 
   real       the LSTM's gate math: the very kernel K2 launches
   bf16gates  gate pre-activations, exp, the sigmoid's sum and quotient, and
@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..ops import build
+from ..ops.fused_lstm_inproj import plan
 from . import cuda_ms, sizes
 
 MODES = ("real", "bf16gates", "polyswap", "nogates")
@@ -73,7 +74,7 @@ def _library():
     lib = build.load("lstm_inproj")
     if lib.se_lstm_inproj_probe_f32.argtypes is None:
         lib.se_lstm_inproj_probe_f32.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         )
         lib.se_lstm_inproj_probe_f32.restype = ctypes.c_int
     return lib
@@ -98,7 +99,7 @@ def run(mode, x, wih, b, whh, h0, c0):
     ys, hT, cT = new(T, Bb, H), new(Bb, H), new(Bb, H)
     build.cuda_launch(_library(), "se_lstm_inproj_probe_f32", (x, wih, b, whh, h0, c0),
                       ("x", "wih", "b", "whh", "h0", "c0"), (ys, hT, cT),
-                      (T, Bb, In, H, MODES.index(mode)), x.device)
+                      (T, Bb, In, H, MODES.index(mode), *plan(Bb, In, H).args()), x.device)
     run.launches += 1
     return ys, hT, cT
 
@@ -125,12 +126,13 @@ def main(argv=None) -> dict:
     per_utt, In, H = SUB_BAND
     Bb = B * per_utt
     args = inputs(T, Bb, In, H, resolve_device("cuda"))
+    tiling = plan(Bb, In, H)
     times = {}
     with torch.inference_mode():
         for mode in MODES:
             times[mode] = cuda_ms(lambda: run(mode, *args), iters=20)
             print(f"{mode:10s}: {times[mode]:8.4f} ms  ({times['real'] / times[mode]:.2f}x "
-                  f"vs real)  [B={B} T={T} Bb={Bb} In={In} H={H}, 4 rows a block]")
+                  f"vs real)  [B={B} T={T} Bb={Bb} In={In} H={H}, {tiling}]")
     return times
 
 
