@@ -21,15 +21,17 @@ in order; any failure ends the run with a nonzero exit and no result line:
    wide (4H = 2048, In = 257) case, each with the planner's tiling printed
    (clusters, CTAs, rows, the W_hh slice resident or streamed, shared
    bytes), then the in-projection GRU scan's forward (K3f) and
-   backward (K3b) at FullSubNet's four GRU layers (B = 2, 10 and 8) and two
-   ragged cases, then the DCCRN encoder's fused complex conv (K4) at its six
+   backward (K3b) at FullSubNet's four GRU layers (B = 2, 10 and 8) and three
+   ragged cases, each with the planner's design printed (thread-block
+   clusters, with their tiling, or the per-block kernel), then the DCCRN
+   encoder's fused complex conv (K4) at its six
    stages (B = 10 and 8) and a ragged case, with one cuDNN conv beside it;
    the bf16-stream forms of K1 (DCCRN's enhance and train shapes) and K2
    (CRN's, FullSubNet's sub band and full band, layer 0, and the two ragged
    cases), each backward held on the
    kernel's own saved ys and cs, with the f32 form's time at the same shape
    and cuDNN's LSTM in bf16 beside them; the bf16 forms of K3 (FullSubNet-
-   GRU's four layers at B = 2, 10 and 8, two ragged cases, each backward
+   GRU's four layers at B = 2, 10 and 8, three ragged cases, each backward
    held on the kernel's own saved ys) and K4 (the six stages at B = 10 and
    8, a ragged case), by the same phases as their f32 forms, with the f32
    form's time and cuDNN's GRU or conv in bf16 beside them (K4's bound at
@@ -1007,13 +1009,32 @@ def _cudnn_gru(w_ih_t, b_ih, w_hh_t, b_hh, dev):
 _K3B_NAMES = ("dx", "dw_ih_t", "db_ih", "dw_hh_t", "db_hh", "dh0")
 
 
+def _k3_tiling(Bb, In, H) -> str:
+    """The planner's design for K3's forward and backward scans at a shape:
+    on clusters (clusters x CTAs, rows a cluster, units a CTA, chunk steps,
+    shared bytes a CTA, and how many such clusters the card runs at once),
+    or the per-block kernel."""
+    from se_tpu_torch.ops.fused_gru_inproj import active_clusters, plan
+
+    def one(backward):
+        p = plan(Bb, In, H, backward)
+        if not p.cluster:
+            return "per-block kernel"
+        return (f"{p.tiles} x {p.N} CTAs, R={p.R}, U={p.U}, resident, C={p.C}, {p.smem} B, "
+                f"{active_clusters(Bb, In, H, backward)} clusters at once")
+
+    return f"forward {one(False)}; backward {one(True)}"
+
+
 def phase_gru_kernels(dtype=torch.float32) -> tuple:
     """fused_gru_scan_inproj (K3f) and its backward (K3b) in the form of the
     stream ``dtype`` against their plain versions, at every shape
     FullSubNet-GRU runs: each of its four layer calls at the train
     comparison's batch (B=2), the 10 train steps' (B=10) and the enhance
-    batch (B=8), and two ragged cases (Bb not a multiple of the row tile, In
-    odd; one with 4 rows a block, one with 8).  Each backward is held on the
+    batch (B=8), and three ragged cases (Bb not a multiple of the row tile, In
+    odd; one with 4 rows a block, one with 8; one where neither the rows
+    divide by the cluster's tile nor the units by its CTAs), each with the
+    planner's design and tiling printed.  Each backward is held on the
     kernel's own ys; two backward calls bit-identical.  In the bf16-stream
     form x, ys, dys and dx are bf16 (each within one bf16 ulp of its plain
     version); the h carry, the gate math, the scratch and the weight, bias
@@ -1064,7 +1085,8 @@ def phase_gru_kernels(dtype=torch.float32) -> tuple:
         else:
             fwd_ok = e["fwd_abs"] <= KERNEL_TOL
             bf16_part = ""
-        print(f"[{tag}] {label} T={T} L={L} Bb={Bb} In={In} H={H}: forward max |kernel - plain| "
+        print(f"[{tag}] {label} T={T} L={L} Bb={Bb} In={In} H={H}: {_k3_tiling(Bb, In, H)}; "
+              f"forward max |kernel - plain| "
               f"{e['fwd_abs']} (tolerance {KERNEL_TOL}); backward max |kernel - plain| / "
               f"max |plain| {rel} (tolerance {BWD_REL_TOL}), max abs {e['bwd_abs']}{bf16_part}")
         assert np.isfinite(e["fwd_abs"]) and fwd_ok, (label, e)
@@ -1073,7 +1095,8 @@ def phase_gru_kernels(dtype=torch.float32) -> tuple:
         assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{label}: backward not repeatable"
         return args, ys, cots, e
 
-    for case in (("ragged", 9, 3, 5, 33, 32), ("ragged 8-row tiles", 9, 1, 1069, 33, 64)):
+    for case in (("ragged", 9, 3, 5, 33, 32), ("ragged 8-row tiles", 9, 1, 1069, 33, 64),
+                 ("ragged tiles and units", 7, 2, 37, 20, 44)):
         check(*case)
     print(f"[{tag}] every case: two backward calls bit-identical")
 
@@ -1127,6 +1150,9 @@ def phase_gru_kernels(dtype=torch.float32) -> tuple:
         t["fwd"]["flops"] = 2 * T * Bb * (In + H) * G
         t["bwd"]["bytes"] = s * (2 * x.numel() + 2 * ys.numel()) + 4 * (2 * n_w + 3 * h0.numel())
         t["bwd"]["flops"] = 3 * 2 * T * Bb * (In + H) * G
+        for kind in t:
+            t[kind]["bound_ms"] = _bound(t[kind]["bytes"], t[kind]["flops"])[0]
+            t[kind]["design"] = "cluster" if k3.plan(Bb, In, H, kind == "bwd").cluster else "block"
         per_layer[label] = t
         for kind in tot:
             for k in keys:
@@ -1163,7 +1189,12 @@ def phase_gru_kernels(dtype=torch.float32) -> tuple:
                          "library_ms": t["library_ms"],
                          "per_layer_ms": {k: v[kind]["ms"] for k, v in per_layer.items()},
                          "per_layer_library_ms": {k: v[kind]["library_ms"]
-                                                  for k, v in per_layer.items()}}
+                                                  for k, v in per_layer.items()},
+                         "per_layer_bound_ms": {k: v[kind]["bound_ms"]
+                                                for k, v in per_layer.items()},
+                         "per_layer_plain_ms": {k: v[kind]["plain_ms"]
+                                                for k, v in per_layer.items()},
+                         "per_layer_design": {k: v[kind]["design"] for k, v in per_layer.items()}}
         if bf16:
             entries[kind].update(f32_form_ms=t["f32_ms"], per_layer_f32_form_ms={
                 k: v[kind]["f32_ms"] for k, v in per_layer.items()})

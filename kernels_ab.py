@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the f32 forms of the hand kernels K1-K4, and K2's bf16-stream form,
-and hash their outputs, to compare two checkouts on one card.
+"""Time the f32 forms of the hand kernels K1-K4, and the bf16-stream forms
+of K2 and K3, and hash their outputs, to compare two checkouts on one card.
 
     (cd parent_checkout && python3 /path/to/kernels_ab.py parent)
     python3 kernels_ab.py change
@@ -14,12 +14,20 @@ DCCRN's enhance shape (T=483, L=2, Bb=16, H=128), K1b at its train shape
 its train shape (Bb=10), K2f and K2b at DCCRN's real LSTM, both layers at
 B=8 (T=483, Bb=8, In=1024 and 256, H=256) and at FullSubNet's four LSTM
 layers at B=8 (T=163; full band Bb=8, In=257 and 512, H=512; sub band
-Bb=2056, In=32 and 384, H=384), K3f and K3b at FullSubNet-GRU's sub band,
-layer 0 at B=8 (T=163, Bb=2056, In=32, H=384), and K4 at the default
-DCCRN's six encoder stages at B=8 (T=483), and last the bf16-stream forms
-of K2f and K2b at FullSubNet's four LSTM layers, on inputs drawn from a
-fixed seed.  It prints one line, ``AB
-<tag> {kernel: [ms, sha256 of its outputs]}``: equal hashes mean equal bits.
+Bb=2056, In=32 and 384, H=384), K4 at the default DCCRN's six encoder
+stages at B=8 (T=483), the bf16-stream forms of K2f and K2b at
+FullSubNet's four LSTM layers, and last K3f and K3b, f32 then bf16, at
+FullSubNet-GRU's four layers (the same shapes), on inputs drawn from a
+fixed seed.  Beside K3 at each layer it times cuDNN's ``nn.GRU`` in the
+same dtype (``cuDNN ...`` keys: the forward, and forward + backward minus
+forward), and beside K2-bf16 at the two l1 layers cuDNN's bf16
+``nn.LSTM`` and the plain versions.  It prints one line, ``AB <tag>
+{kernel: [ms, sha256 of its outputs or null]}``: equal hashes mean equal
+bits; then ``LAUNCHES <tag> {layer: [[kernel, us], ...]}``, each launch
+of one f32 K3b call at each layer in order (torch.profiler, the least of
+three calls), and, where the checkout's K3 has two designs
+(``fused_gru_inproj.plan``'s ``cluster``), each design's time and hash at
+each layer and form under ``K3f ... [cluster]`` and ``[block]`` keys.
 """
 
 from __future__ import annotations
@@ -57,8 +65,9 @@ def main(tag: str) -> dict:
     if not torch.cuda.is_available():
         sys.exit("no CUDA device: torch.cuda.is_available() is false")
     cs.phase_build()
-    dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from se_tpu_torch.device import resolve_device
+
+    dev = resolve_device("cuda")  # TF32 off, cuDNN's RNNs too, as in chip_smoke.py
     rng = np.random.default_rng(0)
     cots = lambda *shapes: [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
                             for s in shapes]
@@ -92,15 +101,6 @@ def main(tag: str) -> dict:
                 ms = cuda_ms(lambda: k2.fused_lstm_scan_inproj_backward(*args, ys, cs_, *c),
                              10 if label == "CRN train" else 3, 1)
                 out[f"K2b {label}"] = (ms, _hash(*g))
-    T, Bb, In, H = 163, 2056, 32, 384
-    args = cs._gru_inputs(rng, dev, T, 1, Bb, In, H)
-    with torch.no_grad():
-        ys, hT = k3.fused_gru_scan_inproj(*args)
-        out["K3f sb l0"] = (cuda_ms(lambda: k3.fused_gru_scan_inproj(*args), 5, 2), _hash(ys, hT))
-        c = cots((T, 1, Bb, H), (1, Bb, H))
-        g = k3.fused_gru_scan_inproj_backward(*args, ys, *c)
-        ms = cuda_ms(lambda: k3.fused_gru_scan_inproj_backward(*args, ys, *c), 3, 1)
-        out["K3b sb l0"] = (ms, _hash(*g))
     for i, (C, Co, Fq) in enumerate(cs._CONV_STAGES):
         x, w, b = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
             rng.standard_normal((16, C, Fq, 483)), rng.standard_normal((Co, C, 5, 2)) * 0.05,
@@ -123,8 +123,112 @@ def main(tag: str) -> dict:
             ms = cuda_ms(lambda: k2.fused_lstm_scan_inproj_backward(x, *rest, ys, cs_, dys, dhT,
                                                                     dcT), 3, 1)
             out[f"K2b-bf16 {label}"] = (ms, _hash(*g))
+    _k2_bf16_yardsticks(rng, dev, cots, out)
+    launches = _k3(rng, dev, cots, out)
     print("AB", tag, json.dumps(out))
+    print("LAUNCHES", tag, json.dumps(launches))
     return out
+
+
+def _k2_bf16_yardsticks(rng, dev, cots, out):
+    """cuDNN's bf16 ``nn.LSTM`` and K2's plain versions in bf16 at
+    FullSubNet's two l1 layers: forward, and backward (cuDNN: forward +
+    backward minus forward)."""
+    bf16 = torch.bfloat16
+    for label, T, Bb, In, H in FULLSUBNET_LSTM[1::2]:
+        x, *rest = cs._inproj_inputs(rng, dev, T, 1, Bb, In, H)
+        x = x.to(bf16)
+        dys, dhT, dcT = cots((T, 1, Bb, H), (1, Bb, H), (1, Bb, H))
+        dys = dys.to(bf16)
+        with torch.no_grad():
+            ys, cs_, _, _ = k2._reference_forward(x, *rest, need_cs=True)
+            out[f"plain K2f-bf16 {label}"] = (
+                cuda_ms(lambda: k2.fused_lstm_scan_inproj_reference(x, *rest), 1, 1), None)
+            out[f"plain K2b-bf16 {label}"] = (cuda_ms(
+                lambda: k2.fused_lstm_scan_inproj_backward_reference(
+                    x, *rest, ys, cs_, dys, dhT, dcT), 1, 1), None)
+        lib = cs._cudnn_lstm(rest[0], rest[1], rest[2], dev)
+        f_ms, b_ms, _ = cs._cudnn_yardstick([lib], [(x[:, 0], rest[3], rest[4])],
+                                            [(dys[:, 0], dhT, dcT)], dtypes=(bf16,))
+        out[f"cuDNN LSTM-bf16 fwd {label}"] = (f_ms, None)
+        out[f"cuDNN LSTM-bf16 bwd {label}"] = (b_ms, None)
+
+
+def _kernel_launches(fn, reps: int = 3) -> list:
+    """``[[kernel, us], ...]``: each device launch of one call of ``fn`` in
+    order, the least time of ``reps`` calls (torch.profiler, after a call it
+    traces and drops, as the tracer starts up).  Where the calls' launches
+    do not line up, each kernel's time summed over a call, its name marked
+    with its count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    got = []
+    keep = lambda p: got.extend(e for e in p.events() if e.device_type == DeviceType.CUDA)
+    with profile(activities=[ProfilerActivity.CUDA], on_trace_ready=keep,
+                 schedule=schedule(wait=0, warmup=1, active=reps)) as prof:
+        for _ in range(reps + 1):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    events = sorted(got, key=lambda e: e.time_range.start)
+    name = lambda e: e.name.replace("(anonymous namespace)::", "").replace(
+        "void ", "").split("(")[0]
+    per_call = len(events) // reps
+    calls = [[(name(e), e.time_range.elapsed_us()) for e in events[c * per_call:(c + 1) * per_call]]
+             for c in range(reps)]
+    if events and len(events) % reps == 0 and all(
+            [n for n, _ in c] == [n for n, _ in calls[0]] for c in calls):
+        return [[n, min(c[i][1] for c in calls)] for i, (n, _) in enumerate(calls[0])]
+    total = {}
+    for e in events:
+        count, us = total.get(name(e), (0, 0.0))
+        total[name(e)] = (count + 1, us + e.time_range.elapsed_us())
+    return [[f"{n} x{count / reps:g}", us / reps] for n, (count, us) in total.items()]
+
+
+def _k3(rng, dev, cots, out) -> dict:
+    """K3f and K3b at FullSubNet-GRU's four layers, f32 then bf16, each
+    beside cuDNN's ``nn.GRU`` in its dtype, and each design where the
+    checkout has two; returns each f32 K3b call's launches by layer."""
+    import dataclasses
+
+    planner = getattr(k3, "plan", None)  # a checkout whose K3 has two designs
+    designs = {"": planner}
+    if planner is not None:
+        force = lambda d: lambda *a, **kw: dataclasses.replace(planner(*a, **kw), cluster=d)
+        designs.update({" [cluster]": force(True), " [block]": force(False)})
+    launches = {}
+    for dtype, form in ((torch.float32, ""), (torch.bfloat16, "-bf16")):
+        for label, T, Bb, In, H in FULLSUBNET_LSTM:
+            x, *rest = cs._gru_inputs(rng, dev, T, 1, Bb, In, H)
+            args = (x.to(dtype), *rest)
+            dys, dhT = cots((T, 1, Bb, H), (1, Bb, H))
+            c = (dys.to(dtype), dhT)
+            try:
+                for suffix, design in designs.items():
+                    if design is not None:
+                        k3.plan = design
+                    with torch.no_grad():
+                        ys, hT = k3.fused_gru_scan_inproj(*args)
+                        ms = cuda_ms(lambda: k3.fused_gru_scan_inproj(*args), 5, 2)
+                        out[f"K3f{form} {label}{suffix}"] = (ms, _hash(ys, hT))
+                        g = k3.fused_gru_scan_inproj_backward(*args, ys, *c)
+                        ms = cuda_ms(lambda: k3.fused_gru_scan_inproj_backward(*args, ys, *c),
+                                     3, 1)
+                        out[f"K3b{form} {label}{suffix}"] = (ms, _hash(*g))
+                        if form == "" and suffix == "":
+                            launches[label] = _kernel_launches(
+                                lambda: k3.fused_gru_scan_inproj_backward(*args, ys, *c))
+            finally:
+                if planner is not None:
+                    k3.plan = planner
+            lib = cs._cudnn_gru(*rest[:4], dev)
+            f_ms, b_ms, _ = cs._cudnn_yardstick([lib], [(x[:, 0], rest[4])],
+                                                [(dys[:, 0], dhT)], dtypes=(dtype,))
+            out[f"cuDNN GRU{form} fwd {label}"] = (f_ms, None)
+            out[f"cuDNN GRU{form} bwd {label}"] = (b_ms, None)
+    return launches
 
 
 if __name__ == "__main__":

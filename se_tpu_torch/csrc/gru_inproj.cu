@@ -24,24 +24,67 @@
 //
 // What bounds them.  The work is 2 * T * Bb * (In + H) * 3H FLOP a forward
 // and three times that a backward.  FullSubNet at B=8 x 3 s (T = 163):
-// the full band (Bb = 8, In = 257 and 512, H = 512) 3.1 and 4.1 GFLOP, on
-// 2 blocks: a chain of 163 dependent steps, each a pass over W_hh[l]
-// (3 MB) from L2 through one SM, as K2 at CRN.  The sub band (Bb = 2056,
-// In = 32 and 384, H = 384) 321 and 593 GFLOP, 0.92 TFLOP in all, 14 ms at
-// the card's 67 TFLOP/s f32: hundreds of blocks, each re-reading W_hh[l]
-// (1.77 MB) from L2 every step, so the L2 traffic, not the FLOP, bounds
-// the simple design.  Each block's pass over W_hh serves R rows, so R sets
-// that traffic: R = 8 rows a block where the batch gives more blocks of 4
-// rows than the card has SMs (the sub band at enhance and train batches),
-// R = 4 elsewhere (the full band, the small train-comparison batch).
+// the full band (Bb = 8, In = 257 and 512, H = 512) 3.1 and 4.1 GFLOP; the
+// sub band (Bb = 2056, In = 32 and 384, H = 384) 321 and 593 GFLOP, 0.92
+// TFLOP in all, 14 ms at the card's 67 TFLOP/s f32.  The limit is the chain
+// of T dependent steps, each a pass over W_hh[l] (3 MB at the full band,
+// 1.77 MB at the sub band) and, at the sub band, over W_ih[l].
 //
-// Design, as K2 (lstm_inproj.cu).  One block per (stack l, tile of R batch
+// Two designs; the planner in Python (se_tpu_torch/ops/fused_gru_inproj.py
+// ::plan) picks one per shape, the one measured faster there, and passes
+// it to the entries below, which never switch at run time.
+//
+// The cluster design (gru_cluster_{fwd,bwd}_kernel), K2's (lstm_inproj.cu)
+// on the machinery of cluster_scan.cuh.  A cluster of N CTAs owns a tile
+// of R batch rows of one stack; CTA q owns U = ceil(H / N) units and their
+// three gate columns (3U local columns c = gate * U + u), so the cell
+// update h = (1 - z) n + z h never leaves the CTA.  The CTA keeps its W_hh
+// slice [H][U][3] in shared memory for all T steps (the design is taken
+// only where the slice fits beside the step's buffers and the launch's
+// clusters run at once: FullSubNet's full band, two clusters of 4 rows,
+// 194 KiB of slice a CTA), and runs kThreads threads.  Forward,
+// per chunk of C steps: the chunk's x staged and its x . W_ih formed (a
+// thread per step, column and 4 rows, the sum over k in order); per step:
+//   1. a thread per (column, 4 rows): hp = h . W_hh[:, col] + b_hh[col],
+//      the sum over k in order from the slice; r and z: (xp + b_ih) + hp
+//      into the chunk's buffer, n: xp + b_ih there and hp_n apart (b_hh's n
+//      slice sits inside r * hp_n), so each value is the per-block
+//      design's to the bit;
+//   2. a thread per (unit, 4 rows): the gate math, as the per-block kernel;
+//   3. the exchange, as K2f: one h buffer [H][R]; the CTA arrives once it
+//      has read h, writes ys, waits for every CTA to have read its h,
+//      writes its units' h into every CTA's buffer (store_peer), and a
+//      cluster barrier ends the step.
+// Backward, chunks and steps in reverse, after the chunk's projection:
+//   1. the gates and hp_n recomputed from h_prev (ys[t-1] or h0, staged
+//      from memory, all H units), as the forward forms them;
+//   2. a thread per (unit, 4 rows): dh = dys[t] + the dh carry; da_z, da_n,
+//      da_r as the per-block kernel; dxp = [da_r, da_z, da_n] into the
+//      scratch dg and da_n r into dgn; dhp = [da_r, da_z, da_n r] over the
+//      step's gate columns; the carry becomes dh z; then step t-1's h_prev
+//      is staged;
+//   3. a thread per (unit k, 4 rows): the CTA's partial dh over its 3U
+//      columns, sum_c dhp[c] W_hh[k][col(c)] in local column order, from the
+//      slice read along k (lanes on consecutive k, rows an odd number of
+//      floats apart: no bank conflict), stored into the receive buffer
+//      [N][U][R] of unit k's owner through distributed shared memory;
+//   4. a cluster barrier; each CTA sums its units' N partials in rank order
+//      0..N-1 (no atomics: two calls give the same bits) and adds the sum
+//      to its dh carry, which the next step's cell update reads after the
+//      barrier of step 1.  One receive buffer: a split barrier (arrive
+//      after the sum, wait before the next step's stores) keeps a peer's
+//      next partials from landing before the sum has read this step's.
+//
+// The per-block design (gru_inproj_{fwd,bwd}_kernel<R, C>, K3's first), for the
+// shapes where it is faster (the sub band: 65 and more tiles, which the
+// cluster design runs in waves of 7 clusters, each wave the whole chain of
+// T steps: 38.6 and 83.2 ms a forward against 18.4 and 32.4, PERF.md).  One block per (stack l, tile of R batch
 // rows); the T loop runs inside the block, in chunks of C steps (the
 // largest of 8, 4, 2 whose buffers fit the block's 227 KB of shared memory
-// for this R: 8 at R = 4 on the sub band, 4 on the full band and at R = 8,
-// 2 for the backward at R = 8 and In = 384).  Threads loop over the 3H gate
-// columns (1536 on the full band, 1152 on the sub band; at most 512
-// threads).  Forward chunk:
+// for this R).  Each block re-reads W_hh[l] from L2 every step, so R sets
+// that traffic: R = 8 rows a block where the batch gives more blocks of 4
+// rows than the card has SMs, R = 4 elsewhere.  Threads loop over the 3H
+// gate columns (at most 512 threads).  Forward chunk:
 //   0. stage x of the chunk's C steps in shared memory as [C][In][R]; thread
 //      `col` forms x[t] . W_ih[l][:, col] + b_ih[col] for all C steps and R
 //      rows in one pass over W_ih (global memory, coalesced across the
@@ -63,18 +106,17 @@
 //   3. one warp per unit k: the dh carry [row][k] += sum_g dhp[row][g] *
 //      W_hh[l][k][g] (lanes along g, coalesced; a shuffle reduction ends each
 //      sum); the block also stages h_prev of step t-1.
-// Then second-pass kernels of lstm_common.cuh read the scratch, each in one
-// fixed order and without atomics, so two calls give the same bits: dx =
-// dg @ W_ih^T (lstm_inproj_dx_kernel), dW_ih = sum x^T dg and dW_hh = sum
-// h_prev^T [dg's r, z columns | dgn] (lstm_dw_kernel, three launches), db_ih
-// = sum dg and db_hh's n slice = sum dgn (lstm_inproj_dbias_kernel); db_hh's
-// r and z slices equal db_ih's and are copied.  The scratch costs
+//
+// Both designs' backwards then run the second-pass kernels of
+// lstm_common.cuh over the scratch, each in one fixed order and without
+// atomics, so two calls give the same bits: dx = dg @ W_ih^T
+// (lstm_inproj_dx_kernel), dW_ih = sum x^T dg and dW_hh = sum h_prev^T
+// [dg's r, z columns | dgn] (lstm_dw_kernel, three launches), db_ih = sum
+// dg and db_hh's n slice = sum dgn (lstm_inproj_dbias_kernel); db_hh's r
+// and z slices equal db_ih's and are copied.  The scratch costs
 // T * Bb * 4H * 4 bytes a stack: dg 3H and dgn H a row.  At FullSubNet's sub
 // band, B = 10 x 3 s (Bb = 2570, T = 163, H = 384): dg 1.93 GB and dgn
 // 0.64 GB, 2.57 GB in all; the Pallas kernel kept these sums in VMEM.
-//
-// The chunk staging and projection, the h . W_hh product and the dh pass
-// are K2's, from lstm_common.cuh, at R rows.
 //
 // The bf16-stream form (pallas_lstm.py:614, :618, :643, :667, :734, :807)
 // takes x, and gives ys, as bf16, and in the backward takes ys and dys as
@@ -91,12 +133,13 @@
 
 #include <cuda_bf16.h>
 
-#include "lstm_common.cuh"
+#include "cluster_scan.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 512;     // scan block size cap; threads loop over columns
-constexpr size_t kMaxSmem = 232448;  // shared memory a block can use (227 KB)
+// ---- The per-block design --------------------------------------------------
+
+constexpr int kMaxThreads = 512;  // its block size cap; threads loop over columns
 
 // hp = h_s . whh[:, col] + bhh[col] for the tile's rows (h_s is [H][R]):
 // added to g_s[r][col] (which holds xp) for the r and z columns, kept in
@@ -305,6 +348,294 @@ gru_inproj_bwd_kernel(const TS* __restrict__ x,
   }
 }
 
+// ---- The cluster design ----------------------------------------------------
+
+// For each (column c, 4-row group) of the CTA, c =
+// gate * U + u: hp = h_s[:][r0 ..] . W_hh[:, col(c)] + b_hh[col], the sum
+// over k in order from the resident slice w_s [H][ldw] ([k][u][gate]);
+// g_s holds the step's x . W_ih (no bias): the r and z columns become
+// (xp + b_ih) + hp, the n column xp + b_ih, and hp_n goes to hn_s [U][R].
+// Each sum and bias is added as the per-block kernel adds it
+// (project_chunk<R, C, true>, gru_recurrent_columns), so the gates keep
+// its bits.
+__device__ __forceinline__ void gru_gate_cols(const float* w_s, int ldw,
+                                              const float* __restrict__ bih,
+                                              const float* __restrict__ bhh, const float* h_s,
+                                              float* g_s, float* hn_s, const Cta<3>& k, int H) {
+  const int R = k.R;
+  for (int it = threadIdx.x; it < k.GU * (R / kQuad); it += blockDim.x) {
+    const int c = it % k.GU, r0 = kQuad * (it / k.GU);
+    const int gate = c / k.U, u = c % k.U;
+    if (u >= k.nu) continue;
+    const int col = k.col(c, H);
+    const float* wc = w_s + 3 * u + gate;
+    float acc[kQuad] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+    for (int kk = 0; kk < H; ++kk) fma_rows<kQuad>(h_s + kk * R + r0, wc[kk * ldw], acc);
+    const float bi = __ldg(bih + col), bh = __ldg(bhh + col);
+    float4* p = reinterpret_cast<float4*>(g_s + c * R + r0);
+    float4 v = *p;
+    if (gate < 2) {
+      v.x = (v.x + bi) + (acc[0] + bh);
+      v.y = (v.y + bi) + (acc[1] + bh);
+      v.z = (v.z + bi) + (acc[2] + bh);
+      v.w = (v.w + bi) + (acc[3] + bh);
+    } else {
+      v.x = v.x + bi;
+      v.y = v.y + bi;
+      v.z = v.z + bi;
+      v.w = v.w + bi;
+      *reinterpret_cast<float4*>(hn_s + u * R + r0) =
+          make_float4(acc[0] + bh, acc[1] + bh, acc[2] + bh, acc[3] + bh);
+    }
+    *p = v;
+  }
+}
+
+// The r, z and n pre-activations (n: xp_n + b_ih only), hp_n and h_prev of
+// unit u for rows r0 .. r0+3.
+struct UnitGates {
+  float r[kQuad], z[kQuad], xn[kQuad], hn[kQuad], h[kQuad];
+};
+
+__device__ __forceinline__ UnitGates unit_gates(const float* g_s, const float* hn_s,
+                                                const float* h_s, int u, int r0,
+                                                const Cta<3>& k) {
+  const int R = k.R, U = k.U;
+  UnitGates v;
+  unpack(*reinterpret_cast<const float4*>(g_s + u * R + r0), v.r);
+  unpack(*reinterpret_cast<const float4*>(g_s + (U + u) * R + r0), v.z);
+  unpack(*reinterpret_cast<const float4*>(g_s + (2 * U + u) * R + r0), v.xn);
+  unpack(*reinterpret_cast<const float4*>(hn_s + u * R + r0), v.hn);
+  unpack(*reinterpret_cast<const float4*>(h_s + (k.u0 + u) * R + r0), v.h);
+  return v;
+}
+
+template <typename TS>
+__global__ void __launch_bounds__(kThreads)
+gru_cluster_fwd_kernel(const TS* __restrict__ x, const float* __restrict__ wih_t,
+                       const float* __restrict__ b_ih, const float* __restrict__ whh_t,
+                       const float* __restrict__ b_hh, const float* __restrict__ h0,
+                       TS* __restrict__ ys, float* __restrict__ hT, int T, int L, int Bb, int In,
+                       int H, int R, int N, int C) {
+  extern __shared__ float4 smem4[];
+  const Cta<3> k(Bb, H, R, N);
+  const int G = 3 * H, U = k.U, GU = k.GU, ldw = slice_ld(3, U);
+  float* h_s = reinterpret_cast<float*>(smem4);  // [H][R]      h of the step
+  float* xc_s = h_s + H * R;                     // [C][In][R]  the chunk's x
+  float* p_s = xc_s + C * In * R;                // [C][GU][R]  the chunk's projections, gates
+  float* hn_s = p_s + C * GU * R;                // [U][R]      hp_n of the step
+  float* w_s = hn_s + U * R;                     // [H][ldw]    the W_hh slice [k][u][gate]
+  const float* wih = wih_t + static_cast<size_t>(k.l) * In * G;
+  const float* whh = whh_t + static_cast<size_t>(k.l) * H * G;
+  const float* bih = b_ih + static_cast<size_t>(k.l) * G;
+  const float* bhh = b_hh + static_cast<size_t>(k.l) * G;
+  const size_t state0 = static_cast<size_t>(k.l) * Bb + k.b0;  // row of h0/hT
+  int u, r0;  // this thread's (unit, 4 rows) in the cell update, if any
+  const bool mine = cell_item(k, &u, &r0);
+
+  stage_slice(w_s, ldw, whh, k, H);
+  // the carry in: the whole h0 of the tile's rows; rows past the batch edge
+  // hold zeros and are never written out
+  stage_h(h_s, h0 + state0 * H, k, H);
+  cluster_sync();  // every CTA of the cluster runs before any peer's store
+
+  for (int t0 = 0; t0 < T; t0 += C) {
+    const int n = min(C, T - t0);
+    project_chunk(x, wih, xc_s, p_s, t0, n, L, Bb, k, In, H);
+
+    for (int s = 0; s < n; ++s) {
+      float* g_s = p_s + s * GU * R;
+      const size_t row0 = (static_cast<size_t>(t0 + s) * L + k.l) * Bb + k.b0;
+
+      // 1. the gates, a thread per (column, 4 rows)
+      gru_gate_cols(w_s, ldw, bih, bhh, h_s, g_s, hn_s, k, H);
+      __syncthreads();
+      // 2. the gate math of (unit u, 4 rows); pallas_lstm.py:597-600, :616
+      float hv[kQuad];
+      if (mine) {
+        const UnitGates v = unit_gates(g_s, hn_s, h_s, u, r0, k);
+#pragma unroll
+        for (int i = 0; i < kQuad; ++i) {
+          const float rg = sigmoid_f32(v.r[i]);
+          const float zg = sigmoid_f32(v.z[i]);
+          const float ng = tanhf(v.xn[i] + rg * v.hn[i]);
+          hv[i] = (1.0f - zg) * ng + zg * v.h[i];
+        }
+      }
+      // 3. this CTA is done reading h; ys to memory meanwhile; once every
+      // CTA is, h of the next step into every CTA's h_s, and a barrier
+      cluster_arrive();
+      if (mine) {
+#pragma unroll
+        for (int i = 0; i < kQuad; ++i) {
+          if (r0 + i < k.rows) store_as(ys + (row0 + r0 + i) * H + k.u0 + u, hv[i]);
+        }
+      }
+      cluster_wait();
+      if (mine) {
+        const float4 h4 = make_float4(hv[0], hv[1], hv[2], hv[3]);
+        const int off = (k.u0 + u) * R + r0;
+        for (int p = 0; p < N; ++p) store_peer(h_s + off, p, h4);
+      }
+      cluster_sync();
+    }
+  }
+
+  for (int idx = threadIdx.x; idx < k.nu * k.rows; idx += blockDim.x) {
+    const int uu = idx % k.nu, r = idx / k.nu;
+    hT[(state0 + r) * H + k.u0 + uu] = h_s[(k.u0 + uu) * R + r];
+  }
+}
+
+template <typename TS>
+__global__ void __launch_bounds__(kThreads)
+gru_cluster_bwd_kernel(const TS* __restrict__ x, const float* __restrict__ wih_t,
+                       const float* __restrict__ b_ih, const float* __restrict__ whh_t,
+                       const float* __restrict__ b_hh, const float* __restrict__ h0,
+                       const TS* __restrict__ ys, const TS* __restrict__ dys,
+                       const float* __restrict__ dhT, float* __restrict__ dh0,
+                       float* __restrict__ dg, float* __restrict__ dgn, int T, int L, int Bb,
+                       int In, int H, int R, int N, int C) {
+  extern __shared__ float4 smem4[];
+  const Cta<3> k(Bb, H, R, N);
+  const int G = 3 * H, U = k.U, GU = k.GU, ldw = slice_ld(3, U);
+  float* h_s = reinterpret_cast<float*>(smem4);  // [H][R]      h_prev of the step
+  float* recv_s = h_s + H * R;                   // [N][U][R]   peers' partial dh
+  float* xc_s = recv_s + N * U * R;              // [C][In][R]  the chunk's x
+  float* p_s = xc_s + C * In * R;                // [C][GU][R]  gates, then dhp
+  float* dh_s = p_s + C * GU * R;                // [U][R]      dh carry of the CTA's units
+  float* hn_s = dh_s + U * R;                    // [U][R]      hp_n of the step
+  float* w_s = hn_s + U * R;                     // [H][ldw]    the W_hh slice [k][u][gate]
+  const float* wih = wih_t + static_cast<size_t>(k.l) * In * G;
+  const float* whh = whh_t + static_cast<size_t>(k.l) * H * G;
+  const float* bih = b_ih + static_cast<size_t>(k.l) * G;
+  const float* bhh = b_hh + static_cast<size_t>(k.l) * G;
+  const size_t state0 = static_cast<size_t>(k.l) * Bb + k.b0;  // row of h0/dhT/dh0
+
+  // stages step t's h_prev, rows of ys[t-1] or h0 at t = 0 (in the bf16
+  // form ys and h0 differ in type)
+  auto stage_h_prev = [&](int t) {
+    if (t > 0) {
+      stage_h(h_s, ys + ((static_cast<size_t>(t - 1) * L + k.l) * Bb + k.b0) * H, k, H);
+    } else {
+      stage_h(h_s, h0 + state0 * H, k, H);
+    }
+  };
+
+  stage_slice(w_s, ldw, whh, k, H);
+  for (int idx = threadIdx.x; idx < U * R; idx += blockDim.x) {
+    const int uu = idx / R, r = idx % R;
+    dh_s[idx] = uu < k.nu && r < k.rows ? dhT[(state0 + r) * H + k.u0 + uu] : 0.f;
+  }
+  stage_h_prev(T - 1);
+  cluster_sync();    // every CTA of the cluster runs before any peer's store
+  cluster_arrive();  // the receive buffer is free
+
+  for (int t0 = (T - 1) / C * C; t0 >= 0; t0 -= C) {
+    const int n = min(C, T - t0);
+    project_chunk(x, wih, xc_s, p_s, t0, n, L, Bb, k, In, H);
+
+    for (int s = n - 1; s >= 0; --s) {
+      const int t = t0 + s;
+      float* g_s = p_s + s * GU * R;
+      const size_t row0 = (static_cast<size_t>(t) * L + k.l) * Bb + k.b0;
+
+      // 1. the gates recomputed, a thread per (column, 4 rows); its barrier
+      // also orders the last step's dh carry before the reads below
+      gru_gate_cols(w_s, ldw, bih, bhh, h_s, g_s, hn_s, k, H);
+      __syncthreads();
+      // 2. a thread per (unit u, 4 rows): dxp and dhp (pallas_lstm.py:649-656)
+      // into the scratch and g_s, the carry dh z.  Rows past the batch edge
+      // see zero cotangents and carries, so their dhp are 0 and add nothing
+      // to the dh sums below
+      int u, r0;
+      if (cell_item(k, &u, &r0)) {
+        const int j = k.u0 + u;
+        const UnitGates v = unit_gates(g_s, hn_s, h_s, u, r0, k);
+        float dh[kQuad], dr[kQuad], dz[kQuad], dn[kQuad];
+        unpack(*reinterpret_cast<const float4*>(dh_s + u * R + r0), dh);
+#pragma unroll
+        for (int i = 0; i < kQuad; ++i) {
+          const int r = r0 + i;
+          const float dy = r < k.rows ? to_f32(dys[(row0 + r) * H + j]) : 0.f;
+          const float rg = sigmoid_f32(v.r[i]);
+          const float zg = sigmoid_f32(v.z[i]);
+          const float ng = tanhf(v.xn[i] + rg * v.hn[i]);
+          const float d = dy + dh[i];
+          const float da_z = d * (v.h[i] - ng) * zg * (1.0f - zg);
+          const float da_n = d * (1.0f - zg) * (1.0f - ng * ng);
+          const float da_r = da_n * v.hn[i] * rg * (1.0f - rg);
+          if (r < k.rows) {
+            float* o = dg + (row0 + r) * G + j;
+            o[0] = da_r;
+            o[H] = da_z;
+            o[2 * H] = da_n;
+            dgn[(row0 + r) * H + j] = da_n * rg;
+          }
+          dr[i] = da_r;
+          dz[i] = da_z;
+          dn[i] = da_n * rg;
+          dh[i] = d * zg;
+        }
+        *reinterpret_cast<float4*>(g_s + u * R + r0) = make_float4(dr[0], dr[1], dr[2], dr[3]);
+        *reinterpret_cast<float4*>(g_s + (U + u) * R + r0) =
+            make_float4(dz[0], dz[1], dz[2], dz[3]);
+        *reinterpret_cast<float4*>(g_s + (2 * U + u) * R + r0) =
+            make_float4(dn[0], dn[1], dn[2], dn[3]);
+        *reinterpret_cast<float4*>(dh_s + u * R + r0) = make_float4(dh[0], dh[1], dh[2], dh[3]);
+      }
+      __syncthreads();  // dhp is in g_s; h_s was last read above
+      if (t > 0) stage_h_prev(t - 1);
+
+      // 3. the CTA's partial dh over its 3U columns, a thread per (unit kk,
+      // 4 rows), into the receive buffer of kk's owner, once every peer has
+      // summed the last step's
+      cluster_wait();
+      for (int it = threadIdx.x; it < H * (R / kQuad); it += blockDim.x) {
+        const int kk = it % H, rq = kQuad * (it / H);
+        const float* wk = w_s + kk * ldw;
+        float acc[kQuad] = {0.f, 0.f, 0.f, 0.f};
+        for (int gate = 0; gate < 3; ++gate) {
+#pragma unroll 4
+          for (int uu = 0; uu < k.nu; ++uu) {
+            fma_rows<kQuad>(g_s + (gate * U + uu) * R + rq, wk[3 * uu + gate], acc);
+          }
+        }
+        const int owner = kk / U;
+        store_peer(recv_s + (k.q * U + kk - owner * U) * R + rq, owner,
+                   make_float4(acc[0], acc[1], acc[2], acc[3]));
+      }
+      cluster_sync();
+
+      // 4. the dh carry of the CTA's units += the N partials in rank order
+      for (int it = threadIdx.x; it < k.nu * (R / kQuad); it += blockDim.x) {
+        const int uu = it % k.nu, rq = kQuad * (it / k.nu);
+        float4 v = *reinterpret_cast<const float4*>(recv_s + uu * R + rq);
+        for (int p = 1; p < N; ++p) {
+          const float4 w = *reinterpret_cast<const float4*>(recv_s + (p * U + uu) * R + rq);
+          v.x += w.x;
+          v.y += w.y;
+          v.z += w.z;
+          v.w += w.w;
+        }
+        float4* c = reinterpret_cast<float4*>(dh_s + uu * R + rq);
+        const float4 d = *c;
+        *c = make_float4(d.x + v.x, d.y + v.y, d.z + v.z, d.w + v.w);
+      }
+      cluster_arrive();  // this CTA's receive buffer is free again
+    }
+  }
+  cluster_wait();
+
+  for (int idx = threadIdx.x; idx < k.nu * k.rows; idx += blockDim.x) {
+    const int uu = idx % k.nu, r = idx / k.nu;
+    dh0[(state0 + r) * H + k.u0 + uu] = dh_s[uu * R + r];
+  }
+}
+
+// ---- The per-block design's launch ----------------------------------------
+
 int scan_threads(int G) {
   const int threads = G < kMaxThreads ? G : kMaxThreads;
   return (threads + 31) / 32 * 32;
@@ -336,11 +667,12 @@ int chunk_steps(int R, int In, int H, int carries) {
   return 0;
 }
 
+// The per-block design's launches: R and C from row_tile and chunk_steps.
 template <int R, int C, typename TS>
-cudaError_t launch_fwd(const TS* x, const float* wih_t, const float* b_ih,
-                       const float* whh_t, const float* b_hh, const float* h0,
-                       TS* ys, float* hT, int T, int L, int Bb, int In, int H,
-                       cudaStream_t s) {
+cudaError_t launch_block_fwd(const TS* x, const float* wih_t, const float* b_ih,
+                             const float* whh_t, const float* b_hh, const float* h0,
+                             TS* ys, float* hT, int T, int L, int Bb, int In, int H,
+                             cudaStream_t s) {
   const size_t smem = smem_bytes(R, C, In, H, 2);
   cudaError_t err = allow_smem(gru_inproj_fwd_kernel<R, C, TS>, smem);
   if (err != cudaSuccess) return err;
@@ -351,11 +683,11 @@ cudaError_t launch_fwd(const TS* x, const float* wih_t, const float* b_ih,
 }
 
 template <int R, int C, typename TS>
-cudaError_t launch_bwd(const TS* x, const float* wih_t, const float* b_ih,
-                       const float* whh_t, const float* b_hh, const float* h0,
-                       const TS* ys, const TS* dys, const float* dhT, float* dh0,
-                       float* dg, float* dgn, int T, int L, int Bb, int In, int H,
-                       cudaStream_t s) {
+cudaError_t launch_block_bwd(const TS* x, const float* wih_t, const float* b_ih,
+                             const float* whh_t, const float* b_hh, const float* h0,
+                             const TS* ys, const TS* dys, const float* dhT, float* dh0,
+                             float* dg, float* dgn, int T, int L, int Bb, int In, int H,
+                             cudaStream_t s) {
   const size_t smem = smem_bytes(R, C, In, H, 3);
   cudaError_t err = allow_smem(gru_inproj_bwd_kernel<R, C, TS>, smem);
   if (err != cudaSuccess) return err;
@@ -366,40 +698,72 @@ cudaError_t launch_bwd(const TS* x, const float* wih_t, const float* b_ih,
 }
 
 template <typename TS>
+cudaError_t block_fwd(const TS* x, const float* wih_t, const float* b_ih, const float* whh_t,
+                      const float* b_hh, const float* h0, TS* ys, float* hT, int T, int L,
+                      int Bb, int In, int H, int device, cudaStream_t s) {
+  const int R = row_tile(Bb, L, device);
+  switch (R * 100 + chunk_steps(R, In, H, 2)) {
+    case 408: return launch_block_fwd<4, 8>(x, wih_t, b_ih, whh_t, b_hh, h0, ys, hT, T, L, Bb, In, H, s);
+    case 404: return launch_block_fwd<4, 4>(x, wih_t, b_ih, whh_t, b_hh, h0, ys, hT, T, L, Bb, In, H, s);
+    case 804: return launch_block_fwd<8, 4>(x, wih_t, b_ih, whh_t, b_hh, h0, ys, hT, T, L, Bb, In, H, s);
+    case 802: return launch_block_fwd<8, 2>(x, wih_t, b_ih, whh_t, b_hh, h0, ys, hT, T, L, Bb, In, H, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename TS>
+cudaError_t block_bwd(const TS* x, const float* wih_t, const float* b_ih, const float* whh_t,
+                      const float* b_hh, const float* h0, const TS* ys, const TS* dys,
+                      const float* dhT, float* dh0, float* dg, float* dgn, int T, int L, int Bb,
+                      int In, int H, int device, cudaStream_t s) {
+  const int R = row_tile(Bb, L, device);
+  switch (R * 100 + chunk_steps(R, In, H, 3)) {
+    case 408: return launch_block_bwd<4, 8>(x, wih_t, b_ih, whh_t, b_hh, h0, ys, dys, dhT, dh0, dg, dgn, T, L, Bb, In, H, s);
+    case 404: return launch_block_bwd<4, 4>(x, wih_t, b_ih, whh_t, b_hh, h0, ys, dys, dhT, dh0, dg, dgn, T, L, Bb, In, H, s);
+    case 804: return launch_block_bwd<8, 4>(x, wih_t, b_ih, whh_t, b_hh, h0, ys, dys, dhT, dh0, dg, dgn, T, L, Bb, In, H, s);
+    case 802: return launch_block_bwd<8, 2>(x, wih_t, b_ih, whh_t, b_hh, h0, ys, dys, dhT, dh0, dg, dgn, T, L, Bb, In, H, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename TS>
 int gru_fwd(const TS* x, const float* wih_t, const float* b_ih, const float* whh_t,
-            const float* b_hh, const float* h0, TS* ys, float* hT,
-            int T, int L, int Bb, int In, int H, int device, void* stream) {
+            const float* b_hh, const float* h0, TS* ys, float* hT, int T, int L, int Bb,
+            int In, int H, int cluster, int R, int N, int C, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int R = row_tile(Bb, L, device);
-  switch (R * 100 + chunk_steps(R, In, H, 2)) {
-    case 408: err = launch_fwd<4, 8>(x, wih_t, b_ih, whh_t, b_hh, h0, ys, hT, T, L, Bb, In, H, s); break;
-    case 404: err = launch_fwd<4, 4>(x, wih_t, b_ih, whh_t, b_hh, h0, ys, hT, T, L, Bb, In, H, s); break;
-    case 804: err = launch_fwd<8, 4>(x, wih_t, b_ih, whh_t, b_hh, h0, ys, hT, T, L, Bb, In, H, s); break;
-    case 802: err = launch_fwd<8, 2>(x, wih_t, b_ih, whh_t, b_hh, h0, ys, hT, T, L, Bb, In, H, s); break;
-    default: err = cudaErrorInvalidValue;
+  if (!cluster) {
+    return static_cast<int>(block_fwd(x, wih_t, b_ih, whh_t, b_hh, h0, ys, hT, T, L, Bb, In, H,
+                                      device, s));
   }
-  return static_cast<int>(err);
+  const size_t smem = tiling_smem(false, 3, R, N, C, 1, In, H);
+  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_cluster(gru_cluster_fwd_kernel<TS>, N, (Bb + R - 1) / R, L,
+                                         smem, s, x, wih_t, b_ih, whh_t, b_hh, h0, ys, hT, T, L,
+                                         Bb, In, H, R, N, C));
 }
 
 template <typename TS>
 int gru_bwd(const TS* x, const float* wih_t, const float* b_ih, const float* whh_t,
             const float* b_hh, const float* h0, const TS* ys, const TS* dys,
             const float* dhT, TS* dx, float* dwih_t, float* db_ih, float* dwhh_t,
-            float* db_hh, float* dh0, float* dg, float* dgn, float* ws,
-            int T, int L, int Bb, int In, int H, int ws_floats, int device, void* stream) {
+            float* db_hh, float* dh0, float* dg, float* dgn, float* ws, int T, int L, int Bb,
+            int In, int H, int cluster, int R, int N, int C, int ws_floats, int device,
+            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int G = 3 * H;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int R = row_tile(Bb, L, device);
-  switch (R * 100 + chunk_steps(R, In, H, 3)) {
-    case 408: err = launch_bwd<4, 8>(x, wih_t, b_ih, whh_t, b_hh, h0, ys, dys, dhT, dh0, dg, dgn, T, L, Bb, In, H, s); break;
-    case 404: err = launch_bwd<4, 4>(x, wih_t, b_ih, whh_t, b_hh, h0, ys, dys, dhT, dh0, dg, dgn, T, L, Bb, In, H, s); break;
-    case 804: err = launch_bwd<8, 4>(x, wih_t, b_ih, whh_t, b_hh, h0, ys, dys, dhT, dh0, dg, dgn, T, L, Bb, In, H, s); break;
-    case 802: err = launch_bwd<8, 2>(x, wih_t, b_ih, whh_t, b_hh, h0, ys, dys, dhT, dh0, dg, dgn, T, L, Bb, In, H, s); break;
-    default: err = cudaErrorInvalidValue;
+  if (!cluster) {
+    err = block_bwd(x, wih_t, b_ih, whh_t, b_hh, h0, ys, dys, dhT, dh0, dg, dgn, T, L, Bb, In,
+                    H, device, s);
+  } else {
+    const size_t smem = tiling_smem(true, 3, R, N, C, 1, In, H);
+    if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+    err = launch_cluster(gru_cluster_bwd_kernel<TS>, N, (Bb + R - 1) / R, L, smem, s, x, wih_t,
+                         b_ih, whh_t, b_hh, h0, ys, dys, dhT, dh0, dg, dgn, T, L, Bb, In, H, R,
+                         N, C);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   err = launch_dx(dg, wih_t, dx, T, L, Bb, In, G, s);
@@ -423,18 +787,24 @@ int gru_bwd(const TS* x, const float* wih_t, const float* b_ih, const float* whh
 
 }  // namespace
 
-// Launches the forward scan on `stream` (a cudaStream_t) of `device`.
-// Returns the cudaError_t of the launch (0 on success;
-// cudaErrorInvalidValue when the smallest chunk's buffers do not fit a
-// block's shared memory).  All pointers are device pointers to contiguous
-// f32 arrays of the shapes above.
+// Launches the forward scan on `stream` (a cudaStream_t) of `device`, in
+// the planner's design: cluster = 1 on clusters of N CTAs (1 to 16), R rows
+// a cluster, chunks of C steps (1 to 8), the W_hh slice resident; cluster
+// = 0 the per-block kernel, which picks its own tile and chunk (R, N and C
+// unread).  Returns the cudaError_t of the launch (0 on success;
+// cudaErrorInvalidValue for a tiling these kernels do not take or whose
+// buffers do not fit a block's shared memory, cudaErrorLaunchOutOfResources
+// when no such cluster fits the card).  All pointers are device pointers
+// to contiguous f32 arrays of the shapes above.
 extern "C" int se_gru_inproj_fwd_f32(const float* x, const float* wih_t,
                                      const float* b_ih, const float* whh_t,
                                      const float* b_hh, const float* h0,
                                      float* ys, float* hT,
                                      int T, int L, int Bb, int In, int H,
+                                     int cluster, int R, int N, int C,
                                      int device, void* stream) {
-  return gru_fwd(x, wih_t, b_ih, whh_t, b_hh, h0, ys, hT, T, L, Bb, In, H, device, stream);
+  return gru_fwd(x, wih_t, b_ih, whh_t, b_hh, h0, ys, hT, T, L, Bb, In, H, cluster, R, N, C,
+                 device, stream);
 }
 
 // The bf16-stream forward: x and ys bf16, the rest as se_gru_inproj_fwd_f32.
@@ -443,17 +813,34 @@ extern "C" int se_gru_inproj_fwd_bf16(const __nv_bfloat16* x, const float* wih_t
                                       const float* b_hh, const float* h0,
                                       __nv_bfloat16* ys, float* hT,
                                       int T, int L, int Bb, int In, int H,
+                                      int cluster, int R, int N, int C,
                                       int device, void* stream) {
-  return gru_fwd(x, wih_t, b_ih, whh_t, b_hh, h0, ys, hT, T, L, Bb, In, H, device, stream);
+  return gru_fwd(x, wih_t, b_ih, whh_t, b_hh, h0, ys, hT, T, L, Bb, In, H, cluster, R, N, C,
+                 device, stream);
 }
 
-// Launches the backward: the reverse scan (dh0 and the scratch buffers
-// dg [T, L, Bb, 3H] and dgn [T, L, Bb, H]), then the dx product and the
-// dW_ih, db_ih, dW_hh and db_hh reductions that read them, their rows split
-// over the workspace `ws` (ws_floats floats; lstm_common.cuh), all on
-// `stream`.  Returns the first cudaError_t (0 on success;
-// cudaErrorInvalidValue as for the forward).  Shapes as above; every
-// pointer is a device pointer to a contiguous f32 array, none may be null.
+// How many clusters of the f32 cluster kernel (forward, or with backward =
+// 1 the reverse scan) on the planner's tiling fit on `device` at once; 0 if
+// none does, minus a cudaError_t on an error (cudaErrorInvalidValue: a
+// tiling these kernels do not take).
+extern "C" int se_gru_inproj_active_clusters(int backward, int In, int H, int R, int N, int C,
+                                             int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  const size_t smem = tiling_smem(backward != 0, 3, R, N, C, 1, In, H);
+  if (smem == 0) return -static_cast<int>(cudaErrorInvalidValue);
+  return backward ? active_clusters(gru_cluster_bwd_kernel<float>, N, smem)
+                  : active_clusters(gru_cluster_fwd_kernel<float>, N, smem);
+}
+
+// Launches the backward: the reverse scan in the planner's design (as the
+// forward's entry; dh0 and the scratch buffers dg [T, L, Bb, 3H] and dgn
+// [T, L, Bb, H]), then the dx product and the dW_ih, db_ih, dW_hh and db_hh
+// reductions that read them, their rows split over the workspace `ws`
+// (ws_floats floats; lstm_common.cuh), all on `stream`.  Returns the first
+// cudaError_t (0 on success; otherwise as for the forward).  Shapes as
+// above; every pointer is a device pointer to a contiguous f32 array, none
+// may be null.
 extern "C" int se_gru_inproj_bwd_f32(const float* x, const float* wih_t,
                                      const float* b_ih, const float* whh_t,
                                      const float* b_hh, const float* h0,
@@ -461,10 +848,12 @@ extern "C" int se_gru_inproj_bwd_f32(const float* x, const float* wih_t,
                                      const float* dhT, float* dx, float* dwih_t,
                                      float* db_ih, float* dwhh_t, float* db_hh,
                                      float* dh0, float* dg, float* dgn, float* ws,
-                                     int T, int L, int Bb, int In, int H, int ws_floats,
+                                     int T, int L, int Bb, int In, int H,
+                                     int cluster, int R, int N, int C, int ws_floats,
                                      int device, void* stream) {
   return gru_bwd(x, wih_t, b_ih, whh_t, b_hh, h0, ys, dys, dhT, dx, dwih_t, db_ih, dwhh_t,
-                 db_hh, dh0, dg, dgn, ws, T, L, Bb, In, H, ws_floats, device, stream);
+                 db_hh, dh0, dg, dgn, ws, T, L, Bb, In, H, cluster, R, N, C, ws_floats, device,
+                 stream);
 }
 
 // The bf16-stream backward: x, ys, dys and dx bf16, the rest (the dg and
@@ -476,8 +865,10 @@ extern "C" int se_gru_inproj_bwd_bf16(const __nv_bfloat16* x, const float* wih_t
                                       const float* dhT, __nv_bfloat16* dx, float* dwih_t,
                                       float* db_ih, float* dwhh_t, float* db_hh,
                                       float* dh0, float* dg, float* dgn, float* ws,
-                                      int T, int L, int Bb, int In, int H, int ws_floats,
+                                      int T, int L, int Bb, int In, int H,
+                                      int cluster, int R, int N, int C, int ws_floats,
                                       int device, void* stream) {
   return gru_bwd(x, wih_t, b_ih, whh_t, b_hh, h0, ys, dys, dhT, dx, dwih_t, db_ih, dwhh_t,
-                 db_hh, dh0, dg, dgn, ws, T, L, Bb, In, H, ws_floats, device, stream);
+                 db_hh, dh0, dg, dgn, ws, T, L, Bb, In, H, cluster, R, N, C, ws_floats, device,
+                 stream);
 }

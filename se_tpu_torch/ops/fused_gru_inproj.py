@@ -24,10 +24,55 @@ each kernel form has its own C entry and its own launch count
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from . import build
+from .cluster_plan import ROW_QUANTUM, Plan
+from .cluster_plan import plan as _cluster_plan
+
+
+# The most clusters a stack that K3 runs on clusters.  An H100 runs 7
+# clusters of 16 CTAs of ~220 KiB each at once (the occupancy query,
+# PERF.md); past that the clusters run in waves, each wave the whole chain
+# of T steps, and the per-block kernel, all of whose blocks run at once,
+# measured faster (FullSubNet-GRU's sub band, both directions, PERF.md §6).
+CLUSTER_TILES = 7
+
+
+def plan(Bb: int, In: int, H: int, backward: bool = False) -> Plan:
+    """The design and tiling of a K3 launch (forward, or the backward's
+    reverse scan): :func:`cluster_plan.plan` at three gates, its tiles as
+    narrow as ``CLUSTER_TILES`` clusters allow (a step's FMA chain, not the
+    slice's reuse over rows, bounds it), run on clusters (``cluster``) where
+    the W_hh slice is resident and the tiles number at most
+    ``CLUSTER_TILES``: FullSubNet-GRU's full band.  Elsewhere (its sub band)
+    the per-block kernel, which picks its own tile and chunk (the tiling
+    fields then go unread)."""
+    rows = ROW_QUANTUM * -(-Bb // (ROW_QUANTUM * CLUSTER_TILES))  # for CLUSTER_TILES tiles
+    p = _cluster_plan(Bb, In, H, backward, gates=3, max_rows=rows)
+    return dataclasses.replace(p, cluster=p.resident and p.tiles <= CLUSTER_TILES)
+
+
+def active_clusters(Bb: int, In: int, H: int, backward: bool = False, device=None) -> int:
+    """How many clusters of :func:`plan`'s tiling in the cluster design fit
+    on the CUDA ``device`` at once (the runtime's occupancy query, whichever
+    design the plan picks; 0: none, and a cluster launch raises)."""
+    p = plan(Bb, In, H, backward)
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    lib = _library()
+    n = lib.se_gru_inproj_active_clusters(int(backward), In, H, p.R, p.N, p.C, index)
+    if n < 0:
+        msg = lib.se_cuda_error_string(-n).decode()
+        raise RuntimeError(f"K3 occupancy query failed: CUDA error {-n} ({msg})")
+    return n
+
+
+def _tiling(p: Plan) -> tuple:
+    """The entries' design and tiling arguments ``(cluster, R, N, C)``."""
+    return int(p.cluster), p.R, p.N, p.C
 
 
 def _gates(x_t, w_ih_t, b_ih, h, w_hh_t, b_hh, H):
@@ -120,9 +165,11 @@ def _library():
         for form in build.STREAM_FORMS.values():
             fwd = getattr(lib, f"se_gru_inproj_fwd_{form}")
             bwd = getattr(lib, f"se_gru_inproj_bwd_{form}")
-            fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-            bwd.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+            bwd.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
             fwd.restype = bwd.restype = ctypes.c_int
+        lib.se_gru_inproj_active_clusters.argtypes = [ctypes.c_int] * 7
+        lib.se_gru_inproj_active_clusters.restype = ctypes.c_int
     return lib
 
 
@@ -139,7 +186,8 @@ def _forward(x, w_ih_t, b_ih, w_hh_t, b_hh, h0):
     hT = torch.empty((L, Bb, H), device=dev, dtype=f32)
     build.cuda_launch(
         _library(), f"se_gru_inproj_fwd_{build.STREAM_FORMS[sdt]}",
-        (x, w_ih_t, b_ih, w_hh_t, b_hh, h0), _INPUTS, (ys, hT), (T, L, Bb, In, H), dev,
+        (x, w_ih_t, b_ih, w_hh_t, b_hh, h0), _INPUTS, (ys, hT),
+        (T, L, Bb, In, H, *_tiling(plan(Bb, In, H))), dev,
         (sdt,) + (f32,) * 5,
     )
     build.count_launch(fused_gru_scan_inproj, sdt)
@@ -152,11 +200,11 @@ def fused_gru_scan_inproj_backward(x, w_ih_t, b_ih, w_hh_t, b_hh, h0, ys, dys, d
     None counts as zeros.
 
     CPU tensors run the plain version.  CUDA tensors launch the backward
-    kernels (the reverse scan, then the deterministic dx, dW and dbias
-    reductions over the ``[T, L, Bb, 3H]`` and ``[T, L, Bb, H]`` scratch
-    buffers) on the current stream, or raise: contiguous only; x, ys and
-    dys all float32 or all bfloat16 (then dx is bfloat16 too), the rest
-    float32.  Each call that launches adds one to
+    kernels (the reverse scan in :func:`plan`'s design, then the
+    deterministic dx, dW and dbias reductions over the ``[T, L, Bb, 3H]``
+    and ``[T, L, Bb, H]`` scratch buffers) on the current stream, or raise:
+    contiguous only; x, ys and dys all float32 or all bfloat16 (then dx is
+    bfloat16 too), the rest float32.  Each call that launches adds one to
     ``fused_gru_scan_inproj_backward.launches`` (f32) or ``.launches_bf16``.
     """
     _check(x, w_ih_t, b_ih, w_hh_t, b_hh, h0)
@@ -188,7 +236,8 @@ def fused_gru_scan_inproj_backward(x, w_ih_t, b_ih, w_hh_t, b_hh, h0, ys, dys, d
         (x, w_ih_t, b_ih, w_hh_t, b_hh, h0, ys, dys, dhT),
         (*_INPUTS, "ys", "dys", "dhT"),
         (dx, dw_ih, db_ih, dw_hh, db_hh, dh0, dg, dgn, build.dw_workspace(dev)),
-        (T, L, Bb, In, H, build.DW_WORKSPACE_FLOATS), dev,
+        (T, L, Bb, In, H, *_tiling(plan(Bb, In, H, backward=True)), build.DW_WORKSPACE_FLOATS),
+        dev,
         (sdt,) + (f32,) * 5 + (sdt, sdt, f32),
     )
     build.count_launch(fused_gru_scan_inproj_backward, sdt)
@@ -216,9 +265,10 @@ class _FusedGruScanInproj(torch.autograd.Function):
 def fused_gru_scan_inproj(x, w_ih_t, b_ih, w_hh_t, b_hh, h0):
     """Same signature and result as :func:`fused_gru_scan_inproj_reference`.
 
-    CPU tensors run the plain version.  CUDA tensors launch the kernel on
-    the current stream, or raise: contiguous only, x float32 or bfloat16
-    (the bf16-stream form: ys bfloat16), the rest float32.  Each launch adds
+    CPU tensors run the plain version.  CUDA tensors launch the kernel in
+    :func:`plan`'s design on the current stream, or raise: contiguous only,
+    x float32 or bfloat16 (the bf16-stream form: ys bfloat16), the rest
+    float32.  Each launch adds
     one to ``fused_gru_scan_inproj.launches`` (f32) or ``.launches_bf16``.
     When gradients are on
     and an input requires one, the call's backward is

@@ -23,97 +23,19 @@ count (``launches``, ``launches_bf16``).
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
 
 import torch
 
 from . import build
-
-# The kernels' tiling (csrc/lstm_inproj.cu): a cluster of N CTAs holds a
-# tile of R batch rows of one stack, CTA q the U = ceil(H / N) units q U ..
-# and their four gate columns; C steps a chunk of the input projection.
-MAX_SMEM = 232448  # bytes of shared memory a block may use on an H100
-MAX_CLUSTER = 16  # CTAs a cluster (above 8: the card's non-portable size)
-MAX_ROWS = 32  # rows a tile
-ROW_QUANTUM = 4  # a thread's rows, read as one float4
-MAX_CHUNK = 8  # steps a chunk projects at once
-THREADS = 512  # a CTA's threads
-
-
-@dataclass(frozen=True)
-class Plan:
-    """One launch's tiling: ``tiles`` clusters of ``N`` CTAs per stack,
-    ``R`` rows a cluster, ``U`` units a CTA (the last one fewer where N does
-    not divide H), chunks of ``C`` steps, the CTA's W_hh slice ``resident``
-    in shared memory (else read from L2 every step), ``smem`` bytes a
-    CTA."""
-
-    R: int
-    N: int
-    U: int
-    C: int
-    resident: bool
-    smem: int
-    tiles: int
-
-    def args(self) -> tuple:
-        """The entries' tiling arguments ``(R, N, C, resident)``."""
-        return self.R, self.N, self.C, int(self.resident)
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def cell_threads(U: int, R: int) -> int:
-    """The threads of a CTA's cell update: a warp per 8 units x 4 row groups
-    of 4 rows."""
-    return 32 * _cdiv(U, 8) * _cdiv(R // ROW_QUANTUM, 4)
-
-
-def cluster_split(H: int) -> tuple:
-    """``(N, U)``: a CTA per 8 units, at most ``MAX_CLUSTER``: H = 128 and
-    more on 16 CTAs, which share the chunk's input projection too."""
-    N = min(MAX_CLUSTER, max(1, _cdiv(H, 8)))
-    U = _cdiv(H, N)
-    return _cdiv(H, U), U
-
-
-def smem_bytes(R: int, N: int, U: int, C: int, In: int, H: int, resident: bool,
-               backward: bool) -> int:
-    """A CTA's shared memory: the chunk's x [C][In][R] and gates [C][4U][R];
-    forward h [H][R] and c [U][R], backward h_prev [H][R], the partial dh it
-    receives [N][U][R] and the dh and dc carries [U][R]; the resident W_hh
-    slice [H][4U + 4]."""
-    floats = C * R * (In + 4 * U)
-    floats += (H + N * U + 2 * U) * R if backward else (H + U) * R
-    if resident:
-        floats += H * (4 * U + 4)
-    return 4 * floats
+from .cluster_plan import MAX_SMEM, Plan, cell_threads, smem_bytes  # noqa: F401 (K2's tiling)
+from .cluster_plan import plan as _cluster_plan
 
 
 def plan(Bb: int, In: int, H: int, backward: bool = False) -> Plan:
-    """The tiling of a K2 launch (forward, or the backward's reverse scan)
-    over ``Bb`` rows of ``In`` inputs and ``H`` units.  The W_hh slice is
-    resident wherever a tile of 4 rows fits beside it.  A tile takes as many
-    rows (up to ``MAX_ROWS``) as fit, the tiles then evened out over the
-    batch; the chunk is the longest up to ``MAX_CHUNK`` steps that fits.
-    The stream dtype does not enter: x is staged as f32 in both forms."""
-    N, U = cluster_split(H)
-
-    def fits(R, C, resident):  # in shared memory, a cell item a thread
-        return (smem_bytes(R, N, U, C, In, H, resident, backward) <= MAX_SMEM
-                and cell_threads(U, R) <= THREADS)
-
-    resident = fits(ROW_QUANTUM, 1, True)
-    top = min(MAX_ROWS, _cdiv(Bb, ROW_QUANTUM) * ROW_QUANTUM)
-    widest = next((R for R in range(top, 0, -ROW_QUANTUM) if fits(R, 1, resident)), None)
-    if widest is None:
-        raise ValueError(f"no K2 tiling fits Bb={Bb}, In={In}, H={H} in {MAX_SMEM} bytes")
-    tiles = _cdiv(Bb, widest)
-    R = _cdiv(_cdiv(Bb, tiles), ROW_QUANTUM) * ROW_QUANTUM
-    C = next(c for c in range(MAX_CHUNK, 0, -1) if fits(R, c, resident))
-    return Plan(R, N, U, C, resident, smem_bytes(R, N, U, C, In, H, resident, backward), tiles)
+    """The tiling of a K2 launch (forward, or the backward's reverse scan):
+    :func:`cluster_plan.plan` at four gates.  The W_hh slice is resident
+    wherever a tile of 4 rows fits beside it, else streamed from L2."""
+    return _cluster_plan(Bb, In, H, backward, gates=4)
 
 
 def active_clusters(Bb: int, In: int, H: int, backward: bool = False, device=None) -> int:
