@@ -261,10 +261,27 @@ def _cuda_lstms(w, dev):
     return lstms
 
 
+def _k1_tiling(L, Bb, H) -> str:
+    """K1's tiling for its forward and backward scans at a shape, from
+    ``fused_lstm.plan``: clusters a stack x CTAs, rows a cluster, units a
+    CTA, the W_hh slice resident or streamed, chunk steps, shared bytes a
+    CTA, and how many such clusters the card runs at once."""
+    from se_tpu_torch.ops.fused_lstm import active_clusters, plan
+
+    def one(backward):
+        p = plan(L, Bb, H, backward)
+        return (f"{p.tiles} x {p.N} CTAs, R={p.R}, U={p.U}, "
+                f"{'resident' if p.resident else 'streamed'}, C={p.C}, {p.smem} B, "
+                f"{active_clusters(L, Bb, H, backward)} clusters at once")
+
+    return f"forward {one(False)}; backward {one(True)}"
+
+
 def phase_lstm_kernel() -> dict:
     """fused_lstm_scan at the main path's shapes: T=483 frames (3 s at hop
     100 with the conv-STFT's 300-sample pads), L=2 stacks, Bb=16 rows
-    (B=8 doubled), H=128 (rnn_units=256 halved)."""
+    (B=8 doubled), H=128 (rnn_units=256 halved), and at the train batch's
+    Bb=20, each with the plan's tiling printed; a ragged case."""
     from se_tpu_torch.device import resolve_device
     from se_tpu_torch.probes import cuda_ms
     from se_tpu_torch.ops.fused_lstm import fused_lstm_scan, fused_lstm_scan_reference
@@ -278,17 +295,21 @@ def phase_lstm_kernel() -> dict:
         ys_p, (hT_p, cT_p) = fused_lstm_scan_reference(xp, w, h0, c0)
         torch.cuda.synchronize()
         errs = {"ys": _max_err(ys, ys_p), "hT": _max_err(hT, hT_p), "cT": _max_err(cT, cT_p)}
-        print(f"[lstm] max |kernel - plain| {errs} (tolerance {KERNEL_TOL})")
+        print(f"[lstm] Bb={Bb} ({_k1_tiling(L, Bb, H)}): max |kernel - plain| {errs} "
+              f"(tolerance {KERNEL_TOL})")
         assert all(np.isfinite(v) and v <= KERNEL_TOL for v in errs.values()), errs
 
-        # a ragged shape: Bb not a multiple of the kernel's 4-row tile
-        ragged = _scan_inputs(rng, dev, 7, 3, 5, 32)
-        got = fused_lstm_scan(*ragged)
-        want = fused_lstm_scan_reference(*ragged)
-        r_err = max(_max_err(got[0], want[0]), _max_err(got[1][0], want[1][0]),
-                    _max_err(got[1][1], want[1][1]))
-        print(f"[lstm] ragged T=7 L=3 Bb=5: max |kernel - plain| {r_err}")
-        assert r_err <= KERNEL_TOL, r_err
+        # the train batch's rows, and a ragged shape: three stacks, Bb not
+        # a multiple of the row tile, H = 32 over 8 CTAs of 4 units
+        for label, shape in (("Bb=20", (T, L, 20, H)), ("ragged T=7 L=3 Bb=5 H=32", (7, 3, 5, 32))):
+            case = _scan_inputs(rng, dev, *shape)
+            got = fused_lstm_scan(*case)
+            want = fused_lstm_scan_reference(*case)
+            r_err = max(_max_err(got[0], want[0]), _max_err(got[1][0], want[1][0]),
+                        _max_err(got[1][1], want[1][1]))
+            print(f"[lstm] {label} ({_k1_tiling(*shape[1:])}): max |kernel - plain| "
+                  f"{r_err}")
+            assert r_err <= KERNEL_TOL, (label, r_err)
 
         lib = _cuda_lstms(w, dev)
 
@@ -332,8 +353,9 @@ def _rel_errs(got, want) -> dict:
 
 def phase_lstm_backward() -> tuple:
     """fused_lstm_scan_backward at the train path's shapes: T=483, L=2,
-    Bb=20 (the default batch of 10 doubled), H=128; the forward's stash;
-    a ragged case.  Returns the K1b entry and the stash forward's times."""
+    Bb=20 (the default batch of 10 doubled), H=128, each with the plan's
+    tiling printed; the forward's stash; the enhance batch's Bb=16 and a
+    ragged case.  Returns the K1b entry and the stash forward's times."""
     from se_tpu_torch.device import resolve_device
     from se_tpu_torch.probes import cuda_ms
     from se_tpu_torch.ops import fused_lstm
@@ -374,17 +396,20 @@ def phase_lstm_backward() -> tuple:
         torch.cuda.synchronize()
         errs = _rel_errs(got, want)
         abs_err = max(_max_err(g, w_) for g, w_ in zip(got, want))
-        print(f"[lstm-bwd] max |kernel - plain| / max |plain| {errs} "
-              f"(tolerance {BWD_REL_TOL}); max abs {abs_err}")
+        print(f"[lstm-bwd] Bb={Bb} ({_k1_tiling(L, Bb, H)}): max |kernel - plain| / max |plain| "
+              f"{errs} (tolerance {BWD_REL_TOL}); max abs {abs_err}")
         assert all(np.isfinite(v) and v <= BWD_REL_TOL for v in errs.values()), errs
         assert all(torch.equal(a, b) for a, b in zip(got, again)), "backward not deterministic"
         print("[lstm-bwd] two backward calls: dx_proj, dW_hh, dh0, dc0 bit-identical")
 
-        ragged = case(7, 3, 5, 32)
-        r_errs = _rel_errs(fused_lstm_scan_backward(*ragged),
-                           fused_lstm_scan_backward_reference(*ragged))
-        print(f"[lstm-bwd] ragged T=7 L=3 Bb=5 H=32: {r_errs}")
-        assert all(v <= BWD_REL_TOL for v in r_errs.values()), r_errs
+        for label, shape in (("Bb=16", (T, L, 16, H)), ("ragged T=7 L=3 Bb=5 H=32", (7, 3, 5, 32))):
+            other = case(*shape)
+            r_got = fused_lstm_scan_backward(*other)
+            r_errs = _rel_errs(r_got, fused_lstm_scan_backward_reference(*other))
+            print(f"[lstm-bwd] {label}: {r_errs}")
+            assert all(v <= BWD_REL_TOL for v in r_errs.values()), (label, r_errs)
+            assert all(torch.equal(a, b) for a, b in zip(r_got, fused_lstm_scan_backward(*other))), \
+                f"{label}: backward not deterministic"
 
         kernel_ms = cuda_ms(lambda: fused_lstm_scan_backward(*args), iters=20, warmup=2)
         plain_ms = cuda_ms(lambda: fused_lstm_scan_backward_reference(*args), iters=3, warmup=1)
@@ -1215,11 +1240,15 @@ def phase_conv_kernel(dtype=torch.float32) -> dict:
     """fused_complex_conv2d (K4) in the form of ``dtype`` against its plain
     version (cuDNN on the causally padded input) at the six encoder stages
     of the default DCCRN at the enhance batch (B=8: B2=16) and the train
-    batch (B=10: B2=20), T=483 frames (3 s), and a ragged case, also
-    against the plain version on the CPU; two calls bit-identical.  The
-    bf16 form takes bf16 x and the f32 w and b, which the wrapper casts to
-    bf16; it sums in f32 and rounds y once (each element within one bf16
-    ulp of the plain version).  Times, with one cuDNN conv of the same
+    batch (B=10: B2=20), T=483 frames (3 s), and two ragged cases (C not a
+    multiple of 8, Co of neither tile, the second with an odd count of
+    positions), also against the plain version on the CPU; two calls
+    bit-identical.  The f32 form must equal the plain version (cuDNN on the
+    card) and one cuDNN conv of the same function bit for bit.  The bf16
+    form takes bf16 x and the f32 w and b, which the wrapper casts to bf16
+    (w in its tensor-core layout); it multiplies on the tensor cores, sums
+    in f32 and rounds y once (each element within one bf16 ulp of the plain
+    version).  Times, with one cuDNN conv of the same
     function in the same dtype beside them (bf16: and the f32 form on the
     same values), at B=8; the bound from the dtype's bytes and its
     products' peak rate (bf16's on the tensor cores); the headline numbers
@@ -1254,20 +1283,27 @@ def phase_conv_kernel(dtype=torch.float32) -> dict:
             got = fused_conv.fused_complex_conv2d(*args)
             again = fused_conv.fused_complex_conv2d(*args)
             want = fused_conv.reference(*args)
+            # yardstick, never on the port's path: one cuDNN conv, the time
+            # padding on both sides and the extra last frame dropped
+            lib = F.conv2d(args[0], w.to(dtype), b.to(dtype), stride=(2, 1), padding=(2, 1))
             torch.cuda.synchronize()
         e = errs(got, want)
+        if not bf16:
+            e.update(bits_plain=torch.equal(got, want), bits_cudnn=torch.equal(got, lib[..., :T]))
         print(f"[{tag}] {label} B2={B2} C={C} Co={Co} F={Fq} T={T}: y vs plain {e} "
-              f"(tolerance {'one bf16 ulp' if bf16 else CONV_REL_TOL} of the output's max)")
+              f"(tolerance {'one bf16 ulp' if bf16 else 'equal bits'})")
         assert got.dtype == dtype and tuple(got.shape) == (B2, Co, Fq // 2, T), label
         assert np.isfinite(e["abs"]) and e["ok"], (label, e)
+        assert bf16 or (e["bits_plain"] and e["bits_cudnn"]), (label, e)
         assert torch.equal(got, again), f"{label}: K4 not repeatable"
         return args, got, e
 
-    args, y, _ = check("ragged", 3, 3, 40, 20, 37)
-    # the CPU sums in another order than cuDNN, which may match K4's bits
-    e = errs(y.cpu(), fused_conv.reference(*(a.cpu() for a in args)))
-    print(f"[{tag}] ragged: y vs plain on the CPU {e}")
-    assert e["ok"], e
+    for label, shape in (("ragged", (3, 3, 40, 20, 37)), ("ragged odd M", (3, 24, 72, 6, 37))):
+        args, y, _ = check(label, *shape)
+        # the CPU sums in another order than cuDNN, which may match K4's bits
+        e = errs(y.cpu(), fused_conv.reference(*(a.cpu() for a in args)))
+        print(f"[{tag}] {label}: y vs plain on the CPU {e}")
+        assert e["ok"], e
     tot = dict.fromkeys(("ms", "f32_ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops"),
                         0.0)
     worst = {"abs": 0.0, "rel": 0.0, "ulps": 0.0}

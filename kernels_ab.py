@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the f32 forms of the hand kernels K1-K4, and the bf16-stream forms
-of K2 and K3, and hash their outputs, to compare two checkouts on one card.
+"""Time the hand kernels K1-K4 in both forms (f32 and bf16) and the bound
+probe P1, and hash their outputs, to compare two checkouts on one card.
 
     (cd parent_checkout && python3 /path/to/kernels_ab.py parent)
     python3 kernels_ab.py change
@@ -9,14 +9,20 @@ Run it from the root of each checkout in turn, on one machine with an
 NVIDIA H100, in the order parent, change, change, parent.  It builds that
 checkout's kernels with its own ``chip_smoke.phase_build`` (which prints
 each kernel's registers and spills), then times, with CUDA events, K1f at
-DCCRN's enhance shape (T=483, L=2, Bb=16, H=128), K1b at its train shape
-(Bb=20), K2f at CRN's enhance shape (T=483, Bb=8, In=512, H=128), K2b at
-its train shape (Bb=10), K2f and K2b at DCCRN's real LSTM, both layers at
+DCCRN's enhance shape (T=483, L=2, Bb=16, H=128) and K1b at its train shape
+(Bb=20), f32 then bf16, each beside cuDNN's ``nn.LSTM`` in the same dtype
+and, where the checkout's K1 has a plan (``fused_lstm.plan``), in every
+tiling forced: clusters of N = 2, 4, 8 or 16 CTAs with tiles of up to R =
+4, 8, 16 or 20 rows (``[N=.. R=..]`` keys); then K2f at CRN's enhance
+shape (T=483, Bb=8, In=512, H=128), K2b at its train shape (Bb=10), K2f
+and K2b at DCCRN's real LSTM, both layers at
 B=8 (T=483, Bb=8, In=1024 and 256, H=256) and at FullSubNet's four LSTM
 layers at B=8 (T=163; full band Bb=8, In=257 and 512, H=512; sub band
 Bb=2056, In=32 and 384, H=384), K4 at the default DCCRN's six encoder
-stages at B=8 (T=483), the bf16-stream forms of K2f and K2b at
-FullSubNet's four LSTM layers, and last K3f and K3b, f32 then bf16, at
+stages at B=8 (T=483) in both forms, each beside one cuDNN conv in the
+same dtype, P1 (its four gate modes at T=163 and 1028 rows of the sub
+band's first layer), the bf16-stream forms of K2f and K2b at FullSubNet's
+four LSTM layers, and last K3f and K3b, f32 then bf16, at
 FullSubNet-GRU's four layers (the same shapes), on inputs drawn from a
 fixed seed.  Beside K3 at each layer it times cuDNN's ``nn.GRU`` in the
 same dtype (``cuDNN ...`` keys: the forward, and forward + backward minus
@@ -72,19 +78,7 @@ def main(tag: str) -> dict:
     cots = lambda *shapes: [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
                             for s in shapes]
     out = {}
-    T, L, H = 483, 2, 128
-    for Bb, kind in ((16, "K1f"), (20, "K1b")):
-        xp, w, h0, c0 = cs._scan_inputs(rng, dev, T, L, Bb, H)
-        with torch.no_grad():
-            ys, cs_, hT, cT = k1._forward(xp, w, h0, c0, need_cs=True)
-            if kind == "K1f":
-                ms = cuda_ms(lambda: k1.fused_lstm_scan(xp, w, h0, c0), 50, 3)
-                out[kind] = (ms, _hash(ys, hT, cT))
-            else:
-                c = cots((T, L, Bb, H), (L, Bb, H), (L, Bb, H))
-                g = k1.fused_lstm_scan_backward(xp, w, h0, c0, ys, cs_, *c)
-                ms = cuda_ms(lambda: k1.fused_lstm_scan_backward(xp, w, h0, c0, ys, cs_, *c), 20, 2)
-                out[kind] = (ms, _hash(*g))
+    _k1(rng, dev, cots, out)
     for label, T, Bb, In, H in (("CRN", 483, 8, 512, 128), ("CRN train", 483, 10, 512, 128),
                                 ("DCCRN real l0", 483, 8, 1024, 256),
                                 ("DCCRN real l1", 483, 8, 256, 256),
@@ -101,14 +95,8 @@ def main(tag: str) -> dict:
                 ms = cuda_ms(lambda: k2.fused_lstm_scan_inproj_backward(*args, ys, cs_, *c),
                              10 if label == "CRN train" else 3, 1)
                 out[f"K2b {label}"] = (ms, _hash(*g))
-    for i, (C, Co, Fq) in enumerate(cs._CONV_STAGES):
-        x, w, b = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
-            rng.standard_normal((16, C, Fq, 483)), rng.standard_normal((Co, C, 5, 2)) * 0.05,
-            rng.standard_normal(Co))]
-        with torch.no_grad():
-            y = fused_conv.fused_complex_conv2d(x, w, b)
-            ms = cuda_ms(lambda: fused_conv.fused_complex_conv2d(x, w, b), 20, 3)
-        out[f"K4 stage {i + 1}"] = (ms, _hash(y))
+    _k4(rng, dev, out)
+    _p1(dev, out)
     bf16 = torch.bfloat16
     for label, T, Bb, In, H in FULLSUBNET_LSTM:
         x, *rest = cs._inproj_inputs(rng, dev, T, 1, Bb, In, H)
@@ -128,6 +116,92 @@ def main(tag: str) -> dict:
     print("AB", tag, json.dumps(out))
     print("LAUNCHES", tag, json.dumps(launches))
     return out
+
+
+# K1's tilings: (CTAs a cluster, rows a cluster at most)
+K1_TILES = tuple((N, R) for N in (2, 4, 8, 16) for R in (4, 8, 16, 20))
+
+
+def _k1(rng, dev, cots, out):
+    """K1f at DCCRN's enhance shape (Bb=16) and K1b at its train shape
+    (Bb=20), f32 then bf16, each beside cuDNN's ``nn.LSTM`` in its dtype
+    (one per stack: forward, and forward + backward minus forward), and in
+    each tiling where the checkout's K1 has a plan."""
+    planner = getattr(k1, "plan", None)
+    designs = {"": None}
+    if planner is not None:
+        from se_tpu_torch.ops import cluster_plan
+
+        def tiles(N, R):
+            return lambda L, Bb, H, backward=False: cluster_plan.plan(Bb, 0, H, backward,
+                                                                      max_rows=R, N=N)
+
+        designs.update({f" [N={N} R={R}]": tiles(N, R) for N, R in K1_TILES})
+    T, L, H = 483, 2, 128
+    for dtype, form in ((torch.float32, ""), (torch.bfloat16, "-bf16")):
+        for Bb, kind in ((16, "K1f"), (20, "K1b")):
+            xp, w, h0, c0 = cs._scan_inputs(rng, dev, T, L, Bb, H)
+            xp = xp.to(dtype)
+            dys, dhT, dcT = cots((T, L, Bb, H), (L, Bb, H), (L, Bb, H))
+            dys = dys.to(dtype)
+            try:
+                for suffix, design in designs.items():
+                    if design is not None:
+                        k1.plan = design
+                    with torch.no_grad():
+                        ys, cs_, hT, cT = k1._forward(xp, w, h0, c0, need_cs=True)
+                        if kind == "K1f":
+                            ms = cuda_ms(lambda: k1.fused_lstm_scan(xp, w, h0, c0), 50, 3)
+                            out[f"K1f{form}{suffix}"] = (ms, _hash(ys, hT, cT))
+                        else:
+                            c = (dys, dhT, dcT)
+                            g = k1.fused_lstm_scan_backward(xp, w, h0, c0, ys, cs_, *c)
+                            ms = cuda_ms(lambda: k1.fused_lstm_scan_backward(
+                                xp, w, h0, c0, ys, cs_, *c), 20, 2)
+                            out[f"K1b{form}{suffix}"] = (ms, _hash(*g))
+            finally:
+                if planner is not None:
+                    k1.plan = planner
+            f_ms, b_ms, lib_dtype = cs._cudnn_yardstick(
+                cs._cuda_lstms(w, dev), [(xp[:, l], h0[l:l + 1], c0[l:l + 1]) for l in range(L)],
+                [(dys[:, l], dhT[l:l + 1], dcT[l:l + 1]) for l in range(L)],
+                dtypes=(dtype, torch.float32))
+            out[f"cuDNN LSTM{form} {'fwd' if kind == 'K1f' else 'bwd'} Bb={Bb} ({lib_dtype})"] = (
+                f_ms if kind == "K1f" else b_ms, None)
+
+
+def _k4(rng, dev, out):
+    """K4 at the default DCCRN's six encoder stages at B=8, f32 then bf16,
+    each beside one cuDNN conv of the same function in the same dtype (the
+    time padding on both sides, the extra last frame unread)."""
+    import torch.nn.functional as F
+
+    for dtype, form in ((torch.float32, ""), (torch.bfloat16, "-bf16")):
+        for i, (C, Co, Fq) in enumerate(cs._CONV_STAGES):
+            x, w, b = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+                rng.standard_normal((16, C, Fq, 483)), rng.standard_normal((Co, C, 5, 2)) * 0.05,
+                rng.standard_normal(Co))]
+            x = x.to(dtype)
+            wd, bd = w.to(dtype), b.to(dtype)
+            with torch.no_grad():
+                y = fused_conv.fused_complex_conv2d(x, w, b)
+                ms = cuda_ms(lambda: fused_conv.fused_complex_conv2d(x, w, b), 20, 3)
+                out[f"K4{form} stage {i + 1}"] = (ms, _hash(y))
+                lib_ms = cuda_ms(lambda: F.conv2d(x, wd, bd, stride=(2, 1), padding=(2, 1)), 20, 3)
+                out[f"cuDNN conv{form} stage {i + 1}"] = (lib_ms, None)
+
+
+def _p1(dev, out):
+    """The bound probe's four gate modes (K2f's forward kernel) at T=163
+    and 1028 rows (B=4) of the sub band's first layer."""
+    from se_tpu_torch.probes import bound_probe
+
+    args = bound_probe.inputs(163, 4 * 257, 32, 384, dev)
+    with torch.no_grad():
+        for mode in bound_probe.MODES:
+            ys, hT, cT = bound_probe.run(mode, *args)
+            ms = cuda_ms(lambda: bound_probe.run(mode, *args), 3, 1)
+            out[f"P1 {mode}"] = (ms, _hash(ys, hT, cT))
 
 
 def _k2_bf16_yardsticks(rng, dev, cots, out):

@@ -1,13 +1,15 @@
-// The thread-block-cluster machinery of the in-projection scans, shared by
-// K2 (lstm_inproj.cu, the LSTM: four gates i, f, g, o) and K3
-// (gru_inproj.cu, the GRU: three gates r, z, n).  A cluster of N CTAs owns
+// The thread-block-cluster machinery of the recurrent scans, shared by K2
+// (lstm_inproj.cu, the LSTM: four gates i, f, g, o), K1 (lstm_scan.cu, the
+// same LSTM kernels of lstm_cluster.cuh without the input projection) and
+// K3 (gru_inproj.cu, the GRU: three gates r, z, n).  A cluster of N CTAs owns
 // a tile of R batch rows of one stack; CTA q owns U = ceil(H / N) hidden
 // units u0 = q U .. and every gate column of each (kGates U local columns
 // c = gate * U + u), so a unit's cell update never leaves its CTA.  The
 // CTA keeps its W_hh slice in shared memory (stage_slice), stages the
-// chunk's x and forms its columns' x . W_ih (project_chunk), and trades
-// h (forward) or partial dh sums (backward) with its peers through
-// distributed shared memory (store_peer) between cluster barriers.  The
+// chunk's x and forms its columns' x . W_ih (project_chunk; K1 stages its
+// columns of x_proj instead, load_chunk), and trades h (forward) or
+// partial dh sums (backward) with its peers through distributed shared
+// memory (store_peer) between cluster barriers.  The
 // tiling (R, N, C, residency) comes from the planner in Python
 // (se_tpu_torch/ops/cluster_plan.py::plan); tiling_smem is its shared-memory
 // formula, and launch_cluster checks with the runtime that a cluster of
@@ -219,6 +221,25 @@ __device__ __forceinline__ void project_chunk(const TX* __restrict__ x,
         [=](int s, int r, int j) { return (s * In + j) * R + r; });
   __syncthreads();
   project_cols(wih, xc_s, p_s, n, k, In, H);
+  __syncthreads();
+}
+
+// The chunk's n steps of a projection computed outside the kernel (K1's
+// x_proj [T, L, Bb, kGates H], f32 or bf16, biases folded in) into p_s
+// [C][kGates U][R]: the CTA's own gate columns, zeros past the batch edge
+// and past its units.  A thread's loads run along a gate's U columns.
+template <int kGates, typename TX>
+__device__ __forceinline__ void load_chunk(const TX* __restrict__ xp, float* p_s, int t0, int n,
+                                           int L, int Bb, const Cta<kGates>& k, int H) {
+  const size_t G = static_cast<size_t>(kGates) * H;
+  stage(p_s, n, k.R, k.GU,
+        [=](int s, int r, int c) {
+          return r < k.rows && c % k.U < k.nu
+                     ? xp[((static_cast<size_t>(t0 + s) * L + k.l) * Bb + k.b0 + r) * G +
+                          k.col(c, H)]
+                     : TX{};
+        },
+        [=](int s, int r, int c) { return (s * k.GU + c) * k.R + r; });
   __syncthreads();
 }
 

@@ -4,9 +4,9 @@
 // LSTM unit forward and backward, the dh pass of a reverse step, the
 // deterministic dx, dW and dbias reductions over a gate-gradient scratch
 // buffer; error_string.cuh adds the error-string export that each
-// library's Python wrapper calls.  The products and the dh pass take the
-// block's row count R as a template argument (K1 and K2 use kRows; K3
-// also 8).
+// library's Python wrapper calls.  The per-block products and the dh pass
+// take the block's row count R as a template argument (the wavefront probe
+// uses kRows; K3's per-block kernel 4 or 8).
 //
 // The bf16-stream forms of K1 and K2 (pallas_lstm.py:13-14) read their
 // input stream, ys and dys as bf16 and write ys and the input gradient as

@@ -1,6 +1,7 @@
-"""The tiling planner of the in-projection scans on thread-block clusters:
-K2 (``csrc/lstm_inproj.cu``, the LSTM's four gates) and K3
-(``csrc/gru_inproj.cu``, the GRU's three), both on the machinery of
+"""The tiling planner of the recurrent scans on thread-block clusters: K2
+(``csrc/lstm_inproj.cu``, the LSTM's four gates), K1 (``csrc/lstm_scan.cu``,
+the same kernels without the input projection) and K3
+(``csrc/gru_inproj.cu``, the GRU's three), all on the machinery of
 ``csrc/cluster_scan.cuh``.
 
 A cluster of N CTAs holds a tile of R batch rows of one stack, CTA q the
@@ -86,16 +87,27 @@ def smem_bytes(R: int, N: int, U: int, C: int, In: int, H: int, resident: bool,
     return 4 * floats
 
 
+def split(H: int, N: int) -> tuple:
+    """``(N', U)``: H units over at most N CTAs, U = ceil(H / N) each, and
+    as many CTAs as that needs (none without units)."""
+    if not 1 <= N <= MAX_CLUSTER:
+        raise ValueError(f"a cluster holds 1 to {MAX_CLUSTER} CTAs, not {N}")
+    U = _cdiv(H, min(N, H))
+    return _cdiv(H, U), U
+
+
 def plan(Bb: int, In: int, H: int, backward: bool = False, gates: int = 4,
-         max_rows: int = MAX_ROWS) -> Plan:
-    """The tiling of a launch of a ``gates``-gate scan (4: K2, 3: K3;
+         max_rows: int = MAX_ROWS, N: int | None = None) -> Plan:
+    """The tiling of a launch of a ``gates``-gate scan (4: K1, K2; 3: K3;
     forward, or the backward's reverse scan) over ``Bb`` rows of ``In``
-    inputs and ``H`` units.  The W_hh slice is resident wherever a tile of
-    4 rows fits beside it.  A tile takes as many rows (up to ``max_rows``,
-    at most ``MAX_ROWS``) as fit, the tiles then evened out over the batch;
-    the chunk is the longest up to ``MAX_CHUNK`` steps that fits.  The
-    stream dtype does not enter: x is staged as f32 in both forms."""
-    N, U = cluster_split(H)
+    inputs (K1: 0, its projection made outside) and ``H`` units, on
+    clusters of ``cluster_split(H)`` CTAs or, given ``N``, ``split(H, N)``.
+    The W_hh slice is resident wherever a tile of 4 rows fits beside it.  A
+    tile takes as many rows (up to ``max_rows``, at most ``MAX_ROWS``) as
+    fit, the tiles then evened out over the batch; the chunk is the longest
+    up to ``MAX_CHUNK`` steps that fits.  The stream dtype does not enter: x
+    is staged as f32 in both forms."""
+    N, U = cluster_split(H) if N is None else split(H, N)
 
     def fits(R, C, resident):  # in shared memory, a cell item a thread
         return (smem_bytes(R, N, U, C, In, H, resident, backward, gates) <= MAX_SMEM

@@ -16,13 +16,16 @@ outside any Pallas kernel; there is no backward kernel.
 Two forms, as the Pallas kernel has: f32, and bf16 for a bf16 ``x``.  The
 weights ``w`` and ``b`` are f32 in both (the master weights); the bf16 form
 casts them to bf16 itself, as ``_pallas_conv`` does (``pallas_conv.py:122-123``),
-sums the products in f32, adds the bias in f32 and rounds ``y`` to bf16 once.
-That rounds once where the unfused bf16 conv (``ops/conv.py``) rounds the
-conv's output and then its sum with the bias, as the reference's two paths
-do.  Its backward is the gradient of the reference's bf16 conv: ``g``, ``x``
-and the bf16 ``w`` in, ``dx`` in bf16, ``dw`` and ``db`` as f32 of their
-bf16 values.  Each form has its own C entry and launch count
-(``launches``, ``launches_bf16``).
+multiplies on the tensor cores, sums the products in f32, adds the bias in
+f32 and rounds ``y`` to bf16 once.  That rounds once where the unfused bf16
+conv (``ops/conv.py``) rounds the conv's output and then its sum with the
+bias, as the reference's two paths do.  Its backward is the gradient of the
+reference's bf16 conv: ``g``, ``x`` and the bf16 ``w`` in, ``dx`` in bf16,
+``dw`` and ``db`` as f32 of their bf16 values.  Each form has its own C
+entry and launch count (``launches``, ``launches_bf16``), and its kernel
+takes ``w`` in a layout of its own, which the wrapper makes
+(:func:`ffma_weights`, :func:`tensor_core_weights`, the latter as it
+casts).
 """
 
 from __future__ import annotations
@@ -52,6 +55,33 @@ def reference(x, w, b):
         y = F.conv2d(_padded(x.float()), bf(w), bf(b), stride=STRIDE, padding=PADDING)
         return y.to(torch.bfloat16)
     return F.conv2d(_padded(x), w, b, stride=STRIDE, padding=PADDING)
+
+
+CHUNK_CHANNELS = 8  # channels a chunk of the bf16 kernel: 80 rows of its K
+
+
+def ffma_weights(w):
+    """``w [Co, C, 5, 2]`` as the f32 kernel reads it: ``wt [10 C, Cop]``
+    f32, w's rows k = (c, kf, kt) as columns (its sums still run over k in
+    w's own order), each row Co channels and zeros to Cop = Co rounded up
+    to 4, so that a row is whole 16-byte pieces (``csrc/complex_conv.cu``)."""
+    Co = w.shape[0]
+    wt = w.reshape(Co, -1).t()
+    return (F.pad(wt, (0, -Co % 4)) if Co % 4 else wt).contiguous()
+
+
+def tensor_core_weights(w):
+    """``w [Co, C, 5, 2]`` as the bf16 kernel reads it: ``[Co, 10 Cp]``
+    bf16 with Cp = C rounded up to 8, in chunks of 8 channels and 80 rows:
+    row ``80 (c // 8) + 8 (2 kf + kt) + c % 8`` holds ``w[:, c, kf, kt]``,
+    zero for ``c >= C``.  A chunk's rows are its channels tap by tap, so a
+    tensor-core k-step of 16 rows is one kf, its two kt and 8 channels
+    (``csrc/complex_conv.cu``); a row is 160 bytes a chunk."""
+    Co, C = w.shape[:2]
+    pad = -C % CHUNK_CHANNELS
+    w = F.pad(w, (0, 0, 0, 0, 0, pad)) if pad else w
+    chunked = w.reshape(Co, -1, CHUNK_CHANNELS, *KERNEL).permute(0, 1, 3, 4, 2)
+    return chunked.to(torch.bfloat16, memory_format=torch.contiguous_format).view(Co, -1)
 
 
 def _check(x, w, b):
@@ -87,7 +117,8 @@ def _library():
 
 def _forward(x, w, b):
     """The plain version for CPU tensors; K4 for CUDA tensors (counted on
-    ``fused_complex_conv2d``), with ``w`` and ``b`` cast to x's dtype."""
+    ``fused_complex_conv2d``), with ``w`` in the kernel's layout and ``b``
+    cast to x's dtype."""
     if x.device.type == "cpu":
         return reference(x, w, b)
     B2, C, Fq, T = x.shape
@@ -95,7 +126,9 @@ def _forward(x, w, b):
     dt = x.dtype
     y = torch.empty((B2, Co, Fq // 2, T), device=x.device, dtype=dt)
     build.cuda_launch(_library(), f"se_complex_conv_fwd_{build.STREAM_FORMS[dt]}",
-                      (x, w.to(dt), b.to(dt)), ("x", "w", "b"), (y,), (B2, C, Fq, T, Co),
+                      (x, tensor_core_weights(w) if dt == torch.bfloat16 else ffma_weights(w),
+                       b.to(dt)),
+                      ("x", "w", "b"), (y,), (B2, C, Fq, T, Co),
                       x.device, (dt,) * 3)
     build.count_launch(fused_complex_conv2d, dt)
     return y

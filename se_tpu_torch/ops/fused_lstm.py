@@ -7,7 +7,8 @@ there, the plain call (inference) writes no cell-state stash; when an input
 needs a gradient, the call goes through a ``torch.autograd.Function`` whose
 forward also writes the stash ``cs`` and whose backward recomputes the
 gates from ``(x_proj, h_prev)``.  The kernels' design and what bounds them
-are described at the top of their source.
+are described at the top of their source; :func:`plan` picks the tiling
+of each launch.
 
 Two forms, as the Pallas kernel has: f32, and the bf16-stream form, in
 which ``x_proj``, ``ys``, their cotangent ``dys`` and the gradient
@@ -24,6 +25,46 @@ import ctypes
 import torch
 
 from . import build
+from .cluster_plan import ROW_QUANTUM, Plan
+from .cluster_plan import plan as _cluster_plan
+
+# K1's tilings, measured at DCCRN's shapes (T=483, L=2, H=128) on an H100
+# (PERF.md §6, ``kernels_ab.py``: every N in 2, 4, 8, 16 against every R in
+# 4, 8, 16, 20): the forward fastest on clusters of 8 CTAs, the backward on
+# 16, each in tiles of as few rows as keep every cluster of the launch on
+# the card at once; a launch of more clusters than fit runs in waves, each
+# a whole chain of T steps (16 CTAs in tiles of 4 rows: 3.77 ms forward
+# against 1.94 in tiles of 8).
+CTAS = {False: 8, True: 16}  # by backward
+# clusters of 8 and of 16 CTAs of these kernels that an H100 holds at once
+# (the occupancy query at DCCRN's tilings, PERF.md §6)
+CLUSTERS_AT_ONCE = {8: 15, 16: 7}
+
+
+def plan(L: int, Bb: int, H: int, backward: bool = False) -> Plan:
+    """The tiling of a K1 launch (forward, or the backward's reverse scan)
+    of ``L`` stacks over ``Bb`` rows of ``H`` units: K2's LSTM cluster
+    kernels without the input projection (:func:`cluster_plan.plan` at
+    ``In = 0``) on ``CTAS[backward]`` CTAs, in tiles of as few rows as keep
+    the launch's ``L`` x tiles clusters within ``CLUSTERS_AT_ONCE``."""
+    N = CTAS[backward]
+    tiles = max(1, CLUSTERS_AT_ONCE[N] // L)
+    rows = ROW_QUANTUM * -(-Bb // (ROW_QUANTUM * tiles))
+    return _cluster_plan(Bb, 0, H, backward, max_rows=rows, N=N)
+
+
+def active_clusters(L: int, Bb: int, H: int, backward: bool = False, device=None) -> int:
+    """How many clusters of :func:`plan`'s tiling fit on the CUDA ``device``
+    at once (the runtime's occupancy query; 0: none, and a launch raises)."""
+    p = plan(L, Bb, H, backward)
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    lib = _library()
+    n = lib.se_lstm_scan_active_clusters(int(backward), H, p.R, p.N, p.C, int(p.resident), index)
+    if n < 0:
+        msg = lib.se_cuda_error_string(-n).decode()
+        raise RuntimeError(f"K1 occupancy query failed: CUDA error {-n} ({msg})")
+    return n
 
 
 def _reference_forward(x_proj, w_hh_t, h0, c0, need_cs):
@@ -117,12 +158,15 @@ def _library():
         for form in build.STREAM_FORMS.values():
             fwd = getattr(lib, f"se_lstm_scan_fwd_{form}")
             bwd = getattr(lib, f"se_lstm_scan_bwd_{form}")
-            fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            # dims (T, L, Bb, H), the tiling (R, N, C, resident), device
+            fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
             # the bf16 form takes the f32 dgates scratch after dc0; both
-            # the reductions' workspace last, and its size after H
-            n_ptr = 14 if form == "f32" else 15
-            bwd.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            # the reductions' workspace last, and its size after the tiling
+            n_ptr = 15 if form == "f32" else 16
+            bwd.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 10 + [ctypes.c_void_p]
             fwd.restype = bwd.restype = ctypes.c_int
+        lib.se_lstm_scan_active_clusters.argtypes = [ctypes.c_int] * 7
+        lib.se_lstm_scan_active_clusters.restype = ctypes.c_int
     return lib
 
 
@@ -141,8 +185,8 @@ def _forward(x_proj, w_hh_t, h0, c0, need_cs):
     cs = new(T, L, Bb, H) if need_cs else None
     build.cuda_launch(
         _library(), f"se_lstm_scan_fwd_{build.STREAM_FORMS[sdt]}", (x_proj, w_hh_t, h0, c0),
-        ("x_proj", "w_hh_t", "h0", "c0"), (ys, cs, hT, cT), (T, L, Bb, H), dev,
-        (sdt, f32, f32, f32),
+        ("x_proj", "w_hh_t", "h0", "c0"), (ys, cs, hT, cT),
+        (T, L, Bb, H, *plan(L, Bb, H).args()), dev, (sdt, f32, f32, f32),
     )
     build.count_launch(fused_lstm_scan, sdt)
     return ys, cs, hT, cT
@@ -153,8 +197,8 @@ def fused_lstm_scan_backward(x_proj, w_hh_t, h0, c0, ys, cs, dys, dhT, dcT):
     :func:`fused_lstm_scan_backward_reference`.
 
     CPU tensors run the plain version.  CUDA tensors launch the backward
-    kernels (the reverse scan, then the dW_hh reduction) on the current
-    stream, or raise: contiguous only; x_proj, ys and dys all float32 or
+    kernels (the reverse scan on :func:`plan`'s tiling, then the dW_hh
+    reduction) on the current stream, or raise: contiguous only; x_proj, ys and dys all float32 or
     all bfloat16 (then dx_proj is bfloat16 too), the rest float32.  Each
     launch adds one to ``fused_lstm_scan_backward.launches`` (f32) or
     ``.launches_bf16``.
@@ -181,12 +225,16 @@ def fused_lstm_scan_backward(x_proj, w_hh_t, h0, c0, ys, cs, dys, dhT, dcT):
     dw, dh0, dc0 = new(L, H, G), new(L, Bb, H), new(L, Bb, H)
     # the bf16 form sums dW_hh from f32 dgates kept in a scratch buffer
     outs = (dxp, dw, dh0, dc0) + ((new(T, L, Bb, G),) if sdt == torch.bfloat16 else ())
+    p = plan(L, Bb, H, backward=True)
+    # a streamed slice reads W_hh along k: its transpose [L, 4H, H]
+    w_hh = w_hh_t if p.resident else w_hh_t.transpose(1, 2).contiguous()
     build.cuda_launch(
         _library(), f"se_lstm_scan_bwd_{build.STREAM_FORMS[sdt]}",
-        (x_proj, w_hh_t, h0, c0, ys, cs, dys, dhT, dcT),
-        ("x_proj", "w_hh_t", "h0", "c0", "ys", "cs", "dys", "dhT", "dcT"),
-        (*outs, build.dw_workspace(dev)), (T, L, Bb, H, build.DW_WORKSPACE_FLOATS), dev,
-        (sdt, f32, f32, f32, sdt, f32, sdt, f32, f32),
+        (x_proj, w_hh_t, w_hh, h0, c0, ys, cs, dys, dhT, dcT),
+        ("x_proj", "w_hh_t", "w_hh", "h0", "c0", "ys", "cs", "dys", "dhT", "dcT"),
+        (*outs, build.dw_workspace(dev)),
+        (T, L, Bb, H, *p.args(), build.DW_WORKSPACE_FLOATS), dev,
+        (sdt, f32, f32, f32, f32, sdt, f32, sdt, f32, f32),
     )
     build.count_launch(fused_lstm_scan_backward, sdt)
     return dxp, dw, dh0, dc0

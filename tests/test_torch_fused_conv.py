@@ -105,6 +105,46 @@ def test_odd_f_and_other_geometries_raise():
         fused_complex_conv2d(x, w[:, :2].contiguous(), b)
 
 
+def _chunked_conv(x, wp, b):
+    """The bf16 kernel's GEMM written out in f32 torch: the im2col rows in
+    its order, chunks of 8 channels, each chunk tap by tap (row 80 (c // 8)
+    + 8 (2 kf + kt) + c % 8, zero past C), against the rows of
+    ``tensor_core_weights``, + b."""
+    B2, C, Fq, T = x.shape
+    Co, Kp = wp.shape
+    chunks = Kp // 80
+    xp = torch.nn.functional.pad(x, (1, 0, 2, 2, 0, 8 * chunks - C))  # frame -1, padding 2, channels
+    taps = [xp[:, :, kf : kf + Fq : 2, kt : kt + T] for kf in range(5) for kt in range(2)]
+    a = torch.stack(taps, 1).reshape(B2, 10, chunks, 8, Fq // 2 * T).transpose(1, 2)
+    y = torch.einsum("bkm,ok->bom", a.reshape(B2, Kp, -1), wp.float()) + b[None, :, None]
+    return y.reshape(B2, Co, Fq // 2, T)
+
+
+@pytest.mark.parametrize("C", [1, 3, 8, 20])
+def test_kernel_weight_layouts_give_the_conv(C):
+    """The kernels' weight layouts: the f32 kernel's ``wt [10 C, Cop]``, w's
+    rows as columns, zero to Cop = Co rounded up to 4 (16-byte rows); the
+    bf16 kernel's ``[Co, 10 Cp]`` bf16, Cp = C rounded up to 8, in chunks of
+    8 channels tap by tap (160-byte rows a chunk), zeros past C; the latter
+    multiplied with the im2col rows in the same order gives the conv (atol
+    1e-5 on bf16-exact weights)."""
+    rng = np.random.default_rng(5)
+    Co = 5
+    x, w, b = map(torch.from_numpy, _case(rng, 2, C, 12, 9, Co))
+    w = w.to(torch.bfloat16).float()
+    wt = fused_conv.ffma_weights(w)
+    assert wt.dtype == torch.float32 and wt.shape == (10 * C, 8) and wt.is_contiguous()
+    assert torch.equal(wt[:, :Co], w.reshape(Co, -1).t()) and not wt[:, Co:].any()
+    wp = fused_conv.tensor_core_weights(w)
+    Cp = -(-C // 8) * 8
+    assert wp.dtype == torch.bfloat16 and wp.shape == (Co, 10 * Cp) and wp.is_contiguous()
+    rows = wp.float().view(Co, Cp // 8, 5, 2, 8)  # [o][chunk][kf][kt][channel]
+    want = torch.nn.functional.pad(w, (0, 0, 0, 0, 0, Cp - C)).view(Co, Cp // 8, 8, 5, 2)
+    assert torch.equal(rows, want.permute(0, 1, 3, 4, 2))
+    torch.testing.assert_close(_chunked_conv(x, wp, b), fused_conv.reference(x, w, b),
+                               atol=1e-5, rtol=0)
+
+
 # --- the tiny DCCRN with use_pallas_conv=True ------------------------------
 
 
