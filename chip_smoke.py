@@ -71,7 +71,13 @@ in order; any failure ends the run with a nonzero exit and no result line:
    ones (no CLI takes that switch; bf16 paths with ``--compute-dtype
    bfloat16``), all started at once after the timed phases, each output
    held to the same weights in process;
-7. report: one JSON line of kernel numbers, then the result line.
+7. the train CLI, ``python -m se_tpu_torch.train_interface``, for the
+   default DCCRN at full width: 2 epochs at ``--batch 4`` on 8 training and
+   4 validation utterances of 3 s with the numpy PESQ/STOI, in process
+   (K1f and K1b launch counts, the run directory, the scores), a resume of
+   its epoch 1 in a subprocess held to its epoch 2, and ``Epoch_1_SCORES``
+   held to a recomputation from ``chkpt_1.pt``;
+8. report: one JSON line of kernel numbers, then the result line.
 
 TF32 is off throughout (``resolve_device`` sets it, and keeps cuBLAS's bf16
 products reducing in f32): the reference is f32, or bf16 where it says so.
@@ -155,6 +161,27 @@ BF16_STATS_TOL = 2e-3  # running statistics, absolute; measured 6.7e-4
 # of the waveform: the JAX package's own gate
 # (tests/test_model_variants.py::test_dccrn_bf16_compute_close_to_f32)
 BF16_VS_F32_MEAN = 5e-3
+# The train CLI (phase 7): a resumed run's epoch 2 against the uninterrupted
+# run's.  Both start epoch 2 from the same chkpt_1.pt, so they differ only by
+# cuDNN's nondeterministic convolution weight gradients over two steps; the
+# conv biases that feed a BatchNorm have roundoff gradients, whose sign Adam
+# turns into a step of about lr, so they (and those BatchNorms' running
+# means, which take them in) are held to Adam's bound for the two steps,
+# 2 lr (sqrt(3) + sqrt(4)); every other leaf of chkpt_2.pt (parameters,
+# buffers, Adam's moments) to RESUME_LEAF_TOL of its max, and the epoch-2
+# validation loss, which sees the biases in eval mode, to RESUME_LOSS_TOL
+# relative.  Each limit lies between the sound resumes' largest reading and
+# the smallest of two planted faults (resume_faults.py): Adam's state
+# dropped on restore, and epoch 1's batches replayed.  Each PESQ and STOI of
+# Epoch_1_SCORES is held to a recomputation from chkpt_1.pt at the file's 6
+# decimals.
+TRAIN_CLI_BATCH = 4
+# sound: 1.59e-4 to 3.64e-3 in 7 resumes (Adam moments of conv weights);
+# faults: 2.32 (Adam's state dropped), 2.70 (batches replayed)
+RESUME_LEAF_TOL = 2e-2
+# sound: 2.15e-5 to 4.78e-4 in 7 resumes; faults: 3.58e-2, 4.04e-2
+RESUME_LOSS_TOL = 2e-3
+SCORES_TOL = 1e-6
 
 
 def _max_err(a, b) -> float:
@@ -1995,6 +2022,165 @@ def _check_cli(run_dir: Path, label: str, cfg, sd, cli_args, lengths: dict):
     assert worst_batch <= CLI_TOL and worst_single <= single_tol, (worst_batch, worst_single)
 
 
+def _train_cli_data(workdir: Path, device: str, fs: int) -> tuple:
+    """Phase 7's data, 8 training and 4 validation utterances of 3 s
+    (``_utterances``, from SEED) written to ``workdir`` as ``[N, 2, T]``
+    files -> (the train CLI's arguments for 2 epochs at TRAIN_CLI_BATCH,
+    the validation array)."""
+    noisy, clean = _utterances(12, 3, fs)
+    for name, rows in (("train", slice(0, 8)), ("valid", slice(8, 12))):
+        np.save(workdir / f"{name}.npy", np.stack([noisy[rows], clean[rows]], 1))
+    common = ["--train-data", str(workdir / "train.npy"), "--valid-data",
+              str(workdir / "valid.npy"), "--batch", str(TRAIN_CLI_BATCH), "--max-epochs", "2",
+              "--job-dir", str(workdir / "models"), "--logs-dir", str(workdir / "logs"),
+              "--device", device]
+    return common, np.load(workdir / "valid.npy")
+
+
+def _resume_copy(run: Path, suffix: str = "resumed") -> Path:
+    """A copy of the run directory ``run`` as it stood after epoch 1."""
+    copy = run.with_name(f"{run.name}_{suffix}")
+    copy.mkdir()
+    for name in ("log.txt", "chkpt_1.pt", "Epoch_1_SCORES"):
+        (copy / name).write_bytes((run / name).read_bytes())
+    mse = np.load(run / "mse_vali_total.npy")
+    np.save(copy / "mse_vali_total.npy", np.array([mse[0], 0.0]))
+    return copy
+
+
+def _resume_readings(run: Path, copy: Path, param_names: list, lr: float) -> dict:
+    """The resumed run in ``copy`` against the uninterrupted ``run`` at epoch
+    2: ``rel``, each leaf of ``chkpt_2.pt`` (parameter or buffer, Adam's
+    moments) but the BatchNorm-cancelled ones, its max |difference| over its
+    max; ``near``, those, absolute, against ``bound``; ``loss``, the epoch-2
+    validation loss's relative difference; ``epoch``, the resumed blob's."""
+    got = torch.load(copy / "chkpt_2.pt", map_location="cpu", weights_only=True)
+    want = torch.load(run / "chkpt_2.pt", map_location="cpu", weights_only=True)
+    # leaves by the name of the parameter or buffer they belong to: Adam's
+    # state is keyed by the parameter's index in model.parameters()
+    cancelled = _cancelled_by_batch_norm(want["model"])
+    apart = cancelled | {k.rsplit(".", 3)[0] + ".1.running_mean" for k in cancelled}
+    leaves = {(k, "value"): (v, got["model"][k]) for k, v in want["model"].items()
+              if v.is_floating_point()}
+    for i, st in want["optimizer"]["state"].items():
+        leaves.update({(param_names[i], k): (v, got["optimizer"]["state"][i][k])
+                       for k, v in st.items() if torch.is_tensor(v)})
+    mse, mse_resumed = np.load(run / "mse_vali_total.npy"), np.load(copy / "mse_vali_total.npy")
+    return dict(
+        rel={f"{k} {what}": _max_err(a, b) / max(a.abs().max().item(), 1e-30)
+             for (k, what), (a, b) in leaves.items() if k not in apart},
+        near={f"{k} {what}": _max_err(a, b) for (k, what), (a, b) in leaves.items()
+              if k in apart},
+        bound=2 * lr * (3 ** 0.5 + 4 ** 0.5), epoch=got["epoch"],
+        loss=abs(mse_resumed[1] - mse[1]) / abs(mse[1]), losses=(mse_resumed[1], mse[1]))
+
+
+def _resume_summary(r: dict) -> str:
+    worst = sorted(r["rel"].items(), key=lambda kv: -kv[1])[:4]
+    return (f"epoch {r['epoch']}; {len(r['rel'])} leaves, worst over the leaf's max "
+            + ", ".join(f"{k} {v:.3g}" for k, v in worst) + f" (tolerance {RESUME_LEAF_TOL}); "
+            f"{len(r['near'])} leaves of the BatchNorm-cancelled biases (with their Adam "
+            f"moments) and their running means, worst {max(r['near'].values()):.3g} "
+            f"(tolerance {r['bound']:.3g}); epoch-2 validation loss {r['losses'][0]} against "
+            f"{r['losses'][1]}: relative {r['loss']:.3g} (tolerance {RESUME_LOSS_TOL})")
+
+
+def phase_train_cli(workdir: Path, device="cuda") -> None:
+    """The train CLI on the card for the default ``Config`` at full width:
+    ``_train_cli_data``'s utterances, ``--batch 4 --max-epochs 2``, real
+    numpy PESQ/STOI.  (1) ``train_interface.main`` in this process, every
+    count set to 0 just before and read just after: K1f 2 x (4 train steps +
+    2 validation batches), K1b 2 x 4, nothing else; the run's artifacts and
+    scores.  (2) A resume of a copy of the run directory as it stood after
+    epoch 1, in a subprocess, held to the uninterrupted run's epoch 2.
+    (3) ``Epoch_1_SCORES`` against ``eval_step`` on ``chkpt_1.pt`` in a fresh
+    model, scored by ``cal_pesq``/``cal_stoi``.  Every number is printed
+    before any is checked."""
+    from se_tpu_torch import train_interface
+    from se_tpu_torch.config import Config
+    from se_tpu_torch.eval.metrics import cal_pesq, cal_stoi
+    from se_tpu_torch.train.loop import score_workers
+    from se_tpu_torch.train.state import create_train_state
+    from se_tpu_torch.train.steps import eval_step
+
+    t0 = time.perf_counter()
+    cfg = Config()
+    fs, batch = cfg.stft.fs, TRAIN_CLI_BATCH
+    common, valid = _train_cli_data(workdir, device, fs)
+
+    # (1) the uninterrupted run
+    _zero_counts()
+    trainer = train_interface.main(common)
+    torch.cuda.synchronize()
+    launches = _counts()
+    run = Path(trainer.dir_to_save)
+    hist = trainer.history
+    steps = sum(h["steps"] for h in hist)
+    expected = _expected({"K1f": cfg.dccrn.rnn_layers}, steps + 2)
+    expected["K1b"] = cfg.dccrn.rnn_layers * steps
+    print(f"[train-cli] 2 epochs of {steps // 2} steps at B={batch} and 1 validation batch: "
+          f"launches {launches}")
+    print("[train-cli] epochs: " + "; ".join(
+        f"{h['epoch']}: train loss {h['train_loss']}, validation loss {h['valid_loss']}, "
+        f"PESQ {h['pesq']}, STOI {h['stoi']}" for h in hist))
+    scores = {e: np.array([[float(v) for v in line.replace("PESQ", "").split("| STOI")]
+                           for line in (run / f"Epoch_{e}_SCORES").read_text().splitlines()])
+              for e in (1, 2)}
+
+    # (2) the resume, from a copy of the run directory as it stood after epoch 1
+    copy = _resume_copy(run)
+    proc = subprocess.Popen([sys.executable, "-m", "se_tpu_torch.train_interface", *common,
+                             "--chkpt-model", copy.name, "--chkpt", "1"],
+                            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        # (3) meanwhile, epoch 1's scores again from chkpt_1.pt
+        t_score = time.perf_counter()
+        blob = torch.load(run / "chkpt_1.pt", map_location="cpu", weights_only=True)
+        model, _ = create_train_state(cfg, blob["model"], device=device)
+        ests = [eval_step(cfg, model, valid[i : i + batch, 0], valid[i : i + batch, 1])[1]
+                .float().cpu().numpy() for i in range(0, len(valid), batch)]
+        est = np.concatenate(ests)
+        workers = score_workers(batch)
+        again = np.stack([cal_pesq(est, valid[:, 1], fs, workers=workers),
+                          cal_stoi(est, valid[:, 1], fs, workers=workers)], 1)
+        rescore_s = time.perf_counter() - t_score
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    print(stdout.strip().splitlines()[-3:])
+    assert proc.returncode == 0, stderr[-3000:]
+    r = _resume_readings(run, copy, [k for k, _ in model.named_parameters()],
+                         cfg.train.learning_rate)
+    print(f"[train-cli] resume, chkpt_2.pt against the uninterrupted run's: {_resume_summary(r)}")
+    score_err = np.abs(again - scores[1]).max()
+    print(f"[train-cli] Epoch_1_SCORES against chkpt_1.pt rescored in process: max |diff| "
+          f"{score_err:.3g} (tolerance {SCORES_TOL}); {again.tolist()}")
+    wall = time.perf_counter() - t0
+    train_s = sum(h["train_seconds"] for h in hist)
+    per_epoch = ", ".join(f"epoch {h['epoch']} {1e3 * h['train_seconds'] / h['steps']:.3f}"
+                          for h in hist)
+    score_s = " + ".join(f"{h['score_seconds']:.2f}" for h in hist)
+    print(f"[train-cli] phase {wall:.1f} s; training {1e3 * train_s / steps:.3f} ms per step "
+          f"over {steps} steps ({per_epoch}; epoch wall time over its steps, the first with "
+          f"cuDNN's warm-up); scoring {score_s} s in the 2 epochs; rescoring with the "
+          f"checkpoint's forward {rescore_s:.2f} s")
+
+    assert launches == expected, (launches, expected)
+    assert all(np.isfinite([h["train_loss"], h["valid_loss"]]).all() for h in hist), hist
+    assert {"log.txt", "chkpt_1.pt", "chkpt_2.pt", "chkpt_opt.pt", "mse_vali_total.npy",
+            "Epoch_1_SCORES", "Epoch_2_SCORES"} <= {p.name for p in run.iterdir()}
+    for e, sc in scores.items():
+        assert sc.shape == (len(valid), 2), (e, sc)
+        assert np.isfinite(sc).all() and (sc[:, 0] >= 1.0).all() and (sc[:, 0] <= 4.64).all(), sc
+        assert (sc[:, 1] >= 0.0).all() and (sc[:, 1] <= 1.0).all(), sc
+    assert r["epoch"] == 2 and r["rel"] and r["near"]
+    assert max(r["rel"].values()) <= RESUME_LEAF_TOL and max(r["near"].values()) <= r["bound"]
+    assert r["loss"] <= RESUME_LOSS_TOL, r["loss"]
+    assert score_err <= SCORES_TOL, score_err
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -2061,9 +2247,19 @@ def main() -> int:
     stamp("train")
     build_dir = REPO / "build"
     build_dir.mkdir(exist_ok=True)
+    # the train CLI's scoring workers (phase 7; Trainer.setup finds them
+    # running) start now, after every timed phase: each spawned interpreter
+    # imports this script, torch with it, and scipy while phase 6 runs
+    from se_tpu_torch.eval.metrics import start_pool
+    from se_tpu_torch.train.loop import score_workers
+
+    start_pool(score_workers(TRAIN_CLI_BATCH))
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         phase_cli(Path(tmp), paths)
     stamp("CLI")
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        phase_train_cli(Path(tmp))
+    stamp("train CLI")
 
     k2_paths = ("CRN", "DCCRN-real", "FullSubNet")
     k1_paths = ("DCCRN", "DCCRN-fused-conv")

@@ -152,3 +152,27 @@ class Config:
 
     def replace(self, **kwargs) -> "Config":
         return dataclasses.replace(self, **kwargs)
+
+    def banner(self) -> str:
+        """The run's configuration banner, as the JAX package prints it."""
+        lines = [
+            "--------------------  C  O  N  F  I  G  ----------------------",
+            "--------------------------------------------------------------",
+            f"MODEL INFO : {self.model}",
+            f"LOSS INFO : {self.loss}, perceptual : {self.perceptual}",
+        ]
+        if self.model != "FullSubNet":
+            lines += [
+                f"LSTM : {self.lstm}",
+                f"SKIP : {self.skip_type}",
+                f"MASKING INFO : {self.masking_mode}",
+            ]
+        else:
+            lines += [f"Main network : {self.sequence_model}"]
+        lines += [
+            f"\nBATCH : {self.train.batch}",
+            f"LEARNING RATE : {self.train.learning_rate}",
+            "--------------------------------------------------------------",
+            "--------------------------------------------------------------\n",
+        ]
+        return "\n".join(lines)

@@ -1,0 +1,75 @@
+"""Objective-metric checker CLI (counterpart of
+``se_tpu/eval/check_object_metrics.py``; reference:
+estimation/check_object_metrics.py), printing PESQ and STOI.
+
+Usage:
+    python -m se_tpu_torch.eval.check_object_metrics clean.wav enhanced.wav
+    python -m se_tpu_torch.eval.check_object_metrics --dir targets/ estimates/
+
+The composite measures (CSIG, CBAK, COVL, segSNR) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import numpy as np
+
+from ..data.wav import read_wav
+from .metrics import run_pesq_waveforms
+from .stoi import stoi
+
+
+def check_pair(clean_path: str, estimated_path: str):
+    """PESQ and STOI of one estimate against its target, both cut to the
+    shorter length."""
+    clean, fs = read_wav(clean_path)
+    est, fs2 = read_wav(estimated_path)
+    if fs != fs2:
+        raise ValueError(f"sample rates differ: {clean_path} {fs} Hz, {estimated_path} {fs2} Hz")
+    n = min(len(clean), len(est))
+    clean, est = clean[:n], est[:n]
+    pesq_score = run_pesq_waveforms(est, clean, fs)
+    stoi_score = stoi(clean, est, fs, extended=False)
+    print(f"{os.path.basename(estimated_path)}: PESQ {pesq_score:.4f} | STOI {stoi_score:.4f}")
+    return pesq_score, stoi_score
+
+
+def check_dirs(target_dir: str, estimated_dir: str):
+    """Score matching pairs: a target file ``X`` against the estimate whose
+    name replaces 'target' with 'estimated', or has the same name."""
+    results = []
+    for name in sorted(os.listdir(target_dir)):
+        if not name.endswith(".wav"):
+            continue
+        est_path = os.path.join(estimated_dir, name.replace("target", "estimated"))
+        if not os.path.exists(est_path):
+            est_path = os.path.join(estimated_dir, name)
+        if not os.path.exists(est_path):
+            print(f"skip {name}: no matching estimate")
+            continue
+        results.append(check_pair(os.path.join(target_dir, name), est_path))
+    if results:
+        mean = np.asarray(results).mean(axis=0)
+        print(f"\nMEAN: PESQ {mean[0]:.4f} | STOI {mean[1]:.4f}")
+    return results
+
+
+def main(argv=None):
+    argv = argv if argv is not None else sys.argv[1:]
+    if argv and argv[0] == "--dir":
+        if len(argv) != 3:
+            print(__doc__)
+            raise SystemExit("--dir needs TARGET_DIR and ESTIMATED_DIR")
+        check_dirs(argv[1], argv[2])
+    elif len(argv) == 2:
+        check_pair(argv[0], argv[1])
+    else:
+        print(__doc__)
+        if argv:
+            raise SystemExit("expected: CLEAN.wav ENHANCED.wav")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,1067 @@
+"""PESQ — ITU-T P.862.2 (wideband, 16 kHz) in pure numpy: a copy of
+``se_tpu/eval/pesq_np.py``.
+
+An independent implementation of the published Recommendation: level
+alignment, input filtering, voice-activity detection, two-stage time
+alignment, the 49-band bark psychoacoustic model, and the wideband
+MOS-LQO mapping.  Validated end-to-end against the reference oracle
+binary (reference: PESQ.so, called per tools_for_estimate.py:51-75).
+
+Constants are the published P.862 tables (``p862_tables.py``).  The JAX
+package also builds a C++ port of this module (native/pesq/pesq.cc) for
+its validation loop; the PyTorch port scores with this module alone.
+
+Implements the COMPLETE P.862 utterance machinery: id_searchwindows,
+per-utterance crude + histogram time alignment, id_utterances, recursive
+utterance_split, the signal-repetition frame amnesty, and the
+bad-interval reprocessing chain.
+
+Validation status vs the ITU oracle binary (tools/pesq_oracle_battery.py):
+max |diff| 0.0001 MOS over the whole battery (fuzzed across battery
+seeds; the one outlier ever observed is scoring two UNRELATED signals,
+where the noise-peak alignment is float32-sensitive — 0.0094, still
+inside the +-0.01 gate) — identical/gain-scaled
+pairs, noise at any SNR, spectral shaping, clipping, gain modulation,
+bulk shifts up to +-200 ms, multi-utterance signals, piecewise and
+decreasing delays, and even two unrelated signals scored against each
+other.  Key behaviours were decoded from the oracle binary's machine
+code where the published Recommendation text is ambiguous: the wideband
+model path applies a 15-sample edge taper and NO DC block; the alignment
+path filters the whole padded buffer; split_align requires the halves'
+delays to differ by >= one downsample window and maximises the SUM of
+confidences; the bad-interval reprocessing retimes per-sample with
+clamped reads and re-runs the 0.2/0.8 gain smoothing per interval.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from . import p862_tables as T
+
+FS = 16000
+DOWNSAMPLE = T.DOWNSAMPLE  # 64
+NB = T.NB  # 49
+SEARCHBUFFER = 75
+DATAPADDING_MSECS = 320
+ALIGN_NFFT = T.ALIGN_NFFT  # 1024
+NF = DOWNSAMPLE * 8  # 512 analysis window
+TARGET_POWER = 1e7
+
+SP = 6.910853e-006  # Sp, 16 kHz model
+SL = 1.866055e-001  # Sl, 16 kHz model
+
+ABS_THRESH = np.asarray(T.ABS_THRESH_POWER)
+POW_CORR = np.asarray(T.POW_DENS_CORRECTION_FACTOR)
+WIDTH_BARK = np.asarray(T.WIDTH_OF_BAND_BARK)
+CENTRE_BARK = np.asarray(T.CENTRE_OF_BAND_BARK)
+NR_HZ_BANDS = np.asarray(T.NR_OF_HZ_BANDS_PER_BARK_BAND)
+ALIGN_FILTER_DB = np.asarray(T.ALIGN_FILTER_DB)
+WB_IIR = np.asarray(T.WB_IN_IIR_HSOS[0])
+STD_IIR = np.asarray(T.STD_IN_IIR_HSOS_16K)
+
+
+def _datapadding_samples() -> int:
+    return DATAPADDING_MSECS * (FS // 1000)
+
+
+def _pad_signal(x: np.ndarray) -> np.ndarray:
+    buf = SEARCHBUFFER * DOWNSAMPLE
+    return np.concatenate(
+        [np.zeros(buf), x, np.zeros(buf + _datapadding_samples())]
+    )
+
+
+def _pow_of(x: np.ndarray, start: int, end: int, divisor: int) -> float:
+    return float(np.sum(x[start:end] ** 2) / divisor)
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def _apply_filter_db(x: np.ndarray, nsamples: int, filt: np.ndarray) -> np.ndarray:
+    """FFT-domain piecewise-linear dB filter over the active region."""
+    buf = SEARCHBUFFER * DOWNSAMPLE
+    n = nsamples - 2 * buf + _datapadding_samples()
+    pow2 = _next_pow2(n)
+    seg = np.zeros(pow2)
+    seg[:n] = x[buf : buf + n]
+    X = np.fft.rfft(seg)
+    freqs = np.arange(len(X)) * float(FS) / pow2
+    gains_db = np.interp(freqs, filt[:, 0], filt[:, 1])
+    X *= 10.0 ** (gains_db / 20.0)
+    out = x.copy()
+    out[buf : buf + n] = np.fft.irfft(X, n=pow2)[:n]
+    return out
+
+
+def fix_power_level(x: np.ndarray, nsamples: int) -> np.ndarray:
+    """Scale to TARGET_POWER measured above ~300 Hz (P.862 level align)."""
+    buf = SEARCHBUFFER * DOWNSAMPLE
+    filtered = _apply_filter_db(x, nsamples, ALIGN_FILTER_DB)
+    dp = _datapadding_samples()
+    power = _pow_of(
+        filtered, buf, nsamples - buf + dp, nsamples - 2 * buf + dp
+    )
+    return x * np.sqrt(TARGET_POWER / power)
+
+
+def _taper_and_wb_filter(x: np.ndarray, nsamples: int) -> np.ndarray:
+    """P.862.2 wideband model-path input filtering: zero the samples just
+    outside the active region, apply a 15-sample linear fade at each edge
+    of the active region, then run the single-section wideband IIR over
+    exactly [buf, nsamples - buf) (decoded from the oracle's
+    pesq_measure; the search buffers and datapadding are untouched)."""
+    buf = SEARCHBUFFER * DOWNSAMPLE
+    out = x.copy()
+    out[buf - 1] = 0.0
+    out[nsamples - buf] = 0.0
+    ramp = (np.arange(15) + 1) / 16.0
+    out[buf : buf + 15] *= ramp
+    out[nsamples - buf - 15 : nsamples - buf] *= ramp[::-1]
+    out[buf : nsamples - buf] = _iir_sos(out[buf : nsamples - buf], WB_IIR)
+    return out
+
+
+def _iir_sos(x: np.ndarray, sos: np.ndarray) -> np.ndarray:
+    """Biquad sections h = [b0, b1, b2, a1, a2]."""
+    from scipy.signal import lfilter
+
+    y = x
+    for sec in np.atleast_2d(sos):
+        b = np.array([sec[0], sec[1], sec[2]])
+        a = np.array([1.0, sec[3], sec[4]])
+        y = lfilter(b, a, y)
+    return y
+
+
+def dc_block(x: np.ndarray, nsamples: int) -> np.ndarray:
+    buf = SEARCHBUFFER * DOWNSAMPLE
+    out = x.copy()
+    region = slice(buf, nsamples - buf)
+    facc = np.sum(x[region]) / (nsamples - 2 * buf)
+    out[region] = x[region] - facc
+    ramp = (np.arange(DOWNSAMPLE) + 0.5) / DOWNSAMPLE
+    out[buf : buf + DOWNSAMPLE] *= ramp
+    out[nsamples - buf - DOWNSAMPLE : nsamples - buf] *= ramp[::-1]
+    return out
+
+
+def apply_vad(x: np.ndarray, nsamples: int):
+    """Frame-power VAD -> (VAD, logVAD) (P.862 apply_VAD)."""
+    nwin = nsamples // DOWNSAMPLE
+    frames = x[: nwin * DOWNSAMPLE].reshape(nwin, DOWNSAMPLE)
+    vad = np.sum(frames**2, axis=1) / DOWNSAMPLE
+
+    level_thresh = float(np.mean(vad))
+    level_min = float(np.max(vad)) * 1.0e-4
+    clamped = level_min > 0
+    if clamped:
+        vad = np.maximum(vad, level_min)
+    else:
+        level_min = 1.0
+
+    # iterative noise-floor refinement: threshold = noise mean + 2 sigma
+    # (verified against the oracle binary's apply_VAD on noisy signals)
+    for _ in range(12):
+        below = vad[vad <= level_thresh]
+        if len(below) == 0:
+            break
+        mu = float(np.mean(below))
+        sd = float(np.sqrt(max(np.mean(below**2) - mu * mu, 0.0)))
+        new_thresh = mu + 2.0 * sd
+        if abs(level_thresh - new_thresh) < 1e-12 * level_thresh:
+            break
+        level_thresh = new_thresh
+    # in exact arithmetic the refined threshold can never fall below the
+    # clamp floor (every member of the below-population is >= level_min);
+    # enforce it so float rounding can't flip clamped-silent windows active
+    if clamped:
+        level_thresh = max(level_thresh, level_min)
+
+    # activity smoothing (verified window-exact against the oracle binary's
+    # apply_VAD via tools/pesq_oracle_introspect.py):
+    #  1. drop active runs shorter than 5 windows,
+    #  2. join inactive gaps of <= MINUTTLENGTH (50) windows between
+    #     surviving runs,
+    #  3. extend every remaining run edge outward by two windows at 0.3x
+    #     and 0.1x the boundary window's level.
+    active = vad > level_thresh
+
+    def _runs(mask, value):
+        out, i = [], 0
+        while i < nwin:
+            if mask[i] == value:
+                j = i
+                while j < nwin and mask[j] == value:
+                    j += 1
+                out.append((i, j))
+                i = j
+            else:
+                i += 1
+        return out
+
+    for s, e in _runs(active, True):
+        if e - s < 5:
+            active[s:e] = False
+    pos = _runs(active, True)
+    for k in range(1, len(pos)):
+        gap_s, gap_e = pos[k - 1][1], pos[k][0]
+        if gap_e - gap_s <= 50:
+            active[gap_s:gap_e] = True
+
+    vad_out = vad.copy()
+    for s, e in _runs(active, True):
+        if s - 1 >= 0:
+            vad_out[s - 1] = 0.3 * vad[s]
+            active[s - 1] = True
+        if s - 2 >= 0:
+            vad_out[s - 2] = 0.1 * vad[s]
+            active[s - 2] = True
+        if e < nwin:
+            vad_out[e] = 0.3 * vad[e - 1]
+            active[e] = True
+        if e + 1 < nwin:
+            vad_out[e + 1] = 0.1 * vad[e - 1]
+            active[e + 1] = True
+
+    vad = np.where(active, vad_out, 0.0)
+    logvad = np.where(
+        vad > level_thresh,
+        np.log(np.maximum(vad / level_thresh, 1e-30)),
+        0.0,
+    )
+    return vad, logvad
+
+
+def _fft_nx_corr(x1: np.ndarray, x2: np.ndarray) -> np.ndarray:
+    """Full linear cross-correlation (P.862 FFTNXCorr):
+    Y[i] = sum_j x1[j] * x2[i - (n1 - 1) + j], i in [0, n1 + n2 - 1)."""
+    n1, n2 = len(x1), len(x2)
+    pow2 = _next_pow2(n1 + n2 - 1)
+    X1 = np.fft.rfft(x1[::-1], pow2)
+    X2 = np.fft.rfft(x2, pow2)
+    return np.fft.irfft(X1 * X2, pow2)[: n1 + n2 - 1]
+
+
+def crude_align(log_vad_ref: np.ndarray, log_vad_deg: np.ndarray) -> int:
+    """Whole-signal crude delay estimate via logVAD cross-correlation.
+
+    Returns the delay estimate in samples (positive = deg delayed).
+    """
+    y = _fft_nx_corr(log_vad_ref, log_vad_deg)
+    best = int(np.argmax(y))
+    if y[best] <= 0.0:
+        return 0
+    return (best - (len(log_vad_ref) - 1)) * DOWNSAMPLE
+
+
+def crude_subalign(log_vad_ref, log_vad_deg, startr, nr, startd, nd) -> int:
+    """Per-utterance crude align over a search window (P.862 crude_align
+    with an utterance id): returns the delay in samples RELATIVE to the
+    startd offset already applied."""
+    if nr <= 1 or nd <= 1:
+        return 0
+    y = _fft_nx_corr(
+        log_vad_ref[startr : startr + nr], log_vad_deg[startd : startd + nd]
+    )
+    best = int(np.argmax(y))
+    if y[best] <= 0.0:
+        return 0
+    return (best - (nr - 1)) * DOWNSAMPLE
+
+
+def time_align(ref, deg, deg_nsamples, sw_start_w, sw_end_w, estdelay):
+    """P.862 time_align: histogram of windowed cross-correlation peaks over
+    the utterance search window.  Returns (delay, confidence)."""
+    N = ALIGN_NFFT
+    window = 0.5 * (1.0 - np.cos(2.0 * np.pi * np.arange(N) / N))
+    H = np.zeros(N)
+
+    startr = sw_start_w * DOWNSAMPLE
+    startd = startr + estdelay
+    if startd < 0:
+        startr = -estdelay
+        startd = 0
+
+    end_r = sw_end_w * DOWNSAMPLE
+    while (startd + N <= deg_nsamples) and (startr + N <= end_r):
+        x1 = ref[startr : startr + N] * window
+        x2 = deg[startd : startd + N] * window
+        corr = np.fft.irfft(np.conj(np.fft.rfft(x1)) * np.fft.rfft(x2), N)
+        a = np.abs(corr)
+        v_max = float(a.max()) * 0.99
+        H[a > v_max] += v_max**0.125
+        startr += N // 4
+        startd += N // 4
+
+    hsum = float(H.sum())
+    # circular triangular smoothing, half-width N/64
+    kernel = N // 64
+    smoothed = np.zeros(N)
+    idx = np.nonzero(H)[0]
+    for c in idx:
+        for k in range(1 - kernel, kernel):
+            smoothed[(c + k) % N] += H[c] * (1.0 - abs(k) / kernel)
+
+    i_max = int(np.argmax(smoothed))
+    v_max = float(smoothed[i_max])
+    if i_max >= N // 2:
+        i_max -= N
+    if hsum > 0.0:
+        conf = v_max / hsum
+    else:
+        conf = 0.0
+    return estdelay + i_max, conf
+
+
+MINUTTLENGTH = 50  # windows
+MAXNUTTERANCES = 50
+MIN_SPLIT_LEN = 200  # windows of speech before a split is attempted
+
+
+def id_searchwindows(vad_ref, nr, nd, crude_delay):
+    """P.862 id_searchwindows: utterance search windows from the ref VAD."""
+    vad_length = nr // DOWNSAMPLE
+    del_deg_start = MINUTTLENGTH - crude_delay // DOWNSAMPLE
+    del_deg_end = (nd - crude_delay) // DOWNSAMPLE - MINUTTLENGTH
+
+    windows = []
+    speech = False
+    this_start = 0
+    cur_start = 0
+    for count in range(vad_length):
+        v = vad_ref[count]
+        if v > 0.0 and not speech:
+            speech = True
+            this_start = count
+            cur_start = max(count - SEARCHBUFFER, 0)
+        if (v == 0.0 or count == vad_length - 1) and speech:
+            speech = False
+            end = min(count + SEARCHBUFFER, vad_length - 1)
+            if (
+                count - this_start >= MINUTTLENGTH
+                and this_start < del_deg_end
+                and count > del_deg_start
+                and len(windows) < MAXNUTTERANCES
+            ):
+                windows.append([cur_start, end])
+    return windows
+
+
+def _crude_align_utt(logvad_ref, logvad_deg, nd_windows, sw_start, sw_end,
+                     base_delay):
+    """Crude align one utterance window given a base delay estimate."""
+    startr = sw_start
+    startd = startr + base_delay // DOWNSAMPLE
+    if startd < 0:
+        startr = -base_delay // DOWNSAMPLE
+        startd = 0
+    nr_w = sw_end - startr
+    nd_w = nr_w
+    if startd + nd_w > nd_windows:
+        nd_w = nd_windows - startd
+    rel = crude_subalign(logvad_ref, logvad_deg, startr, nr_w, startd, nd_w)
+    return rel + base_delay
+
+
+def id_utterances(windows, vad_ref, nr, nd, delays):
+    """P.862 id_utterances: utterance bodies from the VAD + delay overlap
+    adjustment.  windows/delays per utterance; returns [start_w, end_w]."""
+    vad_length = nr // DOWNSAMPLE
+    # utterance bodies: the speech runs (same scan, without search margins)
+    bodies = []
+    speech = False
+    this_start = 0
+    del_deg_start = MINUTTLENGTH - delays[0] // DOWNSAMPLE if delays else 0
+    del_deg_end = (
+        (nd - delays[-1]) // DOWNSAMPLE - MINUTTLENGTH if delays else 0
+    )
+    for count in range(vad_length):
+        v = vad_ref[count]
+        if v > 0.0 and not speech:
+            speech = True
+            this_start = count
+            cur = [count, count]
+        if (v == 0.0 or count == vad_length - 1) and speech:
+            speech = False
+            cur[1] = count
+            if (
+                count - this_start >= MINUTTLENGTH
+                and this_start < del_deg_end
+                and count > del_deg_start
+                and len(bodies) < MAXNUTTERANCES
+            ):
+                bodies.append(cur)
+    n_utt = min(len(bodies), len(delays))
+    bodies = [list(b) for b in bodies[:n_utt]]
+    if not bodies:
+        return []
+
+    bodies[0][0] = SEARCHBUFFER
+    bodies[-1][1] = vad_length - SEARCHBUFFER
+
+    # midpoint join of consecutive utterances (ref timeline)
+    for u in range(1, n_utt):
+        this_start = bodies[u][0] * DOWNSAMPLE
+        last_end = bodies[u - 1][1] * DOWNSAMPLE
+        mid = (this_start + last_end) // 2
+        bodies[u][0] = mid // DOWNSAMPLE
+        bodies[u - 1][1] = mid // DOWNSAMPLE
+
+    # clamp first/last so the deg timeline stays inside the signal
+    first_start = bodies[0][0] * DOWNSAMPLE + delays[0]
+    if first_start < SEARCHBUFFER * DOWNSAMPLE:
+        bodies[0][0] = (
+            SEARCHBUFFER + (DOWNSAMPLE - 1 - delays[0]) // DOWNSAMPLE
+        )
+    last_end = bodies[-1][1] * DOWNSAMPLE + delays[-1]
+    if last_end > nd - SEARCHBUFFER * DOWNSAMPLE:
+        bodies[-1][1] = (nd - delays[-1]) // DOWNSAMPLE - SEARCHBUFFER
+
+    # resolve deg-timeline overlaps between consecutive utterances
+    for u in range(1, n_utt):
+        this_start = bodies[u][0] * DOWNSAMPLE + delays[u]
+        last_end = bodies[u - 1][1] * DOWNSAMPLE + delays[u - 1]
+        if this_start < last_end:
+            mid = (this_start + last_end) // 2
+            bodies[u][0] = (
+                mid + (DOWNSAMPLE - 1) - delays[u]
+            ) // DOWNSAMPLE
+            bodies[u - 1][1] = (mid - delays[u - 1]) // DOWNSAMPLE
+    return bodies
+
+
+def split_align(ref, deg, logvad_ref, logvad_deg, nr, nd,
+                utt_start, utt_speech_start, utt_speech_end, utt_end,
+                utt_delay_est, utt_delay_conf):
+    """P.862 split_align: search for the break point that splits an
+    utterance into two better-aligned halves.  Returns
+    (ed1, d1, dc1, ed2, d2, dc2, best_bp) with dc = 0 when no candidate.
+
+    Candidate grid and acceptance mirror the Recommendation: break points
+    start at speech_start + max(len/10, SEARCHBUFFER) with the first
+    candidate always evaluated (at most 41); a candidate qualifies only
+    when the halves' delays differ by at least one downsample window and
+    both confidences beat the whole utterance's, and the winner maximises
+    the SUM of the two confidences."""
+    utt_len = utt_speech_end - utt_speech_start
+    pad = max(utt_len // 10, SEARCHBUFFER)
+    nd_windows = nd // DOWNSAMPLE
+
+    step_base = int((0.801 * utt_len + 40 * 4 - 1) / (40 * 4))
+    step = max(step_base, 1) * 4
+
+    bps = [utt_speech_start + pad]
+    while bps[-1] + step <= utt_speech_end - pad and len(bps) < 41:
+        bps.append(bps[-1] + step)
+    best = (0, 0, 0.0, 0, 0, 0.0, 0)
+    best_sum = 0.0
+    for bp in bps:
+        # first half [utt_start, bp)
+        ed1 = _crude_align_utt(
+            logvad_ref, logvad_deg, nd_windows, utt_start, bp, utt_delay_est
+        )
+        d1, dc1 = time_align(ref, deg, nd, utt_start, bp, ed1)
+        if dc1 <= utt_delay_conf:
+            continue
+        # second half [bp, utt_end)
+        ed2 = _crude_align_utt(
+            logvad_ref, logvad_deg, nd_windows, bp, utt_end, utt_delay_est
+        )
+        d2, dc2 = time_align(ref, deg, nd, bp, utt_end, ed2)
+        if dc2 <= utt_delay_conf:
+            continue
+        if abs(d1 - d2) < DOWNSAMPLE:
+            continue
+        if dc1 + dc2 > best_sum:
+            best_sum = dc1 + dc2
+            best = (ed1, d1, dc1, ed2, d2, dc2, bp)
+    return best
+
+
+def utterance_locate(ref, deg, vad_ref, logvad_ref, logvad_deg, nr, nd):
+    """Full P.862 utterance location chain: search windows, per-utterance
+    crude + fine alignment, utterance identification, and recursive
+    splitting.  Returns a list of (start_w, end_w, delay_samples)."""
+    crude_delay = crude_align(logvad_ref, logvad_deg)
+    windows = id_searchwindows(vad_ref, nr, nd, crude_delay)
+    if not windows:
+        # no utterances found: treat the whole signal as one piece with the
+        # crude delay
+        vad_length = nr // DOWNSAMPLE
+        return [(SEARCHBUFFER, vad_length - SEARCHBUFFER, crude_delay)]
+
+    nd_windows = nd // DOWNSAMPLE
+    delay_ests, delays, confs = [], [], []
+    for sw_start, sw_end in windows:
+        est = _crude_align_utt(
+            logvad_ref, logvad_deg, nd_windows, sw_start, sw_end, crude_delay
+        )
+        d, c = time_align(ref, deg, nd, sw_start, sw_end, est)
+        delay_ests.append(est)
+        delays.append(d)
+        confs.append(c)
+
+    bodies = id_utterances(windows, vad_ref, nr, nd, delays)
+    n_utt = len(bodies)
+    windows = windows[:n_utt]
+    delay_ests, delays, confs = (
+        delay_ests[:n_utt], delays[:n_utt], confs[:n_utt]
+    )
+
+    # utterance_split: recursively split utterances whose halves align
+    # with more confidence than the whole
+    utt = 0
+    while utt < len(bodies) and len(bodies) <= MAXNUTTERANCES:
+        start_w, end_w = bodies[utt]
+        speech_start = start_w
+        vad_length = nr // DOWNSAMPLE
+        while speech_start < end_w and vad_ref[speech_start] <= 0.0:
+            speech_start += 1
+        speech_end = end_w
+        while speech_end > start_w and vad_ref[min(speech_end, vad_length - 1)] <= 0.0:
+            speech_end -= 1
+        speech_end += 1
+
+        if speech_end - speech_start >= MIN_SPLIT_LEN and len(bodies) < MAXNUTTERANCES:
+            ed1, d1, dc1, ed2, d2, dc2, bp = split_align(
+                ref, deg, logvad_ref, logvad_deg, nr, nd,
+                start_w, speech_start, speech_end, end_w,
+                delay_ests[utt], confs[utt],
+            )
+            if dc1 > confs[utt] and dc2 > confs[utt]:
+                # P.862 utterance_split: on a delay INCREASE the deg skips
+                # content, so the two pieces are spread (d2-d1)/(2*Ds)
+                # windows apart around the break point; on a decrease both
+                # boundaries sit at the break point
+                if d2 < d1:
+                    end1, start2 = bp, bp
+                else:
+                    spread = (d2 - d1) // (2 * DOWNSAMPLE)
+                    end1, start2 = bp + spread, bp - spread
+                # post-split boundary clamps (P.862 utterance_split): keep
+                # the first piece's deg start and the second piece's deg
+                # end inside the degraded buffer
+                new_start, new_end = start_w, end_w
+                if (new_start - SEARCHBUFFER) * DOWNSAMPLE + d1 < 0:
+                    new_start = (
+                        SEARCHBUFFER + (DOWNSAMPLE - 1 - d1) // DOWNSAMPLE
+                    )
+                if new_end * DOWNSAMPLE + d2 > nd - SEARCHBUFFER * DOWNSAMPLE:
+                    new_end = (nd - d2) // DOWNSAMPLE - SEARCHBUFFER
+                bodies[utt] = [new_start, end1]
+                bodies.insert(utt + 1, [start2, new_end])
+                delay_ests[utt] = ed1
+                delay_ests.insert(utt + 1, ed2)
+                delays[utt] = d1
+                delays.insert(utt + 1, d2)
+                confs[utt] = dc1
+                confs.insert(utt + 1, dc2)
+                continue  # re-examine the first piece
+        utt += 1
+
+    return [
+        (int(b[0]), int(b[1]), int(d)) for b, d in zip(bodies, delays)
+    ]
+
+
+# ---------------------------------------------------------------------------
+# Psychoacoustic model
+# ---------------------------------------------------------------------------
+
+def _hann(n: int) -> np.ndarray:
+    return 0.5 * (1.0 - np.cos(2.0 * np.pi * np.arange(n) / n))
+
+
+def _short_term_ffts(x: np.ndarray, starts: np.ndarray) -> np.ndarray:
+    """|FFT|^2 spectra of Nf-sample hann frames at given start samples."""
+    w = _hann(NF)
+    idx = starts[:, None] + np.arange(NF)[None, :]
+    frames = x[idx] * w[None, :]
+    spec = np.fft.rfft(frames, axis=-1)
+    return (spec.real**2 + spec.imag**2)[:, : NF // 2]
+
+
+def _freq_warping(hz_spectrum: np.ndarray) -> np.ndarray:
+    """Group Hz bins into the 49 bark bands: [T, Nf/2] -> [T, 49]."""
+    edges = np.concatenate([[0], np.cumsum(NR_HZ_BANDS)]).astype(int)
+    bands = np.add.reduceat(hz_spectrum, edges[:-1], axis=-1)
+    return bands * POW_CORR[None, :] * SP
+
+
+def _total_audible(pitch_pow: np.ndarray, factor: float) -> np.ndarray:
+    """Per-frame audible power, bands 1..Nb-1 above factor*threshold."""
+    audible = pitch_pow[:, 1:] > (ABS_THRESH[1:] * factor)[None, :]
+    return np.sum(np.where(audible, pitch_pow[:, 1:], 0.0), axis=1)
+
+
+def _intensity_warping(pitch_pow: np.ndarray) -> np.ndarray:
+    """Zwicker-law loudness density per band."""
+    h = np.where(CENTRE_BARK < 4.0, 6.0 / (CENTRE_BARK + 2.0), 1.0)
+    h = np.minimum(h, 2.0) ** 0.15
+    zwicker = 0.23 * h  # modified zwicker power per band
+    t = ABS_THRESH[None, :]
+    z = zwicker[None, :]
+    loud = (
+        SL
+        * (t / 0.5) ** z
+        * ((0.5 + 0.5 * pitch_pow / t) ** z - 1.0)
+    )
+    return np.where(pitch_pow > t, np.maximum(loud, 0.0), 0.0)
+
+
+def _pseudo_lp(d: np.ndarray, p: float) -> np.ndarray:
+    """Width-weighted p-norm over bands 1..Nb-1, per frame."""
+    w = WIDTH_BARK[1:][None, :]
+    h = np.abs(d[:, 1:]) * w
+    total_w = np.sum(WIDTH_BARK[1:])
+    res = (np.sum(h**p, axis=1) / total_w) ** (1.0 / p)
+    return res * total_w
+
+
+CRITERIUM_FOR_SILENCE_OF_5_SAMPLES = 500.0
+
+
+def silence_skips(ref: np.ndarray, max_n: int):
+    """P.862 leading/trailing silence scan over the REFERENCE: advance while
+    the sum of 5 consecutive |samples| stays below 500.  Returns
+    (samples_to_skip_at_start, samples_to_skip_at_end)."""
+    buf = SEARCHBUFFER * DOWNSAMPLE
+    limit = max_n // 2
+    a = np.abs(ref)
+    skip_start = 0
+    while skip_start < limit:
+        if np.sum(a[buf + skip_start : buf + skip_start + 5]) >= \
+                CRITERIUM_FOR_SILENCE_OF_5_SAMPLES:
+            break
+        skip_start += 1
+    anchor = max_n - buf + _datapadding_samples() - 1
+    skip_end = 0
+    while skip_end < limit:
+        lo = anchor - skip_end - 4
+        if lo < 0 or np.sum(a[lo : anchor - skip_end + 1]) >= \
+                CRITERIUM_FOR_SILENCE_OF_5_SAMPLES:
+            break
+        skip_end += 1
+    return skip_start, skip_end
+
+
+def model_frame_count(max_nsamples: int, skip_end: int = 0) -> int:
+    """P.862 frame count: frames run 0..stop_frame inclusive with
+    stop_frame = (maxN - 2*buf + datapadding - skip_end)/(Nf/2) - 1 —
+    the loop extends into the datapadding until the trailing silence."""
+    buf = SEARCHBUFFER * DOWNSAMPLE
+    return (
+        max_nsamples - 2 * buf + _datapadding_samples() - skip_end
+    ) // (NF // 2)
+
+
+def _div_trunc(v: int, d: int) -> int:
+    """C-style integer division (truncate toward zero)."""
+    q = abs(v) // d
+    return q if v >= 0 else -q
+
+
+def psychoacoustic_model(
+    ref: np.ndarray,
+    deg: np.ndarray,
+    nsamples: int,
+    frame_delays: np.ndarray | None = None,
+    nsamples_deg: int | None = None,
+    utts=None,
+) -> float:
+    """Raw P.862 score from aligned padded signals.
+
+    nsamples: max(Nsamples_ref, Nsamples_deg) per the Recommendation.
+    frame_delays: optional per-frame deg sample offsets (time alignment);
+    zeros when signals are aligned (the enhancement-validation case).
+    """
+    if nsamples_deg is None:
+        nsamples_deg = nsamples
+    buf = SEARCHBUFFER * DOWNSAMPLE
+    skip_start, skip_end = silence_skips(ref, nsamples)
+    start_frame = skip_start // (NF // 2)
+    n_frames = model_frame_count(nsamples, skip_end)
+    starts_ref = buf + np.arange(n_frames) * (NF // 2)
+    if frame_delays is None:
+        frame_delays = np.zeros(n_frames, dtype=int)
+    raw_deg = starts_ref + frame_delays
+    # out-of-range deg frames score against silence (P.862 frame loop)
+    valid = (raw_deg > 0) & (raw_deg + NF < nsamples + _datapadding_samples())
+    starts_deg = np.clip(raw_deg, 0, len(deg) - NF)
+
+    hz_ref = _short_term_ffts(ref, starts_ref)
+    hz_deg = _short_term_ffts(deg, starts_deg)
+    hz_deg[~valid] = 0.0
+    ppd_ref = _freq_warping(hz_ref)  # [T, 49]
+    ppd_deg = _freq_warping(hz_deg)
+
+    # silent-frame classification for the frequency compensation average
+    silent = _total_audible(ppd_ref, 1e2) < 1e7
+    # P.862 passes (maxN - 2*buf + datapadding)/(Nf/2) - 1 as the
+    # averaging divisor (independent of the silence skips)
+    n_total = (
+        nsamples - 2 * buf + _datapadding_samples()
+    ) // (NF // 2) - 1
+
+    # time-averaged audible spectra: per-band gating above 100x threshold,
+    # non-silent frames only
+    mask = (~silent)[:, None] & (ppd_ref > 100.0 * ABS_THRESH[None, :])
+    avg_ref = np.sum(np.where(mask, ppd_ref, 0.0), axis=0) / n_total
+    mask_d = (~silent)[:, None] & (ppd_deg > 100.0 * ABS_THRESH[None, :])
+    avg_deg = np.sum(np.where(mask_d, ppd_deg, 0.0), axis=0) / n_total
+
+    # partial frequency-response compensation (applied to ref)
+    x = np.clip((avg_deg + 1000.0) / (avg_ref + 1000.0), 0.01, 100.0)
+    mod_ref = ppd_ref * x[None, :]
+
+    # partial short-term gain compensation (applied to DEG, matching ref)
+    ta_ref = _total_audible(mod_ref, 1.0)
+    ta_deg = _total_audible(ppd_deg, 1.0)
+    raw_scale = (ta_ref + 5e3) / (ta_deg + 5e3)
+    scale = np.empty(n_frames)
+    old = 1.0
+    for f in range(n_frames):
+        s = raw_scale[f]
+        if f > 0:
+            s = 0.2 * old + 0.8 * s
+        old = s
+        scale[f] = min(max(s, 3e-4), 5.0)
+    mod_deg = ppd_deg * scale[:, None]
+
+    loud_ref = _intensity_warping(mod_ref)
+    loud_deg = _intensity_warping(mod_deg)
+
+    d = loud_deg - loud_ref
+    m = 0.25 * np.minimum(loud_deg, loud_ref)
+    d = np.where(d > m, d - m, np.where(d < -m, d + m, 0.0))
+
+    # asymmetry factor from the (compensated) power densities
+    ratio = ((mod_deg + 50.0) / (mod_ref + 50.0)) ** 1.2
+    asym = np.where(ratio < 3.0, 0.0, np.minimum(ratio, 12.0))
+
+    frame_dist = _pseudo_lp(d, 2.0)
+    frame_dist_asym = _pseudo_lp(d * asym, 1.0)
+
+    # signal-repetition amnesty (P.862): when the delay DROPS by more than
+    # Nf/2 between utterances the deg repeats content; the overlapped
+    # frames' disturbances are zeroed.  (The Recommendation's code also
+    # sets a per-frame flag, but that array is never read back — the
+    # bad-interval detection below sees only the zeroed disturbances.)
+    if utts is not None:
+        for u in range(1, len(utts)):
+            jump = utts[u][2] - utts[u - 1][2]
+            if jump >= -(NF // 2):
+                continue
+            sf_next = _div_trunc(
+                (utts[u][0] - SEARCHBUFFER) * DOWNSAMPLE + utts[u][2], NF // 2
+            )
+            sf_prev = _div_trunc(
+                (utts[u - 1][1] - SEARCHBUFFER) * DOWNSAMPLE + utts[u - 1][2],
+                NF // 2,
+            )
+            lo = max(0, min(sf_next, sf_prev))
+            hi = _div_trunc(
+                (utts[u][0] - SEARCHBUFFER) * DOWNSAMPLE + abs(jump), NF // 2
+            ) + 1
+            # the Recommendation's frame loop excludes the last frame
+            for fr in range(lo, min(hi + 1, n_frames - 1)):
+                frame_dist[fr] = 0.0
+                frame_dist_asym[fr] = 0.0
+
+    # bad-interval realignment on the RAW disturbances: heavily disturbed
+    # stretches are re-searched for a better deg alignment and keep the
+    # minimum disturbance (P.862 bad-frame processing)
+    frame_dist, frame_dist_asym = _reprocess_bad_intervals(
+        ref, deg, nsamples_deg, starts_ref, frame_delays, x, scale, ta_ref,
+        frame_dist, frame_dist_asym, utts=utts,
+    )
+
+    # per-frame weighting by reference power, then cap
+    h = ((ta_ref + 1e5) / 1e7) ** 0.04
+    frame_dist = np.minimum(frame_dist / h, 45.0)
+    frame_dist_asym = np.minimum(frame_dist_asym / h, 45.0)
+
+    # Lpq integrates frames [start_frame, stop_frame] — leading silent
+    # frames are excluded by the silence skip
+    d_ind = _lpq_weight(frame_dist, start_frame, n_frames - 1)
+    a_ind = _lpq_weight(frame_dist_asym, start_frame, n_frames - 1)
+    return 4.5 - 0.1 * d_ind - 0.0309 * a_ind
+
+
+THRESHOLD_BAD_FRAMES = 30.0
+SMEAR_RANGE = 2
+MIN_BAD_INTERVAL = 5
+
+
+def _frame_pair_disturbance(ref_frame_spec, deg_frame_spec, comp_x,
+                            ta_ref, old_scale):
+    """Raw disturbance of one frame inside a bad interval.
+
+    ta_ref is the frame's stored compensated-reference total audible power
+    from the main pass; the short-term gain uses the P.862 0.2/0.8
+    smoothing carried across the interval (old_scale in, new out)."""
+    ppd_ref = _freq_warping(ref_frame_spec[None, :])[0]
+    ppd_deg = _freq_warping(deg_frame_spec[None, :])[0]
+    mod_ref = ppd_ref * comp_x
+    ta_deg = float(_total_audible(ppd_deg[None, :], 1.0)[0])
+    s = 0.2 * old_scale + 0.8 * (ta_ref + 5e3) / (ta_deg + 5e3)
+    scale = min(max(s, 3e-4), 5.0)
+    mod_deg = ppd_deg * scale
+    loud_ref = _intensity_warping(mod_ref[None, :])[0]
+    loud_deg = _intensity_warping(mod_deg[None, :])[0]
+    d = loud_deg - loud_ref
+    m = 0.25 * np.minimum(loud_deg, loud_ref)
+    d = np.where(d > m, d - m, np.where(d < -m, d + m, 0.0))
+    ratio = ((mod_deg + 50.0) / (mod_ref + 50.0)) ** 1.2
+    asym = np.where(ratio < 3.0, 0.0, np.minimum(ratio, 12.0))
+    fd = float(_pseudo_lp(d[None, :], 2.0)[0])
+    fda = float(_pseudo_lp((d * asym)[None, :], 1.0)[0])
+    return fd, fda, s
+
+
+BAD_INTERVAL_SEARCH = 2048  # samples of margin each side of a bad interval
+
+
+def compute_delay(t1: np.ndarray, t2: np.ndarray, start: int, stop: int,
+                  search_range: int):
+    """P.862 compute_delay: rectified FFT cross-correlation of two series.
+
+    Returns (best_delay, best_correlation).  Verified numerically exact
+    against the oracle's exported compute_delay.
+    """
+    n = stop - start
+    pow2 = _next_pow2(2 * search_range + n)
+    e1 = np.sum(t1[start:stop].astype(np.float64) ** 2)
+    e2 = np.sum(t2[start:stop].astype(np.float64) ** 2)
+    norm = np.sqrt(e1 * e2)
+    if norm <= 0:
+        return 0, 0.0
+    x1 = np.zeros(pow2)
+    x2 = np.zeros(pow2)
+    x1[:n] = np.abs(t1[start:stop])
+    x2[:n] = np.abs(t2[start:stop])
+    corr = np.fft.irfft(
+        np.conj(np.fft.rfft(x1)) * np.fft.rfft(x2), pow2
+    )
+    lags = np.arange(-search_range, search_range + 1)
+    vals = corr[lags % pow2]
+    best = int(np.argmax(vals))
+    return int(lags[best]), float(vals[best] / norm)
+
+
+def _reprocess_bad_intervals(ref, deg, nd, starts_ref, frame_delays, comp_x,
+                             comp_scale, ta_ref_arr, frame_dist,
+                             frame_dist_asym, utts=None):
+    """P.862 bad-frame processing: find heavily disturbed intervals, build a
+    per-sample time-aligned ("tweaked") degraded copy, re-search its
+    alignment with compute_delay over a +-2048 sample margin, recompute the
+    interval's frames from the doubly-tweaked copy, and keep the per-frame
+    minimum disturbance.
+
+    Mirrors the Recommendation's code exactly: the tweaked copy is a
+    full-length buffer zero outside [buf, maxN-buf); the interval's sample
+    span uses the exclusive stop frame (one hop past the last bad frame's
+    window); recomputation runs for every frame of every qualifying
+    interval, even at delta 0, and frames whose shifted window leaves the
+    buffer score against a zero spectrum.
+    """
+    n_frames = len(frame_dist)
+    bad = frame_dist > THRESHOLD_BAD_FRAMES
+    if not np.any(bad):
+        return frame_dist, frame_dist_asym
+    # smearing (P.862): a frame in [SMEAR_RANGE, stop_frame - SMEAR_RANGE)
+    # is smeared-bad iff bad frames exist within SMEAR_RANGE on BOTH sides
+    # (itself included); frames outside that range are never smeared-bad
+    smeared = np.zeros(n_frames, bool)
+    for f in range(SMEAR_RANGE, n_frames - 1 - SMEAR_RANGE):
+        left = np.any(bad[f - SMEAR_RANGE : f + 1])
+        right = np.any(bad[f : f + SMEAR_RANGE + 1])
+        smeared[f] = left and right
+
+    buf = SEARCHBUFFER * DOWNSAMPLE
+    # the Recommendation allocates both buffers to maxN + datapadding;
+    # the caller extends deg to exactly that length
+    dp = _datapadding_samples()
+    max_n = len(deg) - dp
+    fill_hi = max_n + dp - buf  # fill extends through the datapadding
+    w = _hann(NF)
+    frame_dist = frame_dist.copy()
+    frame_dist_asym = frame_dist_asym.copy()
+    hop = NF // 2
+
+    # full-length per-sample retimed degraded copy: zeros outside
+    # [buf, maxN + dp - buf); each sample takes the delay of the last
+    # utterance whose start (in samples) is at or before it, and the read
+    # index clips to the fill region
+    tweaked = np.zeros(len(deg))
+    i_idx = np.arange(buf, fill_hi)
+    if utts:
+        utt_starts = np.asarray([u[0] * DOWNSAMPLE for u in utts])
+        utt_delays = np.asarray([u[2] for u in utts])
+        which = np.searchsorted(utt_starts, i_idx, side="right") - 1
+        delay_i = utt_delays[np.maximum(which, 0)]
+    else:
+        fr_idx = np.clip((i_idx - buf) // hop, 0, n_frames - 1)
+        delay_i = frame_delays[fr_idx]
+    j = np.clip(i_idx + delay_i, buf, fill_hi - 1)
+    tweaked[buf:fill_hi] = deg[j]
+
+    f = 0
+    while f < n_frames:
+        if not smeared[f]:
+            f += 1
+            continue
+        g = f
+        while g < n_frames and smeared[g]:
+            g += 1
+        if g - f >= MIN_BAD_INTERVAL:
+            # sample span per P.862: start frame inclusive, stop frame
+            # exclusive — the span runs one hop past the last bad window
+            s0 = f * hop + buf
+            s1 = g * hop + NF + buf
+            n = s1 - s0
+            # the Recommendation correlates a zero-padded copy of the
+            # ref interval against the retimed deg read with clamped
+            # indices over the widened span
+            ref_win = np.zeros(n + 2 * BAD_INTERVAL_SEARCH)
+            ref_win[BAD_INTERVAL_SEARCH : BAD_INTERVAL_SEARCH + n] = (
+                ref[s0:s1]
+            )
+            deg_idx = np.clip(
+                np.arange(s0 - BAD_INTERVAL_SEARCH,
+                          s1 + BAD_INTERVAL_SEARCH),
+                buf, fill_hi - 1,
+            )
+            deg_win = tweaked[deg_idx]
+            delta, corr = compute_delay(
+                ref_win, deg_win, 0, n + 2 * BAD_INTERVAL_SEARCH,
+                BAD_INTERVAL_SEARCH,
+            )
+            if corr < 0.5:
+                delta = 0
+            # doubly-tweaked pass over frames [f, min(g, stop_frame)):
+            # always runs (even at delta 0 — the per-sample copy differs
+            # from the per-frame windows near delay changes and edges),
+            # with the short-term gain smoothing restarted at 1.0 and
+            # carried across the interval's frames
+            old_scale = 1.0
+            for fr in range(f, min(g, n_frames - 1)):
+                sr = int(starts_ref[fr])
+                rspec = np.abs(
+                    np.fft.rfft(ref[sr : sr + NF] * w)
+                )[: NF // 2] ** 2
+                didx = np.clip(np.arange(sr, sr + NF) + delta, 0, max_n - 1)
+                dspec = np.abs(
+                    np.fft.rfft(tweaked[didx] * w)
+                )[: NF // 2] ** 2
+                fd, fda, old_scale = _frame_pair_disturbance(
+                    rspec, dspec, comp_x, ta_ref_arr[fr], old_scale
+                )
+                frame_dist[fr] = min(frame_dist[fr], fd)
+                frame_dist_asym[fr] = min(frame_dist_asym[fr], fda)
+        f = g
+    return frame_dist, frame_dist_asym
+
+
+def _lpq_weight(frame_dist: np.ndarray, start_frame: int, stop_frame: int,
+                p_syl: float = 6.0, p_time: float = 2.0,
+                frames_per_syllable: int = 20) -> float:
+    """P.862 Lpq_weight over frames [start_frame, stop_frame] inclusive;
+    syllable windows start on the start_frame grid with half overlap and
+    always divide by the full window length."""
+    result_time = 0.0
+    total_time_weight = 0.0
+    for start in range(start_frame, stop_frame + 1, frames_per_syllable // 2):
+        seg = frame_dist[start : min(start + frames_per_syllable,
+                                     stop_frame + 1)]
+        if len(seg) == 0:
+            continue
+        r = (float(np.sum(seg**p_syl)) / frames_per_syllable) ** (1.0 / p_syl)
+        result_time += r**p_time
+        total_time_weight += 1.0
+    return (result_time / total_time_weight) ** (1.0 / p_time)
+
+
+def _wb_mos_mapping(raw: float) -> float:
+    return 0.999 + 4.0 / (1.0 + np.exp(-1.3669 * raw + 3.8224))
+
+
+def pesq_wb_np(clean: np.ndarray, degraded: np.ndarray) -> float:
+    """End-to-end P.862.2 wideband PESQ MOS-LQO at 16 kHz."""
+    ref = _pad_signal(np.asarray(clean, np.float64))
+    deg = _pad_signal(np.asarray(degraded, np.float64))
+    nr = len(clean) + 2 * SEARCHBUFFER * DOWNSAMPLE
+    nd = len(degraded) + 2 * SEARCHBUFFER * DOWNSAMPLE
+
+    ref = fix_power_level(ref, nr)
+    deg = fix_power_level(deg, nd)
+
+    # MODEL path (P.862.2 pesq_measure): NO DC block — a 15-sample linear
+    # fade-in/out at the active-region edges, then the wideband input
+    # filter over exactly the active region [buf, Nsamples - buf)
+    ref = _taper_and_wb_filter(ref, nr)
+    deg = _taper_and_wb_filter(deg, nd)
+
+    # ALIGNMENT path (P.862.2 input_filter): a COPY of the model data gets
+    # a DC block + the standard 12-section input filter over the ENTIRE
+    # buffer [0, Nsamples + datapadding); VAD, crude and fine time
+    # alignment all run on this copy, while the psychoacoustic model
+    # scores the wideband-filtered data
+    ref_a = _iir_sos(dc_block(ref, nr), STD_IIR)
+    deg_a = _iir_sos(dc_block(deg, nd), STD_IIR)
+
+    vad_ref, logvad_ref = apply_vad(ref_a, nr)
+    _, logvad_deg = apply_vad(deg_a, nd)
+
+    # full P.862 utterance chain: search windows, per-utterance crude +
+    # histogram time alignment, utterance bodies, recursive splitting
+    utts = utterance_locate(
+        ref_a, deg_a, vad_ref, logvad_ref, logvad_deg, nr, nd
+    )
+
+    buf = SEARCHBUFFER * DOWNSAMPLE
+    max_n = max(nr, nd)
+    # both buffers must cover the model's frame span (maxN + datapadding)
+    need = max_n + _datapadding_samples()
+    if len(ref) < need:
+        ref = np.concatenate([ref, np.zeros(need - len(ref))])
+    if len(deg) < need:
+        deg = np.concatenate([deg, np.zeros(need - len(deg))])
+
+    _, skip_end = silence_skips(ref, max_n)
+    n_frames = model_frame_count(max_n, skip_end)
+    starts_ref = buf + np.arange(n_frames) * (NF // 2)
+    utt_starts = np.asarray([u[0] * DOWNSAMPLE for u in utts])
+    utt_delays = np.asarray([u[2] for u in utts])
+    # each frame uses the delay of the last utterance starting at or before
+    # it (P.862 psychoacoustic-model frame loop)
+    which = np.searchsorted(utt_starts, starts_ref, side="right") - 1
+    frame_delays = utt_delays[np.maximum(which, 0)]
+
+    raw = psychoacoustic_model(
+        ref, deg, max_n, frame_delays, nsamples_deg=nd, utts=utts
+    )
+    return float(_wb_mos_mapping(raw))
+
+
+def pesq_np(clean: np.ndarray, degraded: np.ndarray, fs: int = 16000) -> float:
+    """fs-dispatching entry matching the reference front-end's nb/wb split
+    (reference: tools_for_estimate.py:40-45)."""
+    if fs == 16000:
+        return pesq_wb_np(clean, degraded)
+    raise NotImplementedError(
+        f"PESQ model for fs={fs} not implemented: only the 16 kHz "
+        "wideband (P.862.2) model ships.  The narrowband (8 kHz) model "
+        "needs its own published table set (42 bark bands, IRS receive "
+        "filter, 8-section input IIR) for which no oracle exists in this "
+        "environment — the reference's PESQ.so is a 16 kHz-only build "
+        "and its nb path used the pip 'pesq' package.  Resample to "
+        "16 kHz and use the wideband model, or supply/verify the 8 kHz "
+        "tables against an ITU reference build."
+    )

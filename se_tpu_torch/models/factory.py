@@ -13,9 +13,9 @@ from .fullsubnet import FullSubNet
 _MODELS = {"DCCRN": DCCRN, "CRN": CRN, "FullSubNet": FullSubNet}
 
 
-def build_model(cfg: Config, device="cuda") -> torch.nn.Module:
+def build_model(cfg: Config, device="cuda", seed: int = 0) -> torch.nn.Module:
     """The model of ``cfg`` on ``device``, in eval mode, with the
-    reference's initialisation drawn from a generator seeded with 0."""
+    reference's initialisation drawn from a generator seeded with ``seed``."""
     dev = resolve_device(device)
-    model = _MODELS[cfg.model](cfg, generator=torch.Generator().manual_seed(0))
+    model = _MODELS[cfg.model](cfg, generator=torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

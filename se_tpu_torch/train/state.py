@@ -56,6 +56,16 @@ class AdamLowPrecisionMu(torch.optim.Optimizer):
                 state["mu"] = mu.to(group["mu_dtype"])
                 state["nu"] = nu
 
+    def load_state_dict(self, state_dict):
+        """``Optimizer.load_state_dict`` casts every floating state tensor to
+        its parameter's dtype; the first moment goes back to ``mu_dtype``
+        (a widened bf16 value narrows to itself exactly)."""
+        super().load_state_dict(state_dict)
+        for group in self.param_groups:
+            for p in group["params"]:
+                if "mu" in self.state.get(p, {}):
+                    self.state[p]["mu"] = self.state[p]["mu"].to(group["mu_dtype"])
+
 
 def make_optimizer(cfg: Config, model: torch.nn.Module) -> torch.optim.Optimizer:
     """Adam with lr ``cfg.train.learning_rate``, betas (0.9, 0.999), eps
@@ -77,9 +87,10 @@ def create_train_state(
     cfg: Config, state_dict: Optional[dict] = None, device="cuda"
 ) -> Tuple[torch.nn.Module, torch.optim.Optimizer]:
     """The model of ``cfg`` on ``device`` (``cuda`` unless the caller asks
-    for ``"cpu"``), loaded from ``state_dict`` with ``strict=True`` when one
-    is given, and its optimiser -> ``(model, optimizer)``."""
-    model = build_model(cfg, device=device)
+    for ``"cpu"``), initialised from ``cfg.train.seed`` or loaded from
+    ``state_dict`` with ``strict=True`` when one is given, and its optimiser
+    -> ``(model, optimizer)``."""
+    model = build_model(cfg, device=device, seed=cfg.train.seed)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     return model, make_optimizer(cfg, model)

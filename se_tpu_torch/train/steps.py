@@ -16,7 +16,7 @@ from ..ops.cirm import build_complex_ideal_ratio_mask, decompress_cIRM
 # where each trainer variant that is not ported yet stands in ROADMAP.md
 _NOT_PORTED = {
     "perceptual": "Queue 1 item 9",
-    "dccrn_direct": "Queue 1 item 7",
+    "dccrn_direct": "Queue 1 item 7a",
 }
 _PORTED = ("masking", "crn_direct", "fullsubnet")
 

@@ -20,7 +20,7 @@ the card through the ``{'model', 'optimizer', 'epoch'}`` blob that
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -291,9 +291,13 @@ def random_fullsubnet_params(cfg: Config, seed: int = 0):
     return params, {}
 
 
-def save_reference_checkpoint(path: str, state_dict: Dict[str, torch.Tensor], epoch: int = 0) -> str:
-    """Write the reference's ``{'model', 'optimizer', 'epoch'}`` blob."""
-    torch.save({"model": state_dict, "optimizer": {}, "epoch": int(epoch)}, path)
+def save_reference_checkpoint(path: str, state_dict: Dict[str, torch.Tensor], epoch: int = 0,
+                              optimizer: Optional[dict] = None) -> str:
+    """Write the reference's ``{'model', 'optimizer', 'epoch'}`` blob;
+    ``optimizer`` is an optimiser's ``state_dict()`` (``{}`` when omitted)."""
+    blob = {"model": state_dict, "optimizer": {} if optimizer is None else optimizer,
+            "epoch": int(epoch)}
+    torch.save(blob, path)
     return path
 
 

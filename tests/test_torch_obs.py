@@ -1,0 +1,103 @@
+"""The PyTorch port's tensorboard writer and image helpers on the CPU, against
+the JAX package's: the same calls write the same scalars, audio and images.
+Skipped where tensorboardX is not installed (the writer then writes
+nothing, which the last test checks with tensorboardX hidden)."""
+
+import os
+import struct
+
+import numpy as np
+import pytest
+
+pytest.importorskip("tensorboardX")
+
+from se_tpu.obs import Writer as JWriter  # noqa: E402
+from se_tpu.obs.plots import plot_error_to_numpy as jplot_error  # noqa: E402
+from se_tpu.obs.plots import plot_spectrogram_to_numpy as jplot_spectrogram  # noqa: E402
+
+from se_tpu_torch.obs import writer as writer_mod  # noqa: E402
+from se_tpu_torch.obs.plots import plot_error_to_numpy, plot_spectrogram_to_numpy  # noqa: E402
+
+IMAGES = ("spec_noisy", "spec_clean", "spec_enhanced", "phase_clean", "phase_enhanced",
+          "spec_error")
+AUDIO = ("noisy_target_wav", "clean_target_wav", "enhanced_wav")
+
+
+def _summaries(logdir) -> dict:
+    """``{(tag, step): summary value}`` of every event file under ``logdir``,
+    read as the TFRecord frames tensorboard writes: a little-endian u64
+    length, its CRC, the Event proto, its CRC."""
+    from tensorboardX.proto.event_pb2 import Event
+
+    out = {}
+    for name in os.listdir(logdir):
+        data = open(os.path.join(logdir, name), "rb").read()
+        i = 0
+        while i < len(data):
+            (n,) = struct.unpack("<Q", data[i : i + 8])
+            ev = Event()
+            ev.ParseFromString(data[i + 12 : i + 12 + n])
+            i += 12 + n + 4
+            for v in ev.summary.value:
+                out[(v.tag, ev.step)] = v
+    return out
+
+
+def _write(writer_cls, logdir, wavs):
+    w = writer_cls(str(logdir))
+    w.log_loss(0.5, 0.625, 1)
+    w.log_score(2.5, 0.875, 1)
+    w.log_wav(*wavs, 10)
+    w.log_spectrogram(*wavs, 10)
+    w.close()
+    return _summaries(logdir)
+
+
+def _wavs(rng, n=16000):
+    clean = (0.3 * np.sin(2 * np.pi * 440 * np.arange(n) / 16000)).astype(np.float32)
+    noisy = clean + 0.05 * rng.standard_normal(n).astype(np.float32)
+    return noisy, clean, 0.5 * (noisy + clean)
+
+
+def test_writer_logs_what_the_jax_writer_logs(tmp_path, rng):
+    """Scalars to the float32 bit, audio and images byte for byte."""
+    wavs = _wavs(rng)
+    got = _write(writer_mod.Writer, tmp_path / "port", wavs)
+    want = _write(JWriter, tmp_path / "jax", wavs)
+    assert set(got) == set(want)
+    assert {("train_loss", 1), ("vali_loss", 1), ("PESQ", 1), ("STOI", 1)} <= set(got)
+    assert {(t, 10) for t in AUDIO + IMAGES} <= set(got)
+    for key in ("train_loss", "vali_loss", "PESQ", "STOI"):
+        assert got[(key, 1)].simple_value == want[(key, 1)].simple_value
+    assert got[("vali_loss", 1)].simple_value == 0.625
+    for tag in AUDIO:
+        a = got[(tag, 10)].audio
+        assert a.sample_rate == 16000 and a.length_frames == 16000
+        assert a.encoded_audio_string == want[(tag, 10)].audio.encoded_audio_string
+    for tag in IMAGES:
+        im = got[(tag, 10)].image
+        assert im.height > 0 and im.width > 0 and im.colorspace == 3
+        assert im.encoded_image_string == want[(tag, 10)].image.encoded_image_string
+
+
+def test_image_helpers_equal_the_jax_package(rng):
+    """Exact: both draw with matplotlib's Agg backend from the same code."""
+    noisy, clean, est = _wavs(rng, 8000)
+    for mode, clim in ((None, (-150, 0)), ("phase", (-np.pi, np.pi))):
+        got = plot_spectrogram_to_numpy(clean, 16000, 512, 100, mode, clim)
+        assert got.ndim == 3 and got.shape[2] == 3 and got.dtype == np.uint8
+        np.testing.assert_array_equal(got, jplot_spectrogram(clean, 16000, 512, 100, mode, clim))
+    np.testing.assert_array_equal(plot_error_to_numpy(est, clean, 16000, 512, 100),
+                                  jplot_error(est, clean, 16000, 512, 100))
+
+
+def test_writer_without_tensorboardx_writes_nothing(tmp_path, rng, monkeypatch):
+    monkeypatch.setattr(writer_mod, "_HAS_TB", False)
+    wavs = _wavs(rng, 4000)
+    w = writer_mod.Writer(str(tmp_path))
+    w.log_loss(0.5, 0.6, 1)
+    w.log_score(2.5, 0.85, 1)
+    w.log_wav(*wavs, 10)
+    w.log_spectrogram(*wavs, 10)
+    w.close()
+    assert os.listdir(tmp_path) == []
