@@ -52,25 +52,37 @@ in order; any failure ends the run with a nonzero exit and no result line:
    CRN, DCCRN with ``lstm="real"``, both FullSubNets and DCCRN with
    ``use_pallas_conv`` under ``compute_dtype="bfloat16"`` on the same
    weights (each waveform also held to its f32 path's, the fused conv's to
-   DCCRN-bf16's);
+   DCCRN-bf16's), and DCCRN with ``use_cbn=True`` (the complex BatchNorm)
+   and ``skip_type=False``;
 5. the train paths at full width: one ``train_step`` on the card and one on
    the CPU from the same weights (loss, every gradient, the BatchNorm
    running statistics; FullSubNet's dropout set to 0 for this, since two
    devices draw different masks), the kernels' launch counts read around a
-   step with and without gradient accumulation, then 10 steps (DCCRN with
-   ``use_pallas_conv`` in f32: 3) at the
+   step with and without gradient accumulation, then 5 steps (both
+   FullSubNets: 10; DCCRN with ``use_pallas_conv`` in f32: 3) at the
    default batch of 10 on one fixed batch (the loss must fall; FullSubNet
    with its dropout of 0.8 drawn from a generator on the card), with step
-   time, throughput, peak memory and a profile; for the default DCCRN, CRN,
-   both FullSubNets, DCCRN with ``use_pallas_conv`` and the six bf16
-   paths (each bf16 gradient against the CPU's at a tolerance set by bf16's
-   noise), DCCRN-bf16's 10 steps once more with Adam's first
+   time, throughput, peak memory and a profile of one step; for the
+   default DCCRN, CRN, both FullSubNets, DCCRN with ``use_pallas_conv`` and
+   the six bf16 paths (each bf16 gradient against the CPU's at a tolerance
+   set by bf16's noise), DCCRN-bf16's 5 steps once more with Adam's first
    moment in bf16, plus one CRN direct-mapping step and one DCCRN real-LSTM
-   step against the CPU;
+   step against the CPU; then the trainer variants: DCCRN with
+   ``perceptual="PMSQE"`` (the card-vs-CPU step, a step with gradient
+   accumulation and 10 steps at B=10), and one card-vs-CPU step each of
+   DCCRN with LMS in bf16, DCCRN's direct mapping, DCCRN with the complex
+   BatchNorm, no skips and LMS, and CRN without skips with LMS (where the
+   CPU cannot reproduce its own gradients to TRAIN_GRAD_TOL under a
+   one-rounding change of its input: for an ill-conditioned loss, the
+   model's gradients for the CPU loss's cotangents at TRAIN_GRAD_TOL; for
+   an ill-conditioned model, a multiple of that spread, measured in the
+   run);
 6. the enhance CLI as a subprocess for every path but the two fused-conv
-   ones (no CLI takes that switch; bf16 paths with ``--compute-dtype
-   bfloat16``), all started at once after the timed phases, each output
-   held to the same weights in process;
+   ones (no CLI takes that switch) and the four that only train (bf16
+   paths with ``--compute-dtype bfloat16``; DCCRN with ``--use-cbn
+   --no-skip``, its 3-s file also held to phase 4's waveform), all started
+   at once after the timed phases, each output held to the same weights in
+   process;
 7. the train CLI, ``python -m se_tpu_torch.train_interface``, for the
    default DCCRN at full width: 2 epochs at ``--batch 4`` on 8 training and
    4 validation utterances of 3 s with the numpy PESQ/STOI, in process
@@ -123,6 +135,27 @@ TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 1e-3
 GRAD_FLOOR = 1e-2
 TRAIN_STATS_TOL = 1e-5
+# Three f32 paths whose gradients at their seeded weights the CPU cannot
+# reproduce to TRAIN_GRAD_TOL itself: one CPU step from an input changed by
+# one f32 rounding (a relative 2^-23 x N(0, 1) on each sample) moves a leaf
+# by ~1e-3 (DCCRN-PMSQE; DCCRN-cbn-noskip, whose random decoder without
+# skips leaves its masks near 0, where the E mask's phase is ill-conditioned,
+# and whose complex BatchNorm whitens) to 8 (CRN-noskip-LMS: its random tanh
+# masks leave ~90% of the mel values below 0, and LMS's clamp, whose log has
+# slope 1 / (x + 1e-7) just above 0, switches on and off).  These paths hold
+# card vs CPU on the model's gradients for one set of cotangents of its
+# outputs, the CPU step's loss's, which takes the loss's own switching out
+# (``_cotangent_grads``), to max(TRAIN_GRAD_TOL, CONDITION_FACTOR x the
+# spread of those gradients on the CPU under the nudge above), measured in
+# the run; their full steps' gradients are printed and must be finite.
+# Two summation orders in every layer read about one nudge's spread
+# (PERF.md, section 6).
+ILL_CONDITIONED = ("DCCRN-PMSQE", "DCCRN-cbn-noskip", "CRN-noskip-LMS")
+CONDITION_FACTOR = 10
+# calls of a path's forward or train step that torch.profiler traces; one,
+# to keep the script within its time (each traced call costs ~1 s of host
+# time for the trace)
+PROFILE_CALLS = 1
 # The bf16 paths, card vs CPU (both bf16, the same weights and batch).
 # cuDNN's convolutions and the CPU's sum in other orders; where two f32 sums
 # differ in their last bit a bf16 rounding tips, and the tip travels down the
@@ -1568,10 +1601,15 @@ def phase_probes() -> tuple:
     return p1, p2, p3
 
 
+# the running statistics of a BatchNorm (the first two) and of a complex
+# BatchNorm (the other five)
+_RUNNING_STATS = ("running_mean", "running_var", "RMr", "RMi", "RVrr", "RVri", "RVii")
+
+
 def _grads_and_stats(model) -> tuple:
     grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
     stats = {k: v.detach().cpu() for k, v in model.state_dict().items()
-             if k.endswith(("running_mean", "running_var"))}
+             if k.rsplit(".", 1)[-1] in _RUNNING_STATS}
     return grads, stats
 
 
@@ -1583,10 +1621,14 @@ def _leaf_rel_errs(grads, ref, skip, floor=0.0) -> dict:
 
 
 def _cancelled_by_batch_norm(state_dict) -> set:
-    """Conv biases that feed a train-mode BatchNorm: its batch mean removes
-    them, so their exact gradient is 0 and both devices give roundoff."""
-    return {k for k in state_dict if k.endswith("conv.bias")
-            and k.rsplit(".", 3)[0] + ".1.running_mean" in state_dict}
+    """The biases of a stage's conv (``{section}.{i}.0``: ``*conv.bias``, or
+    the bare ``.0.bias`` of CRN's decoder without skip connections) that
+    feeds a train-mode BatchNorm, real (``.1.running_mean``) or complex
+    (``.1.RMr``): its batch mean removes them, so their exact gradient is 0
+    and both devices give roundoff."""
+    stage = lambda k: ".".join(k.split(".")[:2])
+    return {k for k in state_dict if k.endswith("bias") and k.split(".")[2:3] == ["0"]
+            and any(f"{stage(k)}.1.{s}" in state_dict for s in ("running_mean", "RMr"))}
 
 
 def _counters() -> dict:
@@ -1633,7 +1675,7 @@ BF16_CLI = ("--compute-dtype", "bfloat16")
 def _paths() -> dict:
     """label -> (config, state dict carried over from a seeded JAX tree,
     launches per forward, launches per backward, enhance CLI arguments)."""
-    from se_tpu_torch.config import Config
+    from se_tpu_torch.config import Config, DccrnConfig
     from se_tpu_torch.utils.weights import (
         random_crn_params,
         random_dccrn_params,
@@ -1647,8 +1689,11 @@ def _paths() -> dict:
     crn = Config(model="CRN", loss="MSE", lstm="real", masking_mode="E")  # the tutorial config
     fsn = Config(model="FullSubNet", loss="MSE")
     fsn_gru = fsn.replace(sequence_model="GRU")
+    cbn_noskip = Config(dccrn=DccrnConfig(use_cbn=True), skip_type=False, perceptual="LMS")
+    crn_noskip = crn.replace(skip_type=False, perceptual="LMS")
+    dccrn_sd = state_dict_from_jax(*random_dccrn_params(dccrn, SEED), dccrn)
     return {
-        "DCCRN": (dccrn, state_dict_from_jax(*random_dccrn_params(dccrn, SEED), dccrn),
+        "DCCRN": (dccrn, dccrn_sd,
                   {"K1f": dccrn.dccrn.rnn_layers}, {"K1b": dccrn.dccrn.rnn_layers},
                   ["--model", "DCCRN"]),
         # the default DCCRN's weights, its six encoder convs through K4 (no
@@ -1696,7 +1741,32 @@ def _paths() -> dict:
                                   {"K4-bf16": len(fused.dccrn.kernel_num),
                                    "K1f-bf16": fused.dccrn.rnn_layers},
                                   {"K1b-bf16": fused.dccrn.rnn_layers}, None),
+        # the trainer variants and model switches, each on K1 or K2 as its
+        # network runs them.  The first three train the default DCCRN's
+        # weights (no enhance phase: their forward is the default DCCRN's,
+        # or, in direct mode, needs the targets)
+        "DCCRN-PMSQE": (dccrn.replace(perceptual="PMSQE"), dccrn_sd,
+                        {"K1f": dccrn.dccrn.rnn_layers}, {"K1b": dccrn.dccrn.rnn_layers}, None),
+        "DCCRN-LMS-bf16": (bf16(dccrn.replace(perceptual="LMS")), dccrn_sd,
+                           {"K1f-bf16": dccrn.dccrn.rnn_layers},
+                           {"K1b-bf16": dccrn.dccrn.rnn_layers}, None),
+        # MSE: SDR along time is log10(0) on the spectra's rows that are 0
+        # in every frame (the DC and Nyquist bins' imaginary parts)
+        "DCCRN-direct": (dccrn.replace(masking_mode="Direct(None make)", loss="MSE"), dccrn_sd,
+                         {"K1f": dccrn.dccrn.rnn_layers}, {"K1b": dccrn.dccrn.rnn_layers}, None),
+        "DCCRN-cbn-noskip": (cbn_noskip, state_dict_from_jax(
+                                 *random_dccrn_params(cbn_noskip, SEED), cbn_noskip),
+                             {"K1f": cbn_noskip.dccrn.rnn_layers},
+                             {"K1b": cbn_noskip.dccrn.rnn_layers},
+                             ["--model", "DCCRN", "--use-cbn", "--no-skip"]),
+        "CRN-noskip-LMS": (crn_noskip, state_dict_from_jax(
+                               *random_crn_params(crn_noskip, SEED), crn_noskip),
+                           {"K2f": 1}, {"K2b": 1}, None),
     }
+
+
+# paths that only train (phase 5): no enhance phase
+TRAIN_ONLY = ("DCCRN-PMSQE", "DCCRN-LMS-bf16", "DCCRN-direct", "CRN-noskip-LMS")
 
 
 def phase_train(label: str, cfg, sd, per_fwd: dict, per_bwd: dict, steps: int) -> tuple:
@@ -1730,12 +1800,15 @@ def phase_train(label: str, cfg, sd, per_fwd: dict, per_bwd: dict, steps: int) -
     cpu_model, cpu_opt = create_train_state(cfg, sd, device="cpu")
     cpu_metrics = train_step(cfg, cpu_model, cpu_opt, noisy, clean)
     cpu_grads, cpu_stats = _grads_and_stats(cpu_model)
-    loss, cpu_loss = metrics["loss"].item(), cpu_metrics["loss"].item()
-    loss_err = abs(loss - cpu_loss) / max(1.0, abs(cpu_loss))
     loss_tol = BF16_LOSS_TOL if bf16 else TRAIN_LOSS_TOL
-    print(f"[train {label}] {cfg.loss} loss card {loss} cpu {cpu_loss}: relative {loss_err} "
-          f"(tolerance {loss_tol})")
-    assert np.isfinite(loss) and loss_err <= loss_tol, (loss, cpu_loss)
+    # the perceptual variant's two terms beside the loss, each held alike
+    for key in metrics:
+        loss, cpu_loss = metrics[key].item(), cpu_metrics[key].item()
+        loss_err = abs(loss - cpu_loss) / max(1.0, abs(cpu_loss))
+        what = f"{cfg.loss} loss" if key == "loss" else key
+        print(f"[train {label}] {what} card {loss} cpu {cpu_loss}: relative {loss_err} "
+              f"(tolerance {loss_tol})")
+        assert np.isfinite(loss) and loss_err <= loss_tol, (key, loss, cpu_loss)
     cancelled = _cancelled_by_batch_norm(sd)
     scale = max(g.abs().max().item() for g in cpu_grads.values())
     report = [("card vs cpu, over the leaf's max", _leaf_rel_errs(grads, cpu_grads, cancelled))]
@@ -1765,6 +1838,19 @@ def phase_train(label: str, cfg, sd, per_fwd: dict, per_bwd: dict, steps: int) -
         print(f"[train {label}] {len(cancelled)} BatchNorm-cancelled conv biases at roundoff "
               f"(<= 1e-5 of the largest gradient)")
         grad_tol = TRAIN_GRAD_TOL
+        if label in ILL_CONDITIONED:
+            assert all(torch.isfinite(g).all() for g in grads.values())
+            card, cpu, nudged = _cotangent_grads(cfg, sd, noisy, clean)
+            rel = _leaf_rel_errs(card, cpu, cancelled, GRAD_FLOOR * scale)
+            spread = _leaf_rel_errs(nudged, cpu, cancelled, GRAD_FLOOR * scale)
+            key = max(spread, key=spread.get)
+            grad_tol = max(TRAIN_GRAD_TOL, CONDITION_FACTOR * spread[key])
+            report.append(("card vs cpu for the CPU loss's cotangents of the outputs, over "
+                           f"max(leaf's max, {GRAD_FLOOR} x {scale:.4g})", rel))
+            print(f"[train {label}] conditioning: for those cotangents, the CPU's gradients from "
+                  f"an input one rounding away move {key} by {spread[key]:.3g}; card vs cpu "
+                  f"held to max({TRAIN_GRAD_TOL}, {CONDITION_FACTOR} x {spread[key]:.3g}) = "
+                  f"{grad_tol:.3g}")
     for what, errs in report:
         top = sorted(errs.items(), key=lambda kv: -kv[1])[:4]
         print(f"[train {label}] gradients, {what}: worst "
@@ -1789,6 +1875,39 @@ def phase_train(label: str, cfg, sd, per_fwd: dict, per_bwd: dict, steps: int) -
     return launches, _train_steps(label, train_cfg, sd, per_step, steps)
 
 
+def _cotangent_grads(cfg, sd, noisy, clean) -> tuple:
+    """The parameter gradients of train-mode forwards from ``sd``, each for
+    the same cotangents of the model's outputs, those of the train step's
+    loss on the CPU: on the card, on the CPU, and on the CPU from ``noisy``
+    with each sample moved by a relative 2^-23 x N(0, 1), one f32 rounding.
+    -> (card, CPU, nudged CPU) gradients by parameter name, on the host."""
+    from se_tpu_torch.train.state import create_train_state
+    from se_tpu_torch.train.steps import _loss_and_outputs, trainer_variant
+
+    rng = np.random.default_rng(SEED + 1)
+    nudged = (noisy * (1 + 2.0**-23 * rng.standard_normal(noisy.shape))).astype(np.float32)
+    grads, cots = {}, None
+    for run, dev, x in (("cpu", "cpu", noisy), ("card", "cuda", noisy), ("nudged", "cpu", nudged)):
+        model, _ = create_train_state(cfg, sd, device=dev)
+        model.train()
+        outs = []
+        model.register_forward_hook(lambda m, args, out: outs.extend(out))
+        on = next(model.parameters()).device
+        x, y = (torch.as_tensor(a, device=on) for a in (x, clean))
+        if cots is None:
+            loss, _, _ = _loss_and_outputs(cfg, trainer_variant(cfg), model, x, y)
+            live = [i for i, o in enumerate(outs) if o is not None and o.requires_grad]
+            cots = torch.autograd.grad(loss, [outs[i] for i in live], retain_graph=True,
+                                       allow_unused=True)
+            cots = [torch.zeros_like(outs[i]) if c is None else c for i, c in zip(live, cots)]
+        else:
+            model(x, y)
+        names, params = zip(*model.named_parameters())
+        g = torch.autograd.grad([outs[i] for i in live], params, [c.to(on) for c in cots])
+        grads[run] = {k: v.detach().cpu() for k, v in zip(names, g)}
+    return grads["card"], grads["cpu"], grads["nudged"]
+
+
 def _train_steps(label: str, cfg, sd, per_step: dict, steps: int = 10) -> dict:
     """The main train path: ``steps`` steps at the default batch on one fixed
     batch, every count set to 0 just before and read just after; the loss
@@ -1809,17 +1928,21 @@ def _train_steps(label: str, cfg, sd, per_step: dict, steps: int = 10) -> dict:
     before = eval_step(cfg, model, noisy, clean)[0]["loss"].item() if dropout else None
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    losses = []
+    metrics = []
     _zero_counts()
     t0 = time.perf_counter()
     for _ in range(steps):
-        losses.append(train_step(cfg, model, opt, noisy, clean, gen)["loss"])
+        metrics.append(train_step(cfg, model, opt, noisy, clean, gen))
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / steps
     main_launches = _counts()
-    losses = [x.item() for x in losses]
+    losses = [m["loss"].item() for m in metrics]
     print(f"[train {label}] {steps} steps at B={B} x {seconds} s: launches {main_launches}, "
           f"losses {losses}")
+    if "perceptual_loss" in metrics[0]:
+        print(f"[train {label}] {cfg.loss} and {cfg.perceptual} terms, first and last step: "
+              + ", ".join(f"{m['main_loss'].item()} and {m['perceptual_loss'].item()}"
+                          for m in (metrics[0], metrics[-1])))
     assert main_launches == _expected(per_step, steps), main_launches
     print(f"[train {label}] {1e3 * step_s:.3f} ms per step, {B / step_s:.2f} utterances/s, "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
@@ -1835,7 +1958,7 @@ def _train_steps(label: str, cfg, sd, per_step: dict, steps: int = 10) -> dict:
         mus = {st["mu"].dtype for st in opt.state.values()}
         print(f"[train {label}] Adam's first moments stored as {mus}")
         assert mus == {getattr(torch, cfg.train.adam_mu_dtype)}, mus
-    _profile(lambda: train_step(cfg, model, opt, noisy, clean, gen), steps=3, top=16)
+    _profile(lambda: train_step(cfg, model, opt, noisy, clean, gen), steps=PROFILE_CALLS, top=16)
     return main_launches
 
 
@@ -1903,7 +2026,7 @@ def phase_slice(label: str, cfg, sd, per_forward: dict) -> tuple:
     print(f"[slice {label}] {B * reps} utterances in {per_batch * reps:.4f} s: "
           f"{B / per_batch:.2f} utt/s, real-time factor {per_batch / (B * seconds):.6f}, "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    _profile(lambda: enhance_batch(model, noisy), steps=3)
+    _profile(lambda: enhance_batch(model, noisy), steps=PROFILE_CALLS)
 
     cpu_model = build_model(cfg, device="cpu")
     cpu_model.load_state_dict(sd, strict=True)
@@ -1923,13 +2046,15 @@ def phase_slice(label: str, cfg, sd, per_forward: dict) -> tuple:
     return launches, wav.cpu()
 
 
-def phase_cli(workdir: Path, paths: dict):
+def phase_cli(workdir: Path, paths: dict, held_to: dict = None):
     """The enhance CLI on the card for every path that has CLI arguments,
     each in a process of its own, all started at once (nothing is timed
     meanwhile): 3 files of 3, 2.5 and 1.25 s at ``--batch 2``, each output
     held to ``enhance_batch`` in this process on the buffers the CLI should
-    build, batched as the CLI batches them and one row at a time.  Every
-    process is waited for, or killed."""
+    build, batched as the CLI batches them and one row at a time; a path in
+    ``held_to`` (label -> ``phase_slice``'s waveform of the 8 utterances)
+    also holds its 3-s file, the first utterance, to that waveform's first
+    row.  Every process is waited for, or killed."""
     from se_tpu_torch.data.wav import write_wav
     from se_tpu_torch.utils.weights import save_reference_checkpoint
 
@@ -1958,6 +2083,8 @@ def phase_cli(workdir: Path, paths: dict):
             print(stdout.strip())
             assert proc.returncode == 0, stderr[-3000:]
             _check_cli(workdir / label, label, cfg, sd, cli_args, lengths)
+            if label in (held_to or {}):
+                _check_cli_against_slice(workdir / label, label, held_to[label])
     finally:
         for proc, _ in jobs.values():
             if proc.poll() is None:
@@ -2020,6 +2147,20 @@ def _check_cli(run_dir: Path, label: str, cfg, sd, cli_args, lengths: dict):
           f"{worst_batch * 32768:.1f} LSB (tolerance 2 LSB), one row at a time "
           f"{worst_single * 32768:.1f} LSB (tolerance {single_tol * 32768:.0f} LSB)")
     assert worst_batch <= CLI_TOL and worst_single <= single_tol, (worst_batch, worst_single)
+
+
+def _check_cli_against_slice(run_dir: Path, label: str, wav) -> None:
+    """The CLI's 3-s file (``_utterances``' first row, its own batch of two
+    with the 2.5-s file) against ``phase_slice``'s enhanced waveform of that
+    row in a batch of 8, at the CLI's int16 rounding: within CLI_TOL."""
+    from se_tpu_torch.data.wav import read_wav
+
+    got = read_wav(str(run_dir / "enhanced" / "a.wav"))[0]
+    want = np.clip(wav[0].numpy() * 32768, -32768, 32767).astype(np.int16) / 32768.0
+    err = float(np.abs(got - want).max())
+    print(f"[cli {label}] a.wav against phase_slice's first row: max {err * 32768:.1f} LSB "
+          f"(tolerance 2 LSB)")
+    assert got.shape == want.shape and err <= CLI_TOL, (got.shape, err)
 
 
 def _train_cli_data(workdir: Path, device: str, fs: int) -> tuple:
@@ -2206,6 +2347,8 @@ def main() -> int:
     paths = _paths()
     enhanced, waves = {}, {}
     for label, (cfg, sd, per_fwd, _, _) in paths.items():
+        if label in TRAIN_ONLY:
+            continue
         enhanced[label], waves[label] = phase_slice(label, cfg, sd, per_fwd)
         stamp(f"slice {label}")
     err = _max_err(waves["DCCRN-fused-conv"], waves["DCCRN"])
@@ -2226,12 +2369,15 @@ def main() -> int:
           f"(tolerance {BF16_SLICE_MEAN_TOL})")
     assert diff.max().item() <= BF16_SLICE_TOL and diff.mean().item() <= BF16_SLICE_MEAN_TOL
     trained = {}
-    # DCCRN-fused-conv's main path runs 3 steps, not 10, to keep the script
-    # within its time with the bf16 paths added
-    for label, steps in (("DCCRN", 10), ("CRN", 10), ("DCCRN-real", 0), ("FullSubNet", 10),
-                         ("FullSubNet-GRU", 10), ("DCCRN-fused-conv", 3), ("DCCRN-bf16", 10),
-                         ("CRN-bf16", 10), ("DCCRN-real-bf16", 10), ("FullSubNet-bf16", 10),
-                         ("FullSubNet-GRU-bf16", 10), ("DCCRN-fused-conv-bf16", 10)):
+    # Main-path depths, set to keep the script within its time: 5 steps, 3
+    # for DCCRN-fused-conv; 10 for the FullSubNets, whose falling-loss check
+    # needs them, and for DCCRN-PMSQE, the trainer variants' main path
+    for label, steps in (("DCCRN", 5), ("CRN", 5), ("DCCRN-real", 0), ("FullSubNet", 10),
+                         ("FullSubNet-GRU", 10), ("DCCRN-fused-conv", 3), ("DCCRN-bf16", 5),
+                         ("CRN-bf16", 5), ("DCCRN-real-bf16", 5), ("FullSubNet-bf16", 10),
+                         ("FullSubNet-GRU-bf16", 10), ("DCCRN-fused-conv-bf16", 5),
+                         ("DCCRN-PMSQE", 10), ("DCCRN-LMS-bf16", 0), ("DCCRN-direct", 0),
+                         ("DCCRN-cbn-noskip", 0), ("CRN-noskip-LMS", 0)):
         cfg, sd, per_fwd, per_bwd, _ = paths[label]
         trained[label] = phase_train(label, cfg, sd, per_fwd, per_bwd, steps)
         stamp(f"train {label}")
@@ -2239,7 +2385,8 @@ def main() -> int:
     cfg, sd, per_fwd, per_bwd, _ = paths["DCCRN-bf16"]
     mu_cfg = cfg.replace(train=dataclasses.replace(cfg.train, adam_mu_dtype="bfloat16"))
     trained["DCCRN-bf16-adam-mu"] = (None, _train_steps("DCCRN-bf16 adam_mu_dtype=bfloat16",
-                                                        mu_cfg, sd, {**per_fwd, **per_bwd}))
+                                                        mu_cfg, sd, {**per_fwd, **per_bwd},
+                                                        steps=5))
     cfg, sd, per_fwd, per_bwd, _ = paths["CRN"]
     trained["CRN-direct"] = phase_train(
         "CRN-direct", cfg.replace(masking_mode="Direct(None make)"), sd, per_fwd, per_bwd,
@@ -2255,27 +2402,29 @@ def main() -> int:
 
     start_pool(score_workers(TRAIN_CLI_BATCH))
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-        phase_cli(Path(tmp), paths)
+        phase_cli(Path(tmp), paths, held_to={"DCCRN-cbn-noskip": waves["DCCRN-cbn-noskip"]})
     stamp("CLI")
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         phase_train_cli(Path(tmp))
     stamp("train CLI")
 
     k2_paths = ("CRN", "DCCRN-real", "FullSubNet")
-    k1_paths = ("DCCRN", "DCCRN-fused-conv")
+    k2_train = (*k2_paths, "CRN-direct", "CRN-noskip-LMS")
+    k1_paths = ("DCCRN", "DCCRN-fused-conv", "DCCRN-cbn-noskip")
+    k1_train = (*k1_paths, "DCCRN-PMSQE", "DCCRN-direct")
     fwd.update(launches=enhanced["DCCRN"]["K1f"],
                launches_per_forward={k: enhanced[k]["K1f"] for k in k1_paths},
-               launches_per_train_step={k: trained[k][0]["K1f"] for k in k1_paths},
+               launches_per_train_step={k: trained[k][0]["K1f"] for k in k1_train},
+               launches_in_10_steps_pmsqe=trained["DCCRN-PMSQE"][1]["K1f"],
                **stash_times)
     bwd.update(launches=trained["DCCRN"][1]["K1b"],
-               launches_per_train_step={k: trained[k][0]["K1b"] for k in k1_paths})
+               launches_per_train_step={k: trained[k][0]["K1b"] for k in k1_train},
+               launches_in_10_steps_pmsqe=trained["DCCRN-PMSQE"][1]["K1b"])
     k2f.update(launches=enhanced["CRN"]["K2f"],
                launches_per_forward={k: enhanced[k]["K2f"] for k in k2_paths},
-               launches_per_train_step={k: trained[k][0]["K2f"]
-                                        for k in (*k2_paths, "CRN-direct")})
+               launches_per_train_step={k: trained[k][0]["K2f"] for k in k2_train})
     k2b.update(launches=trained["CRN"][1]["K2b"],
-               launches_per_train_step={k: trained[k][0]["K2b"]
-                                        for k in (*k2_paths, "CRN-direct")})
+               launches_per_train_step={k: trained[k][0]["K2b"] for k in k2_train})
     k3f.update(launches=enhanced["FullSubNet-GRU"]["K3f"],
                launches_per_forward=enhanced["FullSubNet-GRU"]["K3f"],
                launches_per_train_step=trained["FullSubNet-GRU"][0]["K3f"])
@@ -2288,10 +2437,12 @@ def main() -> int:
     k1_16 = ("DCCRN-bf16", "DCCRN-fused-conv-bf16")
     k1f16.update(launches=enhanced["DCCRN-bf16"]["K1f-bf16"],
                  launches_per_forward={k: enhanced[k]["K1f-bf16"] for k in k1_16},
-                 launches_per_train_step={k: trained[k][0]["K1f-bf16"] for k in k1_16})
+                 launches_per_train_step={k: trained[k][0]["K1f-bf16"]
+                                          for k in (*k1_16, "DCCRN-LMS-bf16")})
     k1b16.update(launches=trained["DCCRN-bf16"][1]["K1b-bf16"],
-                 launches_per_train_step={k: trained[k][0]["K1b-bf16"] for k in k1_16},
-                 launches_in_10_steps_adam_mu_bf16=trained["DCCRN-bf16-adam-mu"][1]["K1b-bf16"])
+                 launches_per_train_step={k: trained[k][0]["K1b-bf16"]
+                                          for k in (*k1_16, "DCCRN-LMS-bf16")},
+                 launches_in_5_steps_adam_mu_bf16=trained["DCCRN-bf16-adam-mu"][1]["K1b-bf16"])
     k2_16 = ("CRN-bf16", "FullSubNet-bf16")
     k2f16.update(launches=enhanced["CRN-bf16"]["K2f-bf16"],
                  launches_per_forward={k: enhanced[k]["K2f-bf16"] for k in k2_16},
@@ -2307,7 +2458,7 @@ def main() -> int:
     k4_16.update(launches=enhanced["DCCRN-fused-conv-bf16"]["K4-bf16"],
                  launches_per_forward=enhanced["DCCRN-fused-conv-bf16"]["K4-bf16"],
                  launches_per_train_step=trained["DCCRN-fused-conv-bf16"][0]["K4-bf16"],
-                 launches_in_10_train_steps=trained["DCCRN-fused-conv-bf16"][1]["K4-bf16"])
+                 launches_in_5_train_steps=trained["DCCRN-fused-conv-bf16"][1]["K4-bf16"])
     stamp("every check")
     print(smi)
     print(json.dumps({"kernels": [fwd, bwd, k2f, k2b, k3f, k3b, k4, p1, p2, p3,

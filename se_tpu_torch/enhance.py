@@ -5,6 +5,8 @@
         [--lstm complex] [--masking-mode E] [--batch N] [--device cuda] \\
         noisy1.wav ... --out-dir DIR
     python -m se_tpu_torch.enhance --checkpoint chkpt.pt --model CRN noisy.wav
+    python -m se_tpu_torch.enhance --checkpoint chkpt.pt --model DCCRN \
+        --use-cbn --no-skip noisy.wav
     python -m se_tpu_torch.enhance --checkpoint chkpt.pt --model FullSubNet \\
         [--sequence-model GRU] [--fsn-norm cumulative_laplace_norm] noisy.wav
     python -m se_tpu_torch.enhance --checkpoint chkpt.pt --model CRN \\
@@ -28,6 +30,10 @@ its last row; rows are independent, so each output matches its
 ``--batch 1`` run up to float rounding.  ``--compute-dtype bfloat16`` runs
 DCCRN, CRN and FullSubNet in the reference's mixed precision
 (``Config.compute_dtype``); FullSubNet's bucketing is the same in bf16.
+``--no-skip`` and ``--use-cbn`` name a checkpoint trained without skip
+connections or with DCCRN's complex BatchNorm.  A DCCRN trained with
+``--masking-mode 'Direct(None make)'`` cannot enhance without targets, as
+in the JAX CLI: its forward raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from .config import Config, FullSubNetConfig
+from .config import Config, DccrnConfig, FullSubNetConfig
 from .data.wav import read_wav, write_wav
 from .device import resolve_device
 from .dsp.stft import stft
@@ -121,6 +127,10 @@ def main(argv=None):
                    help="FullSubNet's RNN, as the checkpoint was trained")
     p.add_argument("--fsn-norm", default=None,
                    help="FullSubNet norm_type override (the norms hold no parameters)")
+    p.add_argument("--no-skip", action="store_true",
+                   help="checkpoint was trained with skip_type=False")
+    p.add_argument("--use-cbn", action="store_true",
+                   help="checkpoint was trained with complex batch norm")
     p.add_argument("--out-dir", default="enhanced")
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--device", default="cuda")
@@ -141,7 +151,8 @@ def main(argv=None):
 
     fsn = FullSubNetConfig(norm_type=args.fsn_norm) if args.fsn_norm else FullSubNetConfig()
     cfg = Config(model=args.model, masking_mode=args.masking_mode, lstm=args.lstm,
-                 sequence_model=args.sequence_model, fullsubnet=fsn,
+                 sequence_model=args.sequence_model, skip_type=not args.no_skip,
+                 dccrn=DccrnConfig(use_cbn=args.use_cbn), fullsubnet=fsn,
                  compute_dtype=args.compute_dtype)
     model = build_model(cfg, device=dev)
     model.load_state_dict(load_reference_checkpoint(args.checkpoint)[0], strict=True)

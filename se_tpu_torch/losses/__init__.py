@@ -1,4 +1,4 @@
 from .core import mse, sdr, si_sdr, si_snr
-from .dispatch import main_loss
+from .dispatch import main_loss, perceptual_loss
 
-__all__ = ["main_loss", "mse", "sdr", "si_sdr", "si_snr"]
+__all__ = ["main_loss", "mse", "perceptual_loss", "sdr", "si_sdr", "si_snr"]

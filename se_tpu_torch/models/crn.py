@@ -3,13 +3,18 @@
 
 Conv-STFT magnitude -> real conv encoder -> one-layer LSTM bottleneck and a
 linear map back to the encoder's width -> real transposed-conv decoder with
-skip connections -> a tanh mask on the noisy magnitude (E, C and R masks
-alike) or the magnitude itself (``"Direct(None make)"``) -> noisy phase ->
-conv-iSTFT -> clip to +-1.  Under ``compute_dtype="bfloat16"`` the network
-from the magnitudes to the decoder's output runs in bf16 (the LSTM on bf16
-streams around an f32 carry), the STFT, the mask and the iSTFT in f32.  Module names follow the reference's state-dict
-grammar (``encoder.{i}.0.conv.*``, ``enhance.weight_ih_l0``,
-``tranform.*``, ``decoder.{i}.0.conv.*``).
+skip connections, or none (``skip_type=False``) -> a tanh mask on the noisy
+magnitude (E, C and R masks alike) or the magnitude itself (``"Direct(None
+make)"``) -> noisy phase -> conv-iSTFT -> clip to +-1.  Under
+``compute_dtype="bfloat16"`` the network from the magnitudes to the
+decoder's output runs in bf16 (the LSTM on bf16 streams around an f32
+carry), the STFT, the mask and the iSTFT in f32.  Module names follow the
+reference's state-dict grammar (``encoder.{i}.0.conv.*``,
+``enhance.weight_ih_l0``, ``tranform.*``, ``decoder.{i}.0.conv.*``; without
+skip connections the reference's decoder convs are bare,
+``decoder.{i}.0.*``).  The no-skip decoder takes the channels that reach
+it, ``kernel_num[idx] // 2``, as the JAX package's does: the reference
+declares ``kernel_num[idx]`` and cannot run that variant.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from ..config import Config
 from ..ops.magnitude import complex_mag
 from .dccrn import ConviSTFT, ConvSTFT
 from .layers import (
+    ConvTranspose2d,
     PReLU,
     RealConv2d,
     RealConvTranspose2d,
@@ -37,10 +43,7 @@ class CRN(nn.Module):
     def __init__(self, cfg: Config, *, generator: torch.Generator):
         super().__init__()
         c = cfg
-        if not c.skip_type:
-            raise NotImplementedError(
-                "CRN skip_type=False is not ported yet (ROADMAP.md, Queue 1 item 8)"
-            )
+        self.skip = c.skip_type
         self.compute_dtype = torch.bfloat16 if c.compute_dtype == "bfloat16" else torch.float32
         self.direct = c.masking_mode == "Direct(None make)"
         self.fft_len = c.stft.fft_len
@@ -68,10 +71,12 @@ class CRN(nn.Module):
                                     generator=generator)
 
         decoder = []
+        conv_t = RealConvTranspose2d if self.skip else ConvTranspose2d
         for idx in range(n_stage, 0, -1):
+            in_ch = kernel_num[idx] if self.skip else kernel_num[idx] // 2
             stage = [
-                RealConvTranspose2d(
-                    kernel_num[idx], kernel_num[idx - 1] // 2, kernel_size=(ks, 2),
+                conv_t(
+                    in_ch, kernel_num[idx - 1] // 2, kernel_size=(ks, 2),
                     stride=(2, 1), padding=(2, 0), output_padding=(1, 0),
                     generator=generator,
                 )
@@ -105,7 +110,8 @@ class CRN(nn.Module):
         out = out.reshape(T, B, C, D).permute(1, 2, 3, 0)  # [B, C, D, T]
 
         for idx, stage in enumerate(self.decoder):
-            out = torch.cat([out, encoder_out[-1 - idx]], 1)
+            if self.skip:
+                out = torch.cat([out, encoder_out[-1 - idx]], 1)
             out = stage(out)[..., 1:]  # causal time trim per stage
         out = F.pad(out[:, 0].float(), (0, 0, 1, 0))  # re-pad the DC bin
 

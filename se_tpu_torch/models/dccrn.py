@@ -3,18 +3,23 @@
 
 Conv-STFT -> complex conv encoder -> complex LSTM bottleneck -> complex
 transposed-conv decoder with skip connections -> mask on the noisy
-spectrum -> conv-iSTFT -> clip to +-1.  Ported: the complex LSTM and the
+spectrum -> conv-iSTFT -> clip to +-1.  Variants: the complex LSTM or the
 real one (``lstm="real"``: a two-layer ``nn.LSTM`` over the real and
-imaginary channels together, then a linear map back), skip connections,
-real BatchNorm, the E, C and R masks, ``use_pallas_conv``: the encoder
-convs through the hand-written kernel K4 (``ops/fused_conv.py``), and
-``compute_dtype="bfloat16"``: the reference's mixed precision (parameters
-f32, each op casting them to its activation dtype), with the STFT, the
-mask, the iSTFT and the real LSTM in f32 and the complex LSTM on bf16
-streams around an f32 carry.
+imaginary channels together, then a linear map back); skip connections or
+none (``skip_type=False``); real BatchNorm or the complex whitening one
+(``dccrn.use_cbn``); the E, C and R masks, or direct mapping
+(``"Direct(None make)"``: the decoder's output is the spectrum, and the
+forward also returns the targets' spectrum); ``use_pallas_conv``: the
+encoder convs through the hand-written kernel K4 (``ops/fused_conv.py``);
+and ``compute_dtype="bfloat16"``: the reference's mixed precision
+(parameters f32, each op casting them to its activation dtype), with the
+STFT, the mask, the iSTFT and the real LSTM in f32 and the complex LSTM on
+bf16 streams around an f32 carry.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -24,6 +29,7 @@ from ..config import Config
 from ..dsp.stft import conv_stft_bases, conv_istft, conv_stft
 from ..ops.magnitude import complex_mag, safe_arctan2
 from .layers import (
+    ComplexBatchNorm,
     ComplexConv2d,
     ComplexConvTranspose2d,
     NavieComplexLSTM,
@@ -32,10 +38,6 @@ from .layers import (
     TorchLinear,
     TorchLSTM,
     complex_cat,
-)
-
-NOT_PORTED = (
-    "is not ported yet (ROADMAP.md, Queue 1: DCCRN's other variants)"
 )
 
 
@@ -74,14 +76,9 @@ class DCCRN(nn.Module):
     def __init__(self, cfg: Config, *, generator: torch.Generator):
         super().__init__()
         c = cfg
-        if c.dccrn.use_cbn:
-            raise NotImplementedError(f"DCCRN use_cbn=True {NOT_PORTED}")
-        if not c.skip_type:
-            raise NotImplementedError(f"DCCRN skip_type=False {NOT_PORTED}")
-        if c.masking_mode not in ("E", "C", "R"):
-            raise NotImplementedError(f"DCCRN masking_mode={c.masking_mode!r} {NOT_PORTED}")
         self.compute_dtype = torch.bfloat16 if c.compute_dtype == "bfloat16" else torch.float32
         self.masking_mode = c.masking_mode
+        self.skip = c.skip_type
         self.real_lstm = c.lstm == "real"
         self.fft_len = c.stft.fft_len
         s = c.stft
@@ -91,12 +88,17 @@ class DCCRN(nn.Module):
         kernel_num = (2,) + tuple(c.dccrn.kernel_num)
         ks = c.dccrn.kernel_size
         n_stage = len(kernel_num) - 1
+
+        def norm(n):
+            return (ComplexBatchNorm(n, generator=generator) if c.dccrn.use_cbn
+                    else TorchBatchNorm2d(n))
+
         self.encoder = nn.ModuleList(
             nn.Sequential(
                 ComplexConv2d(kernel_num[i], kernel_num[i + 1], kernel_size=(ks, 2),
                               stride=(2, 1), padding=(2, 1), use_pallas=c.use_pallas_conv,
                               generator=generator),
-                TorchBatchNorm2d(kernel_num[i + 1]),
+                norm(kernel_num[i + 1]),
                 PReLU(),
             )
             for i in range(n_stage)
@@ -121,21 +123,32 @@ class DCCRN(nn.Module):
             )
 
         decoder = []
+        skip_mult = 2 if self.skip else 1
         for idx in range(n_stage, 0, -1):
             stage = [
                 ComplexConvTranspose2d(
-                    kernel_num[idx] * 2, kernel_num[idx - 1], kernel_size=(ks, 2),
+                    kernel_num[idx] * skip_mult, kernel_num[idx - 1], kernel_size=(ks, 2),
                     stride=(2, 1), padding=(2, 0), output_padding=(1, 0),
                     generator=generator,
                 )
             ]
             if idx != 1:  # the last stage has no BN or PReLU
-                stage += [TorchBatchNorm2d(kernel_num[idx - 1]), PReLU()]
+                stage += [norm(kernel_num[idx - 1]), PReLU()]
             decoder.append(nn.Sequential(*stage))
         self.decoder = nn.ModuleList(decoder)
 
-    def forward(self, inputs):
-        """``inputs [B, L]`` -> ``(out_real, out_imag, out_wav)``."""
+    def forward(self, inputs, targets: Optional[torch.Tensor] = None):
+        """``inputs [B, L]`` -> ``(out_real, out_imag, out_wav)`` with a mask;
+        in direct mode, ``(out_real, target_real, out_imag, target_imag,
+        out_wav)``, the targets' spectrum from the model's own STFT of
+        ``targets [B, L]``, which direct mode needs.  Other modes ignore
+        ``targets``."""
+        direct = self.masking_mode == "Direct(None make)"
+        if direct and targets is None:
+            raise ValueError(
+                "a DCCRN with masking_mode 'Direct(None make)' maps to the spectrum and returns "
+                "it beside the targets' spectrum: it needs targets, so it cannot enhance alone"
+            )
         specs = self.stft(inputs)  # [B, fft_len + 2, T]
         dim = self.fft_len // 2 + 1
         real, imag = specs[:, :dim], specs[:, dim:]
@@ -167,12 +180,18 @@ class DCCRN(nn.Module):
         out = out.permute(1, 2, 3, 0).to(self.compute_dtype)  # [B, C, D, T]
 
         for idx, stage in enumerate(self.decoder):
-            out = complex_cat([out, encoder_out[-1 - idx]], 1)
+            if self.skip:
+                out = complex_cat([out, encoder_out[-1 - idx]], 1)
             out = stage(out)[..., 1:]  # causal time trim per stage
         out = out.float()  # the mask and the iSTFT in f32
 
         mask_real = F.pad(out[:, 0], (0, 0, 1, 0))  # re-pad the DC bin
         mask_imag = F.pad(out[:, 1], (0, 0, 1, 0))
+        if direct:  # the decoder's output is the spectrum
+            target_specs = self.stft(targets)
+            out_wav = self.istft(torch.cat([mask_real, mask_imag], dim=1))[:, 0]
+            return (mask_real, target_specs[:, :dim], mask_imag, target_specs[:, dim:],
+                    torch.clamp(out_wav, -1.0, 1.0))
         if self.masking_mode == "E":
             mask_mags = complex_mag(mask_real, mask_imag)
             real_phase = mask_real / (mask_mags + 1e-8)

@@ -20,7 +20,7 @@ from ..ops import conv as conv_ops
 from ..ops import rnn as rnn_ops
 from ..ops.activations import prelu
 from ..ops.fused_conv import fused_complex_conv2d
-from ..ops.norms import batch_norm_2d
+from ..ops.norms import ComplexBnState, batch_norm_2d, complex_batch_norm
 
 
 def _normal05(generator: torch.Generator, shape) -> torch.Tensor:
@@ -71,6 +71,38 @@ class TorchBatchNorm2d(nn.Module):
         return y
 
 
+class ComplexBatchNorm(nn.Module):
+    """The whitening complex BatchNorm over ``num_features`` channels (real
+    and imaginary together): parameters ``Wrr``, ``Wri``, ``Wii``, ``Br``,
+    ``Bi`` and buffers ``RMr``, ``RMi``, ``RVrr``, ``RVri``, ``RVii``, each of
+    ``num_features // 2``, under the reference's names.  ``Wri`` is drawn from
+    U(-0.9, 0.9) with ``generator``."""
+
+    def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5,
+                 *, generator: torch.Generator):
+        super().__init__()
+        C = num_features // 2
+        self.momentum, self.eps = momentum, eps
+        self.Wrr = nn.Parameter(torch.ones(C))
+        self.Wri = nn.Parameter(_uniform(generator, (C,), 0.9))
+        self.Wii = nn.Parameter(torch.ones(C))
+        self.Br = nn.Parameter(torch.zeros(C))
+        self.Bi = nn.Parameter(torch.zeros(C))
+        for name, init in (("RMr", torch.zeros), ("RMi", torch.zeros), ("RVrr", torch.ones),
+                           ("RVri", torch.zeros), ("RVii", torch.ones)):
+            self.register_buffer(name, init(C))
+
+    def forward(self, x):
+        state = ComplexBnState(*(getattr(self, n) for n in ComplexBnState._fields))
+        y, new = complex_batch_norm(x, self.Wrr, self.Wri, self.Wii, self.Br, self.Bi, state,
+                                    self.training, self.momentum, self.eps)
+        if self.training:
+            with torch.no_grad():
+                for name, value in zip(ComplexBnState._fields, new):
+                    getattr(self, name).copy_(value)
+        return y
+
+
 class PReLU(nn.Module):
     """``nn.PReLU`` with one shared slope, initialised to 0.25."""
 
@@ -80,6 +112,21 @@ class PReLU(nn.Module):
 
     def forward(self, x):
         return prelu(x, self.weight)
+
+
+class CPReLU(nn.Module):
+    """A PReLU for each half of the channels (real, then imaginary), slopes
+    ``r_weight`` and ``i_weight``, each initialised to 0.25."""
+
+    def __init__(self):
+        super().__init__()
+        self.r_weight = nn.Parameter(torch.full((1,), 0.25))
+        self.i_weight = nn.Parameter(torch.full((1,), 0.25))
+
+    def forward(self, x):
+        C = x.shape[1]
+        r, i = x[:, : C // 2], x[:, C // 2 :]
+        return torch.cat([prelu(r, self.r_weight), prelu(i, self.i_weight)], dim=1)
 
 
 class _ConvWeights(nn.Module):
@@ -186,22 +233,34 @@ class RealConv2d(nn.Module):
                                padding=(ph, 0))
 
 
+class ConvTranspose2d(_ConvWeights):
+    """A bare ``nn.ConvTranspose2d`` (``weight``, ``bias``), as the
+    reference's CRN decoder holds it without skip connections."""
+
+    def __init__(self, in_channels, out_channels, kernel_size=(1, 1), stride=(1, 1),
+                 padding=(0, 0), output_padding=(0, 0), *, generator: torch.Generator):
+        super().__init__((in_channels, out_channels, *kernel_size), out_channels, generator)
+        self.stride, self.padding = tuple(stride), tuple(padding)
+        self.output_padding = tuple(output_padding)
+
+    def forward(self, x):
+        return conv_ops.conv_transpose2d(
+            x, self.weight, self.bias, stride=self.stride, padding=self.padding,
+            output_padding=self.output_padding,
+        )
+
+
 class RealConvTranspose2d(nn.Module):
     """``nn.ConvTranspose2d`` held as ``.conv``, the reference's wrapper."""
 
     def __init__(self, in_channels, out_channels, kernel_size=(1, 1), stride=(1, 1),
                  padding=(0, 0), output_padding=(0, 0), *, generator: torch.Generator):
         super().__init__()
-        self.stride, self.padding = tuple(stride), tuple(padding)
-        self.output_padding = tuple(output_padding)
-        self.conv = _ConvWeights((in_channels, out_channels, *kernel_size), out_channels,
-                                 generator)
+        self.conv = ConvTranspose2d(in_channels, out_channels, kernel_size, stride, padding,
+                                    output_padding, generator=generator)
 
     def forward(self, x):
-        return conv_ops.conv_transpose2d(
-            x, self.conv.weight, self.conv.bias, stride=self.stride, padding=self.padding,
-            output_padding=self.output_padding,
-        )
+        return self.conv(x)
 
 
 def complex_cat(inputs: Sequence[torch.Tensor], dim: int) -> torch.Tensor:

@@ -1,10 +1,10 @@
 """Tensorboard writer (counterpart of ``se_tpu/obs/writer.py``; reference:
 write_on_tensorboard.py:13-386).
 
-Scalars (train/val loss, PESQ/STOI), periodic audio triplets and the
-spectrogram image channel, which the validation loop logs every
-``train.loop.MEDIA_EVERY`` epochs (10, the reference's hard-coded audio
-cadence, trainer.py:232-233).
+Scalars (train/val loss, the perceptual variant's two terms, PESQ/STOI),
+periodic audio triplets and the spectrogram image channel, which the
+validation loop logs every ``train.loop.MEDIA_EVERY`` epochs (10, the
+reference's hard-coded audio cadence, trainer.py:232-233).
 """
 
 from __future__ import annotations
@@ -36,6 +36,15 @@ class Writer:
             return
         self._w.add_scalar("train_loss", float(train_loss), step)
         self._w.add_scalar("vali_loss", float(vali_loss), step)
+
+    def log_sub_loss(self, train_main, train_perceptual, vali_main, vali_perceptual, step):
+        """The perceptual variant's two terms, in training and validation."""
+        if self._w is None:
+            return
+        self._w.add_scalar("train_main_loss", float(train_main), step)
+        self._w.add_scalar("train_perceptual_loss", float(train_perceptual), step)
+        self._w.add_scalar("vali_main_loss", float(vali_main), step)
+        self._w.add_scalar("vali_perceptual_loss", float(vali_perceptual), step)
 
     def log_score(self, pesq, stoi, step):
         if self._w is None:

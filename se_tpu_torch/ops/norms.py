@@ -1,5 +1,6 @@
-"""BatchNorm with torch semantics and FullSubNet's normalisations
-(counterpart of ``batch_norm_2d``, the four norms of ``norm_wrapper`` and
+"""BatchNorm with torch semantics, the complex (whitening) BatchNorm and
+FullSubNet's normalisations (counterpart of ``batch_norm_2d``,
+``complex_batch_norm``, the four norms of ``norm_wrapper`` and
 ``norm_wrapper`` itself in ``se_tpu/ops/norms.py``).
 
 The FullSubNet norms take ``[B, C, F, T]`` and keep their statistics in
@@ -12,6 +13,8 @@ items 11 and 14).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +55,89 @@ def batch_norm_2d(
     ]
     y = y + bias.to(x.dtype)[None, :, None, None]
     return y, new_mean, new_var
+
+
+class ComplexBnState(NamedTuple):
+    """The complex BatchNorm's running statistics, each ``[C]``: the means of
+    the real and imaginary parts and their 2x2 covariance."""
+
+    RMr: torch.Tensor
+    RMi: torch.Tensor
+    RVrr: torch.Tensor
+    RVri: torch.Tensor
+    RVii: torch.Tensor
+
+
+def complex_batch_norm(
+    x: torch.Tensor,
+    Wrr: torch.Tensor,
+    Wri: torch.Tensor,
+    Wii: torch.Tensor,
+    Br: torch.Tensor,
+    Bi: torch.Tensor,
+    state: ComplexBnState,
+    train: bool,
+    momentum: float = 0.1,
+    eps: float = 1e-5,
+) -> Tuple[torch.Tensor, ComplexBnState]:
+    """Whitening BatchNorm of ``x [B, 2C, H, W]`` (the real block over the
+    imaginary block on the channels) -> ``(y, new state)``.
+
+    Each channel's (real, imaginary) pair is centred, multiplied by the
+    inverse square root of its 2x2 covariance ``[[Vrr, Vri], [Vri, Vii]]``
+    (eps added to the diagonal), then by the symmetric matrix ``[[Wrr, Wri],
+    [Wri, Wii]]``, and shifted by ``(Br, Bi)``.  Training uses the batch's
+    means and biased covariance and moves the running statistics toward them
+    by ``momentum``; evaluation uses the running statistics.  The new state
+    carries no gradient."""
+    C2 = x.shape[1]
+    xr, xi = x[:, : C2 // 2], x[:, C2 // 2 :]
+    vdim = (1, C2 // 2, 1, 1)
+    redux = (0, 2, 3)
+    lerp = lambda old, new: ((1 - momentum) * old + momentum * new.detach().reshape(-1))
+
+    if train:
+        Mr = xr.mean(dim=redux, keepdim=True)
+        Mi = xi.mean(dim=redux, keepdim=True)
+        new_RMr, new_RMi = lerp(state.RMr, Mr), lerp(state.RMi, Mi)
+    else:
+        Mr, Mi = state.RMr.reshape(vdim), state.RMi.reshape(vdim)
+        new_RMr, new_RMi = state.RMr, state.RMi
+    xr, xi = xr - Mr, xi - Mi
+
+    if train:
+        Vrr = (xr * xr).mean(dim=redux, keepdim=True)
+        Vri = (xr * xi).mean(dim=redux, keepdim=True)
+        Vii = (xi * xi).mean(dim=redux, keepdim=True)
+        new_RVrr, new_RVri, new_RVii = (lerp(state.RVrr, Vrr), lerp(state.RVri, Vri),
+                                        lerp(state.RVii, Vii))
+    else:
+        Vrr, Vri, Vii = (state.RVrr.reshape(vdim), state.RVri.reshape(vdim),
+                         state.RVii.reshape(vdim))
+        new_RVrr, new_RVri, new_RVii = state.RVrr, state.RVri, state.RVii
+    Vrr = Vrr + eps
+    Vii = Vii + eps
+
+    # inverse matrix square root of [[Vrr, Vri], [Vri, Vii]]
+    tau = Vrr + Vii
+    delta = Vrr * Vii - Vri * Vri
+    s = torch.sqrt(delta)
+    t = torch.sqrt(tau + 2 * s)
+    rst = 1.0 / (s * t)
+    Urr = (s + Vii) * rst
+    Uii = (s + Vrr) * rst
+    Uri = -Vri * rst
+
+    Wrr_, Wri_, Wii_ = Wrr.reshape(vdim), Wri.reshape(vdim), Wii.reshape(vdim)
+    Zrr = Wrr_ * Urr + Wri_ * Uri
+    Zri = Wrr_ * Uri + Wri_ * Uii
+    Zir = Wri_ * Urr + Wii_ * Uri
+    Zii = Wri_ * Uri + Wii_ * Uii
+
+    yr = Zrr * xr + Zri * xi + Br.reshape(vdim)
+    yi = Zir * xr + Zii * xi + Bi.reshape(vdim)
+    out = torch.cat([yr, yi], dim=1)
+    return out, ComplexBnState(new_RMr, new_RMi, new_RVrr, new_RVri, new_RVii)
 
 
 def _frame_mask(x: torch.Tensor, valid_frames):

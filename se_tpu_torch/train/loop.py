@@ -27,7 +27,7 @@ from ..eval.metrics import cal_pesq, cal_stoi, start_pool
 from ..obs import Bar, Writer
 from .checkpoint import checkpoint_path, copy_best_checkpoint, restore_checkpoint, save_checkpoint
 from .state import create_train_state
-from .steps import _require_ported, eval_step, train_step
+from .steps import eval_step, train_step
 
 # validation batches whose scores may be pending at once: each holds its
 # batch's waveforms in host memory
@@ -71,7 +71,6 @@ class Trainer:
 
     def __init__(self, cfg: Config, train_data=None, valid_data=None, score_fn=None,
                  device="cuda"):
-        _require_ported(cfg, "train loop")
         self.cfg = cfg
         self.train_data = train_data if train_data is not None else cfg.train.train_data_path
         self.valid_data = valid_data if valid_data is not None else cfg.train.valid_data_path
@@ -216,6 +215,7 @@ class Trainer:
     # -- full run --------------------------------------------------------
     def run(self) -> np.ndarray:
         cfg = self.cfg
+        perceptual = cfg.perceptual is not False
         for epoch in range(self.epoch_start_idx, cfg.train.max_epochs + 1):
             start_time = time.time()
             tr = self.train_epoch()
@@ -227,8 +227,16 @@ class Trainer:
             va = self.validate_epoch(epoch)
             self.writer.log_loss(tr["loss"], va["loss"], epoch)
             self.writer.log_score(va["pesq"], va["stoi"], epoch)
-            msg = (f"Epoch [{epoch}] | T {tr['loss']:.6f} | V {va['loss']:.6} "
-                   f"takes {time.time() - start_time:.2f} seconds\n")
+            if perceptual:
+                self.writer.log_sub_loss(tr["main_loss"], tr["perceptual_loss"],
+                                         va["main_loss"], va["perceptual_loss"], epoch)
+                msg = (f"Epoch [{epoch}] | T {tr['loss']:.6f} | V {va['loss']:.6}\n"
+                       f"          | T {tr['main_loss']:.6f} {tr['perceptual_loss']:.6f} "
+                       f"| V {va['main_loss']:.6} {va['perceptual_loss']:.6f} takes "
+                       f"{time.time() - start_time:.2f} seconds\n")
+            else:
+                msg = (f"Epoch [{epoch}] | T {tr['loss']:.6f} | V {va['loss']:.6} "
+                       f"takes {time.time() - start_time:.2f} seconds\n")
             msg += f"          | V PESQ: {va['pesq']:.6f} | STOI: {va['stoi']:.6f} \n"
             print(msg)
             self.fp.write(msg)

@@ -1,6 +1,10 @@
-"""Train and validation steps (counterpart of the masking, ``crn_direct``
-and ``fullsubnet`` variants of ``make_train_step`` and ``make_eval_step``
-in ``se_tpu/train/steps.py``), and FullSubNet's cRM decode."""
+"""Train and validation steps (counterpart of ``make_train_step`` and
+``make_eval_step`` in ``se_tpu/train/steps.py``: the five trainer
+variants), and FullSubNet's cRM decode.
+
+As the JAX step does, the ``perceptual`` variant passes the targets to the
+model: the reference's perceptual loop calls ``model(inputs)``, which works
+for DCCRN and fails for CRN, whose forward needs the targets."""
 
 from __future__ import annotations
 
@@ -10,15 +14,8 @@ import torch
 
 from ..config import Config
 from ..dsp.stft import istft, mag_phase, stft
-from ..losses import main_loss
+from ..losses import main_loss, perceptual_loss
 from ..ops.cirm import build_complex_ideal_ratio_mask, decompress_cIRM
-
-# where each trainer variant that is not ported yet stands in ROADMAP.md
-_NOT_PORTED = {
-    "perceptual": "Queue 1 item 9",
-    "dccrn_direct": "Queue 1 item 7a",
-}
-_PORTED = ("masking", "crn_direct", "fullsubnet")
 
 
 def trainer_variant(cfg: Config) -> str:
@@ -30,15 +27,6 @@ def trainer_variant(cfg: Config) -> str:
     if cfg.masking_mode == "Direct(None make)":
         return "dccrn_direct" if cfg.model == "DCCRN" else "crn_direct"
     return "masking"
-
-
-def _require_ported(cfg: Config, what: str) -> str:
-    variant = trainer_variant(cfg)
-    if variant not in _PORTED:
-        raise NotImplementedError(
-            f"the {variant!r} {what} is not ported yet (ROADMAP.md, {_NOT_PORTED[variant]})"
-        )
-    return variant
 
 
 def _fullsubnet_features(cfg: Config, inputs, targets):
@@ -63,21 +51,54 @@ def fullsubnet_enhance(cfg: Config, cRM, noisy_complex, length: int) -> torch.Te
     return istft(enhanced, s.fft_len, s.torch_hop, s.win_len, length=length)
 
 
+def _perceptual(cfg: Config, model, inputs, targets):
+    """``(main loss, perceptual loss, waveforms)``: the main loss on the
+    waveform; LMS on the magnitudes (DCCRN: the targets' through the
+    model's own STFT and the estimate's spectrum; CRN: its own estimated
+    and target magnitudes), PMSQE on the waveforms."""
+    if cfg.model == "DCCRN":
+        real_spec, imag_spec, outputs = model(inputs, targets)
+        clean_mags = est_mags = None
+        if cfg.perceptual == "LMS":
+            specs = model.stft(targets)
+            dim = cfg.stft.fft_len // 2 + 1
+            clean_mags = torch.sqrt(specs[:, :dim] ** 2 + specs[:, dim:] ** 2 + 1e-7)
+            est_mags = torch.sqrt(real_spec**2 + imag_spec**2 + 1e-7)
+    else:
+        est_mags, clean_mags, outputs = model(inputs, targets)
+    m_loss = main_loss(cfg.loss, outputs, targets)
+    p_loss = perceptual_loss(cfg.perceptual, targets, outputs, clean_mags, est_mags)
+    return m_loss, p_loss, outputs
+
+
 def _loss_and_outputs(cfg: Config, variant: str, model, inputs, targets, generator=None):
-    """The variant's loss and outputs: ``masking`` scores the waveform
-    against the clean one; ``crn_direct`` scores CRN's magnitude against the
-    clean magnitude; ``fullsubnet`` scores the cIRM against the predicted
-    cRM, in the reference's argument order, and returns ``(cRM, noisy
-    spectrum)``."""
+    """The variant's ``(loss, aux, outputs)``: ``masking`` scores the
+    waveform against the clean one; ``perceptual`` weighs that and the
+    perceptual loss equally (both also in ``aux``, as ``main_loss`` and
+    ``perceptual_loss``); ``dccrn_direct`` averages the losses of the real
+    and the imaginary spectrum against the targets'; ``crn_direct`` scores
+    CRN's magnitude against the clean magnitude; ``fullsubnet`` scores the
+    cIRM against the predicted cRM, in the reference's argument order, and
+    returns ``(cRM, noisy spectrum)``."""
+    aux = {}
     if variant == "fullsubnet":
         noisy_complex, noisy_mag, cIRM = _fullsubnet_features(cfg, inputs, targets)
         cRM = model(noisy_mag, generator=generator)
-        return main_loss(cfg.loss, cIRM, cRM), (cRM, noisy_complex)
+        return main_loss(cfg.loss, cIRM, cRM), aux, (cRM, noisy_complex)
+    if variant == "perceptual":
+        m_loss, p_loss, outputs = _perceptual(cfg, model, inputs, targets)
+        r1, r2 = 1.0, 1.0  # the reference's constraint ratio
+        aux = {"main_loss": r1 * m_loss, "perceptual_loss": r2 * p_loss}
+        return (r1 * m_loss + r2 * p_loss) / (r1 + r2), aux, outputs
+    if variant == "dccrn_direct":
+        out_r, tgt_r, out_i, tgt_i, outputs = model(inputs, targets)
+        loss = (main_loss(cfg.loss, out_r, tgt_r) + main_loss(cfg.loss, out_i, tgt_i)) / 2
+        return loss, aux, outputs
     if variant == "crn_direct":
         out_mag, tgt_mag, outputs = model(inputs, targets)
-        return main_loss(cfg.loss, out_mag, tgt_mag), outputs
+        return main_loss(cfg.loss, out_mag, tgt_mag), aux, outputs
     _, _, outputs = model(inputs)
-    return main_loss(cfg.loss, outputs, targets), outputs
+    return main_loss(cfg.loss, outputs, targets), aux, outputs
 
 
 def _batch(model: torch.nn.Module, inputs, targets):
@@ -102,7 +123,8 @@ def train_step(cfg: Config, model: torch.nn.Module, optimizer: torch.optim.Optim
                inputs, targets, generator: Optional[torch.Generator] = None) -> dict:
     """One optimisation step on a ``(noisy, clean)`` batch, both ``[B, L]``,
     on the model's device -> ``{"loss": scalar}`` (the mean over
-    micro-batches, detached).
+    micro-batches, detached; the ``perceptual`` variant adds ``main_loss``
+    and ``perceptual_loss``, each likewise the mean over micro-batches).
 
     The model is put in train mode: BatchNorm normalises with the batch's
     statistics and moves its running buffers, and FullSubNet's dropout draws
@@ -115,7 +137,7 @@ def train_step(cfg: Config, model: torch.nn.Module, optimizer: torch.optim.Optim
     step's scan does.  The averaged gradients are left in each
     parameter's ``.grad``.
     """
-    variant = _require_ported(cfg, "train step")
+    variant = trainer_variant(cfg)
     accum = cfg.train.grad_accum
     inputs, targets = _batch(model, inputs, targets)
     if inputs.shape[0] % accum:
@@ -128,26 +150,29 @@ def train_step(cfg: Config, model: torch.nn.Module, optimizer: torch.optim.Optim
     # two parameters views of one gradient tensor (an LSTM's b_ih and b_hh
     # both receive the gradient of their sum), and an in-place
     # accumulation into one would then add to the other as well.
-    grads, total = None, 0.0
+    grads, sums = None, {}
     for x, y in zip(inputs.chunk(accum), targets.chunk(accum)):
-        loss, _ = _loss_and_outputs(cfg, variant, model, x, y, generator)
+        loss, aux, _ = _loss_and_outputs(cfg, variant, model, x, y, generator)
         g = torch.autograd.grad(loss, params)
         grads = g if grads is None else [a + b for a, b in zip(grads, g)]
-        total = total + loss.detach()
+        for k, v in {"loss": loss, **aux}.items():
+            sums[k] = sums.get(k, 0.0) + v.detach()
     for p, g in zip(params, grads):
         p.grad = g / accum
     optimizer.step()
-    return {"loss": total / accum}
+    return {k: v / accum for k, v in sums.items()}
 
 
 def eval_step(cfg: Config, model: torch.nn.Module, inputs, targets):
     """Loss and enhanced waveforms of one ``(noisy, clean)`` batch, both
-    ``[B, L]``, on the model's device -> ``({"loss": scalar}, wavs [B, L'])``."""
-    variant = _require_ported(cfg, "eval step")
+    ``[B, L]``, on the model's device -> ``({"loss": scalar}, wavs [B, L'])``;
+    the ``perceptual`` variant's metrics add ``main_loss`` and
+    ``perceptual_loss``."""
+    variant = trainer_variant(cfg)
     model.eval()
     with torch.inference_mode():
         inputs, targets = _batch(model, inputs, targets)
-        loss, outputs = _loss_and_outputs(cfg, variant, model, inputs, targets)
+        loss, aux, outputs = _loss_and_outputs(cfg, variant, model, inputs, targets)
         if variant == "fullsubnet":
             outputs = fullsubnet_enhance(cfg, *outputs, length=inputs.shape[-1])
-    return {"loss": loss}, outputs
+    return {"loss": loss, **aux}, outputs

@@ -4,6 +4,9 @@
     python -m se_tpu_torch.train_interface --model DCCRN --loss SDR \\
         --train-data data/train.npy --valid-data data/valid.npy [--device cuda]
     python -m se_tpu_torch.train_interface ... --chkpt-model RUN_DIR_NAME --chkpt 1
+    python -m se_tpu_torch.train_interface ... --perceptual PMSQE  # or LMS
+    python -m se_tpu_torch.train_interface ... --no-skip --use-cbn
+    python -m se_tpu_torch.train_interface ... --masking-mode 'Direct(None make)'
 
 The data are ``[N, 2, T]`` float32 ``.npy`` files, rows (noisy, clean).  A
 run writes ``{job-dir}/{expr-num}_{month}.{day}_{model}_{loss}/``: ``log.txt``,
@@ -11,16 +14,20 @@ run writes ``{job-dir}/{expr-num}_{month}.{day}_{model}_{loss}/``: ``log.txt``,
 'epoch'}`` blob), ``Epoch_N_SCORES`` (each validation utterance's PESQ and
 STOI), ``mse_vali_total.npy`` and, at the end, ``chkpt_opt.pt``, the epoch
 of least validation loss.  ``--chkpt-model``/``--chkpt`` resume a run from
-its directory under ``--job-dir``.  Runs on the card unless ``--device cpu``
-is given.  ``--pallas-lstm`` is accepted for the JAX CLI's command lines
-and has no effect: on a CUDA tensor the hand-written kernels always run.
+its directory under ``--job-dir``.  ``--perceptual``, ``--masking-mode``,
+``--no-skip`` and ``--use-cbn`` pick the trainer variant and the model as
+the JAX CLI's do; a perceptual run's ``log.txt`` gives each epoch's main
+and perceptual losses on a second line.  ``--mesh`` is not ported.  Runs on
+the card unless ``--device cpu`` is given.  ``--pallas-lstm`` is accepted
+for the JAX CLI's command lines and has no effect: on a CUDA tensor the
+hand-written kernels always run.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from .config import Config, FullSubNetConfig, TrainConfig
+from .config import Config, DccrnConfig, FullSubNetConfig, TrainConfig
 
 # torch and the loop are imported by main(), not here: the scoring pool's
 # workers are spawned and each imports this module again, as its main one,
@@ -65,18 +72,9 @@ def parse_args(argv=None):
 
 def _reject_unported(args):
     """Raise for a flag that asks for what is not ported yet, naming its
-    item in ROADMAP.md's Queue 1."""
-    unported = (
-        (args.mesh, "--mesh", "12"),
-        (args.perceptual != "False", f"--perceptual {args.perceptual}", "9"),
-        (args.model == "DCCRN" and args.masking_mode == "Direct(None make)",
-         "--masking-mode 'Direct(None make)' for DCCRN", "7a"),
-        (args.no_skip, "--no-skip", "7a"),
-        (args.use_cbn, "--use-cbn", "7a"),
-    )
-    for asked, flag, item in unported:
-        if asked:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md, Queue 1 item {item})")
+    item in ROADMAP.md's Queue 1: data parallelism, ``--mesh``."""
+    if args.mesh:
+        raise NotImplementedError("--mesh is not ported yet (ROADMAP.md, Queue 1 item 12)")
 
 
 def main(argv=None):
@@ -94,9 +92,12 @@ def main(argv=None):
     cfg = Config(
         model=args.model,
         loss=args.loss,
+        perceptual=False if args.perceptual == "False" else args.perceptual,
         lstm=args.lstm,
         sequence_model=args.sequence_model,
         masking_mode=args.masking_mode,
+        skip_type=not args.no_skip,
+        dccrn=DccrnConfig(use_cbn=args.use_cbn),
         fullsubnet=fsn,
         compute_dtype=args.compute_dtype,
         train=TrainConfig(

@@ -9,7 +9,8 @@ nested dicts of numpy arrays, onto the reference's state-dict grammar
 ...), which is also the port's module naming, so the port's DCCRN loads it
 with ``load_state_dict(strict=True)``; :func:`crn_state_dict_from_jax` does
 the same for CRN (``encoder.{i}.0.conv.weight``, ``enhance.weight_ih_l0``,
-``tranform.weight``, ...), :func:`fullsubnet_state_dict_from_jax` for
+``tranform.weight``, ..., and without skip connections the bare
+``decoder.{i}.0.weight``), :func:`fullsubnet_state_dict_from_jax` for
 FullSubNet (``fb_model.sequence_model.weight_ih_l0``,
 ``sb_model.fc_output_layer.bias``, ...), and :func:`state_dict_from_jax`
 picks by ``cfg.model``.  A JAX-trained checkpoint reaches
@@ -27,8 +28,10 @@ import torch
 from scipy.signal import get_window
 
 from ..config import Config
+from ..ops.norms import ComplexBnState
 
 _LSTM_LEAVES = ("weight_ih", "weight_hh", "bias_ih", "bias_hh")
+_CBN_PARAMS = ("Wrr", "Wri", "Wii", "Br", "Bi")
 
 
 def _tensor(x) -> torch.Tensor:
@@ -52,11 +55,16 @@ def _conv_stft_buffers(win_len: int, fft_len: int) -> Dict[str, np.ndarray]:
 
 
 def _bn(out, prefix, name, params, bstats):
+    """One ``TorchBatchNorm2d`` or ``ComplexBatchNorm``: the complex one's
+    running statistics are the fields of its ``state`` (``ComplexBnState``,
+    in either package)."""
     p = params[name]
     if "Wrr" in p:
-        raise NotImplementedError(
-            "ComplexBatchNorm (use_cbn) is not ported yet (ROADMAP.md, Queue 1)"
-        )
+        for n in _CBN_PARAMS:
+            out[f"{prefix}.{n}"] = p[n]
+        for n in ComplexBnState._fields:
+            out[f"{prefix}.{n}"] = getattr(bstats[name]["state"], n)
+        return
     out[f"{prefix}.weight"] = p["weight"]
     out[f"{prefix}.bias"] = p["bias"]
     out[f"{prefix}.running_mean"] = bstats[name]["running_mean"]
@@ -116,17 +124,16 @@ def dccrn_state_dict_from_jax(params, batch_stats, cfg: Config) -> Dict[str, tor
 
 def crn_state_dict_from_jax(params, batch_stats, cfg: Config) -> Dict[str, torch.Tensor]:
     """JAX CRN ``params``/``batch_stats`` trees -> reference-grammar state
-    dict (skip connections only, the variant the port builds)."""
-    if not cfg.skip_type:
-        raise NotImplementedError(
-            "CRN skip_type=False is not ported yet (ROADMAP.md, Queue 1 item 8)"
-        )
+    dict.  Without skip connections the decoder's convs are the reference's
+    bare ``nn.ConvTranspose2d`` (``decoder.{i}.0.weight``)."""
     out = {}
     for section in ("encoder", "decoder"):
         for i in range(_stage_count(params, section)):
             c = params[f"{section}_{i}_conv"]
-            out[f"{section}.{i}.0.conv.weight"] = c["weight"]
-            out[f"{section}.{i}.0.conv.bias"] = c["bias"]
+            bare = section == "decoder" and not cfg.skip_type
+            conv = f"{section}.{i}.0" if bare else f"{section}.{i}.0.conv"
+            out[f"{conv}.weight"] = c["weight"]
+            out[f"{conv}.bias"] = c["bias"]
             if f"{section}_{i}_bn" in params:
                 _bn(out, f"{section}.{i}.1", f"{section}_{i}_bn", params, batch_stats)
                 out[f"{section}.{i}.2.weight"] = params[f"{section}_{i}_prelu"]["weight"]
@@ -176,6 +183,20 @@ class _Draw:
         bstats[name] = {"running_mean": self.normal(n, 0.1),
                         "running_var": self.rng.uniform(0.5, 1.5, n).astype(np.float32)}
 
+    def complex_batch_norm(self, params, bstats, name, n):
+        """``ComplexBatchNorm`` over ``n`` channels (``n // 2`` pairs): the
+        affine terms away from the identity (``Wri`` from U(-0.9, 0.9), the
+        layer's init), running means away from 0, running covariances
+        positive definite and away from the identity."""
+        C = n // 2
+        params[name] = {"Wrr": 1 + self.normal(C, 0.1), "Wri": self.uniform(C, 0.9),
+                        "Wii": 1 + self.normal(C, 0.1), "Br": self.normal(C, 0.1),
+                        "Bi": self.normal(C, 0.1)}
+        var = lambda: self.rng.uniform(0.5, 1.5, C).astype(np.float32)
+        bstats[name] = {"state": ComplexBnState(
+            RMr=self.normal(C, 0.1), RMi=self.normal(C, 0.1), RVrr=var(),
+            RVri=self.uniform(C, 0.2), RVii=var())}
+
     def torch_rnn(self, input_size, hidden_size, num_layers, gates=4):
         """``TorchLSTM`` (``gates=4``) or ``TorchGRU`` (``gates=3``) leaves,
         U(+-1/sqrt(H)), in flax's order."""
@@ -218,8 +239,9 @@ def random_crn_params(cfg: Config, seed: int = 0):
     params["enhance"] = d.torch_rnn(cfg.crn.rnn_input_size, H, 1)
     params["tranform"] = d.linear(H, cfg.crn.rnn_input_size)
     for n, idx in enumerate(range(n_stage, 0, -1)):
-        # input: kn[idx] // 2 channels doubled by the skip
-        stage("decoder", n, (kn[idx], kn[idx - 1] // 2, ks, 2), kn[idx - 1] // 2, idx != 1)
+        # input: kn[idx] // 2 channels, doubled by the skip
+        ci = kn[idx] if cfg.skip_type else kn[idx] // 2
+        stage("decoder", n, (ci, kn[idx - 1] // 2, ks, 2), kn[idx - 1] // 2, idx != 1)
     return params, bstats
 
 
@@ -228,9 +250,11 @@ def random_dccrn_params(cfg: Config, seed: int = 0):
     drawn from ``numpy.random.default_rng(seed)``: the reference's
     initialisation for conv, LSTM and linear weights; conv biases, BatchNorm
     affine terms and running statistics away from their zero or identity
-    initial values, so that a test of them can fail."""
+    initial values, so that a test of them can fail.  ``dccrn.use_cbn`` and
+    ``skip_type`` shape the norms and the decoder's input channels."""
     d = _Draw(seed)
     params, bstats = {}, {}
+    norm = d.complex_batch_norm if cfg.dccrn.use_cbn else d.batch_norm
 
     def conv(name, w_shape, co):
         params[name] = {f"{p}_{k}": (d.normal(w_shape, 0.05) if k == "weight"
@@ -242,7 +266,7 @@ def random_dccrn_params(cfg: Config, seed: int = 0):
     n_stage = len(kn) - 1
     for i in range(n_stage):
         conv(f"encoder_{i}_conv", (kn[i + 1] // 2, kn[i] // 2, ks, 2), kn[i + 1] // 2)
-        d.batch_norm(params, bstats, f"encoder_{i}_bn", kn[i + 1])
+        norm(params, bstats, f"encoder_{i}_bn", kn[i + 1])
         params[f"encoder_{i}_prelu"] = {"weight": np.full((1,), 0.25, np.float32)}
 
     width = cfg.stft.fft_len // (2 ** len(kn)) * kn[-1]
@@ -264,10 +288,12 @@ def random_dccrn_params(cfg: Config, seed: int = 0):
         params[f"enhance_{li}"] = blk
 
     for n, idx in enumerate(range(n_stage, 0, -1)):
-        co = kn[idx - 1] // 2  # input: kn[idx] channels doubled by the skip, halved
-        conv(f"decoder_{n}_conv", (kn[idx], co, ks, 2), co)
+        co = kn[idx - 1] // 2
+        # input: kn[idx] channels, doubled by the skip, halved
+        ci = kn[idx] if cfg.skip_type else kn[idx] // 2
+        conv(f"decoder_{n}_conv", (ci, co, ks, 2), co)
         if idx != 1:
-            d.batch_norm(params, bstats, f"decoder_{n}_bn", kn[idx - 1])
+            norm(params, bstats, f"decoder_{n}_bn", kn[idx - 1])
             params[f"decoder_{n}_prelu"] = {"weight": np.full((1,), 0.25, np.float32)}
     return params, bstats
 

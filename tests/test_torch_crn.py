@@ -409,12 +409,13 @@ def test_train_step_matches_jax(tiny, model, mode, accum):
 
 
 def test_unported_variants_raise():
+    """CRN without skip connections and DCCRN's direct mapping are ported
+    (held to the JAX package in ``tests/test_torch_variants.py``): both
+    build.  Train-mode dropout raises without a generator."""
     _, cfg = _cfgs("CRN")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build_model(cfg.replace(skip_type=False), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        train_step(cfg.replace(model="DCCRN", masking_mode="Direct(None make)"), None, None,
-                   np.zeros((1, 800), np.float32), np.zeros((1, 800), np.float32))
+    noskip = build_model(cfg.replace(skip_type=False), device="cpu")
+    assert "decoder.0.0.weight" in noskip.state_dict()
+    build_model(cfg.replace(model="DCCRN", masking_mode="Direct(None make)"), device="cpu")
     lstm = TorchLSTM(4, 3, num_layers=2, dropout=0.5, generator=torch.Generator())
     with pytest.raises(ValueError, match="Generator"):  # train-mode dropout needs one
         lstm.train()(torch.zeros(2, 1, 4))

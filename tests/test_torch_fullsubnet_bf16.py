@@ -292,7 +292,7 @@ def _port_grads(cfg, sd, noisy, clean, train):
     model, _ = create_train_state(cfg, sd, device="cpu")
     model.train(train)
     variant = "fullsubnet" if cfg.model == "FullSubNet" else "masking"
-    loss, outputs = _loss_and_outputs(cfg, variant, model, _t(noisy), _t(clean))
+    loss, _, outputs = _loss_and_outputs(cfg, variant, model, _t(noisy), _t(clean))
     loss.backward()
     out = outputs[0] if variant == "fullsubnet" else outputs
     return loss.item(), out.detach().float().numpy(), {

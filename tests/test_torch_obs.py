@@ -46,6 +46,7 @@ def _summaries(logdir) -> dict:
 def _write(writer_cls, logdir, wavs):
     w = writer_cls(str(logdir))
     w.log_loss(0.5, 0.625, 1)
+    w.log_sub_loss(0.25, 0.125, 0.375, 0.0625, 1)
     w.log_score(2.5, 0.875, 1)
     w.log_wav(*wavs, 10)
     w.log_spectrogram(*wavs, 10)
@@ -60,14 +61,16 @@ def _wavs(rng, n=16000):
 
 
 def test_writer_logs_what_the_jax_writer_logs(tmp_path, rng):
-    """Scalars to the float32 bit, audio and images byte for byte."""
+    """Scalars (the perceptual variant's two terms too) to the float32 bit,
+    audio and images byte for byte."""
     wavs = _wavs(rng)
     got = _write(writer_mod.Writer, tmp_path / "port", wavs)
     want = _write(JWriter, tmp_path / "jax", wavs)
     assert set(got) == set(want)
-    assert {("train_loss", 1), ("vali_loss", 1), ("PESQ", 1), ("STOI", 1)} <= set(got)
+    sub = ("train_main_loss", "train_perceptual_loss", "vali_main_loss", "vali_perceptual_loss")
+    assert {(k, 1) for k in ("train_loss", "vali_loss", "PESQ", "STOI", *sub)} <= set(got)
     assert {(t, 10) for t in AUDIO + IMAGES} <= set(got)
-    for key in ("train_loss", "vali_loss", "PESQ", "STOI"):
+    for key in ("train_loss", "vali_loss", "PESQ", "STOI", *sub):
         assert got[(key, 1)].simple_value == want[(key, 1)].simple_value
     assert got[("vali_loss", 1)].simple_value == 0.625
     for tag in AUDIO:
