@@ -36,6 +36,10 @@ in order; any failure ends the run with a nonzero exit and no result line:
    8, a ragged case), by the same phases as their f32 forms, with the f32
    form's time and cuDNN's GRU or conv in bf16 beside them (K4's bound at
    the tensor cores' bf16 rate, its products being bf16);
+   then the f32 forms of K1, K2, K3 and K4 at the streaming path's shapes
+   (B = 1, 100-ms chunks: T = 16, 3 and 1 frames at hop 100, 5, 3 and 1 at
+   hop 300, from a nonzero state; K4 on the chunk and its cached frame),
+   each chunk also as two calls with the state carried, with times;
    then the probes (P1 bound_probe, P2 wavefront_probe, P3 vpu_probe), each
    against its plain version, then each probe's own entry point at the sub
    band's shape (B = 8, T = 163) with every launch count set to 0 just
@@ -54,22 +58,29 @@ in order; any failure ends the run with a nonzero exit and no result line:
    weights (each waveform also held to its f32 path's, the fused conv's to
    DCCRN-bf16's), and DCCRN with ``use_cbn=True`` (the complex BatchNorm)
    and ``skip_type=False``;
+   then streaming (``stream_chunks``, B = 1, 100-ms chunks) of one 3-s
+   utterance through the default DCCRN, DCCRN with ``lstm="real"`` and
+   with ``use_pallas_conv``, CRN, and both FullSubNets with a cumulative
+   norm, each held to ``enhance_batch`` over the whole utterance, the
+   launches of every chunk and of the end of the stream exact, with each
+   chunk's latency, the real-time factor and the peak device memory;
 5. the train paths at full width: one ``train_step`` on the card and one on
    the CPU from the same weights (loss, every gradient, the BatchNorm
    running statistics; FullSubNet's dropout set to 0 for this, since two
    devices draw different masks), the kernels' launch counts read around a
    step with and without gradient accumulation, then 5 steps (both
-   FullSubNets: 10; DCCRN with ``use_pallas_conv`` in f32: 3) at the
+   FullSubNets and their bf16 twins: 10; DCCRN with ``use_pallas_conv``
+   and the bf16 DCCRNs and CRN: 3) at the
    default batch of 10 on one fixed batch (the loss must fall; FullSubNet
    with its dropout of 0.8 drawn from a generator on the card), with step
    time, throughput, peak memory and a profile of one step; for the
    default DCCRN, CRN, both FullSubNets, DCCRN with ``use_pallas_conv`` and
    the six bf16 paths (each bf16 gradient against the CPU's at a tolerance
-   set by bf16's noise), DCCRN-bf16's 5 steps once more with Adam's first
+   set by bf16's noise), DCCRN-bf16's 3 steps once more with Adam's first
    moment in bf16, plus one CRN direct-mapping step and one DCCRN real-LSTM
    step against the CPU; then the trainer variants: DCCRN with
    ``perceptual="PMSQE"`` (the card-vs-CPU step, a step with gradient
-   accumulation and 10 steps at B=10), and one card-vs-CPU step each of
+   accumulation and 5 steps at B=10), and one card-vs-CPU step each of
    DCCRN with LMS in bf16, DCCRN's direct mapping, DCCRN with the complex
    BatchNorm, no skips and LMS, and CRN without skips with LMS (where the
    CPU cannot reproduce its own gradients to TRAIN_GRAD_TOL under a
@@ -82,7 +93,9 @@ in order; any failure ends the run with a nonzero exit and no result line:
    paths with ``--compute-dtype bfloat16``; DCCRN with ``--use-cbn
    --no-skip``, its 3-s file also held to phase 4's waveform), all started
    at once after the timed phases, each output held to the same weights in
-   process;
+   process; meanwhile the CLI's ``main`` in this process with
+   ``--streaming`` for DCCRN, CRN and FullSubNet, each held to the stream
+   in process;
 7. the train CLI, ``python -m se_tpu_torch.train_interface``, for the
    default DCCRN at full width: 2 epochs at ``--batch 4`` on 8 training and
    4 validation utterances of 3 s with the numpy PESQ/STOI, in process
@@ -1418,6 +1431,160 @@ def phase_conv_kernel(dtype=torch.float32) -> dict:
     return entry
 
 
+# The streaming path's kernel shapes at B = 1 and 100-ms chunks: DCCRN's and
+# CRN's 16 frames a chunk at hop 100 (a 3-s file's last chunk holds 3: its
+# 300-sample right pad), FullSubNet's 5 at hop 300; label -> (frames a
+# chunk, then the wrapper's shape: L, Bb, H for K1; Bb, In, H for K2, K3;
+# C, Co, F for K4, whose B2 is 2 and which sees the chunk and the cached
+# frame before it)
+_STREAM_K1 = (("DCCRN", 16, 2, 2, 128),)
+_STREAM_K2 = (("CRN", 16, 1, 512, 128), ("DCCRN-real l0", 16, 1, 1024, 256),
+              ("DCCRN-real l1", 16, 1, 256, 256), ("fb l0", 5, 1, 257, 512),
+              ("fb l1", 5, 1, 512, 512), ("sb l0", 5, 257, 32, 384), ("sb l1", 5, 257, 384, 384))
+_STREAM_K3 = _STREAM_K2[3:]
+_STREAM_K4 = tuple((f"stage {i + 1}", 16, *s) for i, s in enumerate(_CONV_STAGES))
+
+
+def _outs(out) -> tuple:
+    """A scan wrapper's ``(ys, state)`` as ``(ys, *state tensors)``."""
+    ys, st = out
+    return (ys, *(st if isinstance(st, tuple) else (st,)))
+
+
+def _stream_scan(tag, label, fn, ref, inputs, n_state, T) -> dict:
+    """One recurrent kernel at a streaming shape, its last ``n_state``
+    inputs the carried state (nonzero): the kernel against its plain
+    version at the chunk's T and at T = 1 and 3; the chunk's T steps as two
+    calls, the first's final state the second's initial one, against one
+    call; the inputs, the state among them, unchanged by every call.
+    Returns the worst error and the chunk's times."""
+    x, rest = inputs[0], inputs[1:]
+    worst = 0.0
+    with torch.inference_mode():
+        for t in sorted({T, 3, 1}):
+            case = (x[:t].contiguous(), *rest)
+            held = [a.clone() for a in case]
+            got, want = _outs(fn(*case)), _outs(ref(*case))
+            torch.cuda.synchronize()
+            err = max(_max_err(g, w) for g, w in zip(got, want))
+            assert all(torch.equal(a, b) for a, b in zip(case, held)), f"{label} T={t}: inputs"
+            print(f"[{tag}] {label} T={t}: max |kernel - plain| {err} (tolerance {KERNEL_TOL})")
+            assert np.isfinite(err) and err <= KERNEL_TOL, (label, t, err)
+            worst = max(worst, err)
+        whole = _outs(fn(*inputs))
+        cut = T - 3
+        first = _outs(fn(x[:cut].contiguous(), *rest))
+        carried = [s.clone() for s in first[1:]]
+        second = _outs(fn(x[cut:].contiguous(), *rest[:-n_state], *first[1:]))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first[1:], carried)), f"{label}: state"
+        split = (torch.cat([first[0], second[0]]), *second[1:])
+        err = max(_max_err(g, w) for g, w in zip(split, whole))
+        print(f"[{tag}] {label} T={T} as {cut} + 3 with the state carried: max |two calls - "
+              f"one| {err} (tolerance {KERNEL_TOL})")
+        assert err <= KERNEL_TOL, (label, err)
+    return {"max_abs_err": worst}
+
+
+def phase_stream_kernels() -> dict:
+    """K1f, K2f, K3f and K4 (f32) at the streaming path's shapes
+    (``_STREAM_*``): each scan at its chunk's T, at T = 3 (a 3-s file's last
+    DCCRN or CRN chunk) and T = 1, from a nonzero state, against its plain
+    version, and its chunk as two calls with the state carried; K4 at the
+    stage's T + 1 columns (the cached frame and the chunk), 4 and 2, against
+    its plain version (cuDNN's bits need not hold at these shapes; relative
+    to the output's max, CONV_REL_TOL).  CUDA-event times of each at the
+    chunk's T, of its plain version and of the cuDNN call beside it, and its
+    bound.  Returns, by kernel, ``{"max_abs_err", "shapes": {label: times}}``."""
+    import torch.nn.functional as F
+
+    from se_tpu_torch.device import resolve_device
+    from se_tpu_torch.ops import fused_conv
+    from se_tpu_torch.ops.fused_gru_inproj import (
+        fused_gru_scan_inproj,
+        fused_gru_scan_inproj_reference,
+    )
+    from se_tpu_torch.ops.fused_lstm import fused_lstm_scan, fused_lstm_scan_reference
+    from se_tpu_torch.ops.fused_lstm_inproj import (
+        fused_lstm_scan_inproj,
+        fused_lstm_scan_inproj_reference,
+    )
+    from se_tpu_torch.probes import cuda_ms
+
+    dev = resolve_device("cuda")
+    rng = np.random.default_rng(SEED + 20)
+    out = {k: {"max_abs_err": 0.0, "shapes": {}} for k in ("K1f", "K2f", "K3f", "K4")}
+
+    def timed(key, label, kernel, plain, library, n_bytes, flops, err):
+        with torch.inference_mode():
+            t = {"ms": cuda_ms(kernel, 20, 3), "plain_ms": cuda_ms(plain, 3, 1),
+                 "library_ms": cuda_ms(library, 20, 3)}
+        t["bound_ms"], t["bound_by"] = _bound(n_bytes, flops)
+        out[key]["max_abs_err"] = max(out[key]["max_abs_err"], err)
+        out[key]["shapes"][label] = t
+        print(f"[stream {key}] {label}: {t}")
+
+    for label, T, L, Bb, H in _STREAM_K1:
+        xp, w, h0, c0 = case = _scan_inputs(rng, dev, T, L, Bb, H)
+        print(f"[stream K1f] {label} L={L} Bb={Bb} H={H}: {_k1_tiling(L, Bb, H)}")
+        e = _stream_scan("stream K1f", label, fused_lstm_scan, fused_lstm_scan_reference, case,
+                         2, T)
+        lib = _cuda_lstms(w, dev)
+        n_bytes = 4 * (xp.numel() + w.numel() + 2 * h0.numel() + T * L * Bb * H + 2 * h0.numel())
+        timed("K1f", label, lambda: fused_lstm_scan(*case),
+              lambda: fused_lstm_scan_reference(*case),
+              lambda: [lib[l](xp[:, l], (h0[l : l + 1], c0[l : l + 1])) for l in range(L)],
+              n_bytes, 2 * T * L * Bb * H * 4 * H + T * L * Bb * 4 * H, e["max_abs_err"])
+    for label, T, Bb, In, H in _STREAM_K2:
+        case = _inproj_inputs(rng, dev, T, 1, Bb, In, H)
+        print(f"[stream K2f] {label} Bb={Bb} In={In} H={H}: {_k2_tiling(Bb, In, H)}")
+        e = _stream_scan("stream K2f", label, fused_lstm_scan_inproj,
+                         fused_lstm_scan_inproj_reference, case, 2, T)
+        x, w_ih, bias, w_hh, h0, c0 = case
+        lib = _cudnn_lstm(w_ih, bias, w_hh, dev)
+        _, _, n_bytes, flops = _k2_bound(T, 1, Bb, In, H)
+        timed("K2f", label, lambda: fused_lstm_scan_inproj(*case),
+              lambda: fused_lstm_scan_inproj_reference(*case),
+              lambda: lib(x[:, 0], (h0, c0)), n_bytes, flops, e["max_abs_err"])
+    for label, T, Bb, In, H in _STREAM_K3:
+        case = _gru_inputs(rng, dev, T, 1, Bb, In, H)
+        print(f"[stream K3f] {label} Bb={Bb} In={In} H={H}: {_k3_tiling(Bb, In, H)}")
+        e = _stream_scan("stream K3f", label, fused_gru_scan_inproj,
+                         fused_gru_scan_inproj_reference, case, 1, T)
+        x, w_ih, b_ih, w_hh, b_hh, h0 = case
+        lib = _cudnn_gru(w_ih, b_ih, w_hh, b_hh, dev)
+        G = 3 * H
+        n_bytes = 4 * (x.numel() + w_ih.numel() + w_hh.numel() + 2 * G + 2 * h0.numel()
+                       + T * Bb * H)
+        timed("K3f", label, lambda: fused_gru_scan_inproj(*case),
+              lambda: fused_gru_scan_inproj_reference(*case), lambda: lib(x[:, 0], h0),
+              n_bytes, 2 * T * Bb * (In + H) * G, e["max_abs_err"])
+    for label, T, C, Co, Fq in _STREAM_K4:
+        host = (rng.standard_normal((2, C, Fq, T + 1)), rng.standard_normal((Co, C, 5, 2)) * 0.05,
+                rng.standard_normal(Co))
+        x, w, b = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in host]
+        worst = 0.0
+        with torch.inference_mode():
+            for cols in (T + 1, 4, 2):
+                xc = x[..., -cols:].contiguous()
+                got = fused_conv.fused_complex_conv2d(xc, w, b)
+                want = fused_conv.reference(xc, w, b)
+                torch.cuda.synchronize()
+                err = _max_err(got, want)
+                rel = err / want.abs().max().item()
+                print(f"[stream K4] {label} B2=2 C={C} Co={Co} F={Fq} T={cols}: max |kernel - "
+                      f"plain| {err}, over the output's max {rel} (tolerance {CONV_REL_TOL}); "
+                      f"equal bits {torch.equal(got, want)}")
+                assert tuple(got.shape) == (2, Co, Fq // 2, cols) and rel <= CONV_REL_TOL, label
+                worst = max(worst, err)
+        timed("K4", label, lambda: fused_conv.fused_complex_conv2d(x, w, b),
+              lambda: fused_conv.reference(x, w, b),
+              lambda: F.conv2d(x, w, b, stride=(2, 1), padding=(2, 1)),
+              4 * (x.numel() + w.numel() + b.numel() + 2 * Co * (Fq // 2) * (T + 1)),
+              2 * 2 * Co * (Fq // 2) * (T + 1) * 10 * C, worst)
+    return out
+
+
 # the probes run at FullSubNet's sub band at B=8 x 3 s, beside K2's rows
 PROBE_ARGS = ["8", "163"]
 P1_TOL = 1e-5  # f32 modes: of max(1, the output's max |value|); nogates grows
@@ -2015,7 +2182,7 @@ def phase_slice(label: str, cfg, sd, per_forward: dict) -> tuple:
     print(f"[slice {label}] eval_step wav vs enhance_batch wav: max |diff| {rerun_err}")
     assert rerun_err <= 1e-5, rerun_err
 
-    reps = 10
+    reps = 5  # batches timed: few, for the script's time
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2046,7 +2213,126 @@ def phase_slice(label: str, cfg, sd, per_forward: dict) -> tuple:
     return launches, wav.cpu()
 
 
-def phase_cli(workdir: Path, paths: dict, held_to: dict = None):
+# The streaming paths (phase 4b), each on an f32 path's weights: DCCRN's
+# complex and real LSTMs and its K4 encoder, CRN, and both FullSubNets, each
+# with a cumulative norm (they hold no parameters, so the weights serve).
+# label -> (the path whose config and weights it takes, FullSubNet's norm)
+STREAM_PATHS = {"DCCRN": ("DCCRN", None), "DCCRN-real": ("DCCRN-real", None),
+                "DCCRN-fused-conv": ("DCCRN-fused-conv", None), "CRN": ("CRN", None),
+                "FullSubNet": ("FullSubNet", "cumulative_laplace_norm"),
+                "FullSubNet-GRU": ("FullSubNet-GRU", "cumulative_layer_norm")}
+STREAM_CHUNK_MS = 100
+# the streamed waveform against the batch forward over the whole utterance:
+# the JAX package's own streaming tolerance (tests/test_streaming.py)
+STREAM_TOL = 2e-4
+
+
+def _stream_paths(paths: dict) -> dict:
+    """label -> (config, state dict, launches per model call)."""
+    out = {}
+    for label, (base, norm) in STREAM_PATHS.items():
+        cfg, sd, per_fwd, _, _ = paths[base]
+        if norm:
+            cfg = cfg.replace(fullsubnet=dataclasses.replace(cfg.fullsubnet, norm_type=norm))
+        out[label] = (cfg, sd, per_fwd)
+    return out
+
+
+def _runs(items: list) -> list:
+    """``items`` as ``[(item, how many in a row), ...]``."""
+    runs = []
+    for item in items:
+        if runs and runs[-1][0] == item:
+            runs[-1][1] += 1
+        else:
+            runs.append([item, 1])
+    return runs
+
+
+def phase_stream(label: str, cfg, sd, per_call: dict) -> dict:
+    """A streaming path at full width: one 3-s utterance at B = 1 through
+    ``stream_chunks`` in chunks of STREAM_CHUNK_MS, once to warm up, then
+    again with every count set to 0 just before and read after each step
+    (a step: a chunk, and at the end the conv-STFT's pad or FullSubNet's
+    look-ahead frames, the decoder's flush, the overlap-add's last samples):
+    each step that runs the model on any frame launches ``per_call``, the
+    flush steps nothing.  Each step is timed on the host clock to
+    ``synchronize`` (the chunk's latency); the real-time factor and the peak
+    device memory.  The enhanced waveform against ``enhance_batch`` on the
+    same weights over the whole utterance, within STREAM_TOL.  Returns the
+    readings."""
+    from se_tpu_torch.device import resolve_device
+    from se_tpu_torch.enhance import chunk_samples, enhance_batch, stream_chunks, stream_output
+    from se_tpu_torch.models import build_model
+    from se_tpu_torch.models.factory import build_stream_model
+
+    fs, seconds = cfg.stft.fs, 3
+    dev = resolve_device("cuda")
+    wav = torch.from_numpy(_utterances(1, seconds, fs)[0]).to(dev)  # [1, L]
+    batch = build_model(cfg, device=dev)
+    batch.load_state_dict(sd, strict=True)
+    model = build_stream_model(cfg, device=dev)
+    model.load_state_dict(sd, strict=True)
+    chunk = chunk_samples(cfg, STREAM_CHUNK_MS)
+    pieces = wav.split(chunk, dim=-1)
+    fsn = cfg.model == "FullSubNet"
+    hop = cfg.stft.torch_hop if fsn else cfg.stft.win_inc
+    lag = model.look_ahead if fsn else model.n_stages
+    list(stream_chunks(model, pieces))  # warm-up: cuDNN's algorithm choice
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    outs, step_ms, deltas = [], [], []
+    before = _counts()
+    t0 = time.perf_counter()
+    steps = stream_chunks(model, pieces)
+    while True:
+        t_step = time.perf_counter()
+        y = next(steps, None)
+        if y is None:
+            break
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t_step))
+        now = _counts()
+        deltas.append({k: now[k] - before[k] for k in now if now[k] != before[k]})
+        before = now
+        outs.append(y)
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    got = stream_output(model, torch.cat(outs, dim=-1), wav.shape[-1])[0]
+    want = enhance_batch(batch, wav, dev)[0]
+    err = _max_err(got, want)
+
+    # the model runs on every chunk and on the end's frames (the conv-STFT's
+    # pad; FullSubNet's last analysis frames and its look-ahead zeros); the
+    # decoder's flush and the overlap-add's last samples launch nothing
+    flushes = 1 if fsn else 2
+    calls = len(pieces) + 1
+    expected = [per_call] * calls + [{}] * flushes
+    chunk_ms = np.array(step_ms[: len(pieces)])
+    p50, p99 = np.percentile(chunk_ms, 50), np.percentile(chunk_ms, 99)
+    print(f"[stream {label}] {seconds} s at B=1 in {len(pieces)} chunks of {chunk} samples "
+          f"({chunk // hop} frames; algorithmic latency {lag} frames = {1e3 * lag * hop / fs:.1f} "
+          f"ms), {len(step_ms)} steps: launches {launches}, per step "
+          + ", ".join(f"{d} x {n}" for d, n in _runs(deltas)))
+    print(f"[stream {label}] chunk latency p50 {p50:.3f} ms, p99 {p99:.3f} ms, max "
+          f"{chunk_ms.max():.3f} ms (host clock to synchronize); the end's steps "
+          f"{[round(t, 3) for t in step_ms[len(pieces):]]} ms; {wall:.4f} s for {seconds} s: "
+          f"real-time factor {wall / seconds:.6f}; peak device memory {peak:.1f} MiB")
+    print(f"[stream {label}] streamed wav vs enhance_batch over the whole utterance: max |diff| "
+          f"{err} (tolerance {STREAM_TOL}); {tuple(got.shape)} vs {tuple(want.shape)}")
+    assert deltas == expected, (deltas, expected)
+    assert launches == _expected(per_call, calls), launches
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert err <= STREAM_TOL, err
+    return {"launches": launches, "launches_per_chunk": per_call, "chunks": len(pieces),
+            "model_calls": calls, "p50_ms": p50, "p99_ms": p99, "rtf": wall / seconds,
+            "peak_mib": peak, "max_abs_err": err, "wav": got.cpu()}
+
+
+def phase_cli(workdir: Path, paths: dict, held_to: dict = None, streams: dict = None):
     """The enhance CLI on the card for every path that has CLI arguments,
     each in a process of its own, all started at once (nothing is timed
     meanwhile): 3 files of 3, 2.5 and 1.25 s at ``--batch 2``, each output
@@ -2054,7 +2340,9 @@ def phase_cli(workdir: Path, paths: dict, held_to: dict = None):
     build, batched as the CLI batches them and one row at a time; a path in
     ``held_to`` (label -> ``phase_slice``'s waveform of the 8 utterances)
     also holds its 3-s file, the first utterance, to that waveform's first
-    row.  Every process is waited for, or killed."""
+    row.  Every process is waited for, or killed.  Meanwhile each path in
+    ``streams`` (label -> (config, state dict)) runs the CLI's ``main`` in
+    this process with ``--streaming`` (``_stream_cli``)."""
     from se_tpu_torch.data.wav import write_wav
     from se_tpu_torch.utils.weights import save_reference_checkpoint
 
@@ -2077,11 +2365,13 @@ def phase_cli(workdir: Path, paths: dict, held_to: dict = None):
                    *[str(run_dir / n) for n in lengths], "--out-dir", str(run_dir / "enhanced")]
             jobs[label] = (subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
                                             stderr=subprocess.PIPE, text=True), lengths)
+        for label, (cfg, sd) in (streams or {}).items():
+            _stream_cli(workdir / f"stream-{label}", label, cfg, sd)
         for label, (proc, lengths) in jobs.items():
-            cfg, sd, _, _, cli_args = paths[label]
             stdout, stderr = proc.communicate(timeout=600)
             print(stdout.strip())
             assert proc.returncode == 0, stderr[-3000:]
+            cfg, sd, _, _, cli_args = paths[label]
             _check_cli(workdir / label, label, cfg, sd, cli_args, lengths)
             if label in (held_to or {}):
                 _check_cli_against_slice(workdir / label, label, held_to[label])
@@ -2147,6 +2437,40 @@ def _check_cli(run_dir: Path, label: str, cfg, sd, cli_args, lengths: dict):
           f"{worst_batch * 32768:.1f} LSB (tolerance 2 LSB), one row at a time "
           f"{worst_single * 32768:.1f} LSB (tolerance {single_tol * 32768:.0f} LSB)")
     assert worst_batch <= CLI_TOL and worst_single <= single_tol, (worst_batch, worst_single)
+
+
+def _stream_cli(run_dir: Path, label: str, cfg, sd) -> None:
+    """The enhance CLI's ``main`` in this process (as phase 7 runs the train
+    CLI's), ``--streaming --chunk-ms`` STREAM_CHUNK_MS on one 3-s file, its
+    output held to ``enhance_stream`` on the file the CLI read, at the CLI's
+    int16 rounding: within CLI_TOL."""
+    from se_tpu_torch import enhance
+    from se_tpu_torch.data.wav import read_wav, write_wav
+    from se_tpu_torch.enhance import chunk_samples, enhance_stream
+    from se_tpu_torch.models.factory import build_stream_model
+    from se_tpu_torch.utils.weights import save_reference_checkpoint
+
+    run_dir.mkdir()
+    ckpt = save_reference_checkpoint(str(run_dir / "checkpoint.pt"), sd)
+    write_wav(str(run_dir / "a.wav"), _utterances(1, 3, cfg.stft.fs)[0][0], cfg.stft.fs)
+    cli_args = ["--model", cfg.model, "--streaming", "--chunk-ms", str(STREAM_CHUNK_MS)]
+    if cfg.model == "FullSubNet":
+        cli_args += ["--sequence-model", cfg.sequence_model, "--fsn-norm",
+                     cfg.fullsubnet.norm_type]
+    elif cfg.lstm == "real":
+        cli_args += ["--lstm", "real"]
+    enhance.main(["--checkpoint", ckpt, *cli_args, "--device", "cuda", str(run_dir / "a.wav"),
+                  "--out-dir", str(run_dir / "enhanced")])
+    model = build_stream_model(cfg, device="cuda")
+    model.load_state_dict(sd, strict=True)
+    x = read_wav(str(run_dir / "a.wav"))[0].astype(np.float32)
+    want = enhance_stream(model, x, chunk_samples(cfg, STREAM_CHUNK_MS)).cpu().numpy()
+    want = np.clip(want * 32768, -32768, 32767).astype(np.int16) / 32768.0
+    got = read_wav(str(run_dir / "enhanced" / "a.wav"))[0]
+    err = float(np.abs(got - want).max())
+    print(f"[cli stream {label}] {' '.join(cli_args)}: max |CLI - in-process stream| "
+          f"{err * 32768:.1f} LSB (tolerance 2 LSB)")
+    assert got.shape == want.shape and err <= CLI_TOL, (got.shape, err)
 
 
 def _check_cli_against_slice(run_dir: Path, label: str, wav) -> None:
@@ -2342,6 +2666,8 @@ def main() -> int:
     k3f16, k3b16 = phase_gru_kernels(torch.bfloat16)
     k4_16 = phase_conv_kernel(torch.bfloat16)
     stamp("K3, K4 bf16")
+    stream_kernels = phase_stream_kernels()
+    stamp("K1f, K2f, K3f, K4 at the streaming shapes")
     p1, p2, p3 = phase_probes()
     stamp("probes")
     paths = _paths()
@@ -2368,15 +2694,26 @@ def main() -> int:
           f"{diff.max().item()} (tolerance {BF16_SLICE_TOL}), mean {diff.mean().item()} "
           f"(tolerance {BF16_SLICE_MEAN_TOL})")
     assert diff.max().item() <= BF16_SLICE_TOL and diff.mean().item() <= BF16_SLICE_MEAN_TOL
+    streams = _stream_paths(paths)
+    streamed = {label: phase_stream(label, *args) for label, args in streams.items()}
+    # the fused conv's stream against the default DCCRN's, as phase 4 holds
+    # their batch waveforms
+    err = _max_err(streamed["DCCRN-fused-conv"]["wav"], streamed["DCCRN"]["wav"])
+    print(f"[stream DCCRN-fused-conv] max |K4 encoder - cuDNN block-form encoder| streamed wav "
+          f"{err} (tolerance {SLICE_TOL})")
+    assert err <= SLICE_TOL, err
+    stamp("streaming")
     trained = {}
-    # Main-path depths, set to keep the script within its time: 5 steps, 3
-    # for DCCRN-fused-conv; 10 for the FullSubNets, whose falling-loss check
-    # needs them, and for DCCRN-PMSQE, the trainer variants' main path
+    # Main-path depths, set to keep the script within its time: 5 steps for
+    # DCCRN, CRN and DCCRN-PMSQE, the trainer variants' main path; 3 for
+    # DCCRN-fused-conv and the bf16 DCCRNs and CRN (their losses fall from
+    # the second step); 10 for the FullSubNets, whose falling-loss check
+    # needs them
     for label, steps in (("DCCRN", 5), ("CRN", 5), ("DCCRN-real", 0), ("FullSubNet", 10),
-                         ("FullSubNet-GRU", 10), ("DCCRN-fused-conv", 3), ("DCCRN-bf16", 5),
-                         ("CRN-bf16", 5), ("DCCRN-real-bf16", 5), ("FullSubNet-bf16", 10),
-                         ("FullSubNet-GRU-bf16", 10), ("DCCRN-fused-conv-bf16", 5),
-                         ("DCCRN-PMSQE", 10), ("DCCRN-LMS-bf16", 0), ("DCCRN-direct", 0),
+                         ("FullSubNet-GRU", 10), ("DCCRN-fused-conv", 3), ("DCCRN-bf16", 3),
+                         ("CRN-bf16", 3), ("DCCRN-real-bf16", 3), ("FullSubNet-bf16", 10),
+                         ("FullSubNet-GRU-bf16", 10), ("DCCRN-fused-conv-bf16", 3),
+                         ("DCCRN-PMSQE", 5), ("DCCRN-LMS-bf16", 0), ("DCCRN-direct", 0),
                          ("DCCRN-cbn-noskip", 0), ("CRN-noskip-LMS", 0)):
         cfg, sd, per_fwd, per_bwd, _ = paths[label]
         trained[label] = phase_train(label, cfg, sd, per_fwd, per_bwd, steps)
@@ -2386,7 +2723,7 @@ def main() -> int:
     mu_cfg = cfg.replace(train=dataclasses.replace(cfg.train, adam_mu_dtype="bfloat16"))
     trained["DCCRN-bf16-adam-mu"] = (None, _train_steps("DCCRN-bf16 adam_mu_dtype=bfloat16",
                                                         mu_cfg, sd, {**per_fwd, **per_bwd},
-                                                        steps=5))
+                                                        steps=3))
     cfg, sd, per_fwd, per_bwd, _ = paths["CRN"]
     trained["CRN-direct"] = phase_train(
         "CRN-direct", cfg.replace(masking_mode="Direct(None make)"), sd, per_fwd, per_bwd,
@@ -2402,7 +2739,10 @@ def main() -> int:
 
     start_pool(score_workers(TRAIN_CLI_BATCH))
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-        phase_cli(Path(tmp), paths, held_to={"DCCRN-cbn-noskip": waves["DCCRN-cbn-noskip"]})
+        # the streaming CLI once per family, the fused conv's path aside (no
+        # CLI takes that switch)
+        phase_cli(Path(tmp), paths, held_to={"DCCRN-cbn-noskip": waves["DCCRN-cbn-noskip"]},
+                  streams={k: streams[k][:2] for k in ("DCCRN", "CRN", "FullSubNet")})
     stamp("CLI")
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         phase_train_cli(Path(tmp))
@@ -2415,11 +2755,11 @@ def main() -> int:
     fwd.update(launches=enhanced["DCCRN"]["K1f"],
                launches_per_forward={k: enhanced[k]["K1f"] for k in k1_paths},
                launches_per_train_step={k: trained[k][0]["K1f"] for k in k1_train},
-               launches_in_10_steps_pmsqe=trained["DCCRN-PMSQE"][1]["K1f"],
+               launches_in_5_steps_pmsqe=trained["DCCRN-PMSQE"][1]["K1f"],
                **stash_times)
     bwd.update(launches=trained["DCCRN"][1]["K1b"],
                launches_per_train_step={k: trained[k][0]["K1b"] for k in k1_train},
-               launches_in_10_steps_pmsqe=trained["DCCRN-PMSQE"][1]["K1b"])
+               launches_in_5_steps_pmsqe=trained["DCCRN-PMSQE"][1]["K1b"])
     k2f.update(launches=enhanced["CRN"]["K2f"],
                launches_per_forward={k: enhanced[k]["K2f"] for k in k2_paths},
                launches_per_train_step={k: trained[k][0]["K2f"] for k in k2_train})
@@ -2442,7 +2782,7 @@ def main() -> int:
     k1b16.update(launches=trained["DCCRN-bf16"][1]["K1b-bf16"],
                  launches_per_train_step={k: trained[k][0]["K1b-bf16"]
                                           for k in (*k1_16, "DCCRN-LMS-bf16")},
-                 launches_in_5_steps_adam_mu_bf16=trained["DCCRN-bf16-adam-mu"][1]["K1b-bf16"])
+                 launches_in_3_steps_adam_mu_bf16=trained["DCCRN-bf16-adam-mu"][1]["K1b-bf16"])
     k2_16 = ("CRN-bf16", "FullSubNet-bf16")
     k2f16.update(launches=enhanced["CRN-bf16"]["K2f-bf16"],
                  launches_per_forward={k: enhanced[k]["K2f-bf16"] for k in k2_16},
@@ -2458,7 +2798,16 @@ def main() -> int:
     k4_16.update(launches=enhanced["DCCRN-fused-conv-bf16"]["K4-bf16"],
                  launches_per_forward=enhanced["DCCRN-fused-conv-bf16"]["K4-bf16"],
                  launches_per_train_step=trained["DCCRN-fused-conv-bf16"][0]["K4-bf16"],
-                 launches_in_5_train_steps=trained["DCCRN-fused-conv-bf16"][1]["K4-bf16"])
+                 launches_in_3_train_steps=trained["DCCRN-fused-conv-bf16"][1]["K4-bf16"])
+    for key, labels in (("K1f", ("DCCRN", "DCCRN-fused-conv")),
+                        ("K2f", ("CRN", "DCCRN-real", "FullSubNet")),
+                        ("K3f", ("FullSubNet-GRU",)), ("K4", ("DCCRN-fused-conv",))):
+        entry = {"K1f": fwd, "K2f": k2f, "K3f": k3f, "K4": k4}[key]
+        entry.update(stream_max_abs_err=stream_kernels[key]["max_abs_err"],
+                     stream_shapes=stream_kernels[key]["shapes"],
+                     stream_launches={k: streamed[k]["launches"][key] for k in labels},
+                     stream_launches_per_chunk={k: streamed[k]["launches_per_chunk"][key]
+                                                for k in labels})
     stamp("every check")
     print(smi)
     print(json.dumps({"kernels": [fwd, bwd, k2f, k2b, k3f, k3b, k4, p1, p2, p3,

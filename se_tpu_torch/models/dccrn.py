@@ -152,8 +152,6 @@ class DCCRN(nn.Module):
         specs = self.stft(inputs)  # [B, fft_len + 2, T]
         dim = self.fft_len // 2 + 1
         real, imag = specs[:, :dim], specs[:, dim:]
-        spec_mags = torch.sqrt(real**2 + imag**2 + 1e-8)
-        spec_phase = torch.atan2(imag, real)
         # drop the DC bin; the network runs in the compute dtype from here
         out = torch.stack([real, imag], dim=1)[:, :, 1:].to(self.compute_dtype)
 
@@ -192,21 +190,24 @@ class DCCRN(nn.Module):
             out_wav = self.istft(torch.cat([mask_real, mask_imag], dim=1))[:, 0]
             return (mask_real, target_specs[:, :dim], mask_imag, target_specs[:, dim:],
                     torch.clamp(out_wav, -1.0, 1.0))
+        out_real, out_imag = self._apply_mask(mask_real, mask_imag, real, imag)
+        out_wav = self.istft(torch.cat([out_real, out_imag], dim=1))[:, 0]
+        return out_real, out_imag, torch.clamp(out_wav, -1.0, 1.0)
+
+    def _apply_mask(self, mask_real, mask_imag, real, imag):
+        """The E, C or R mask ``(mask_real, mask_imag)`` on the noisy
+        spectrum ``(real, imag)``, each ``[B, fft_len // 2 + 1, T]`` f32 ->
+        ``(out_real, out_imag)``."""
         if self.masking_mode == "E":
+            spec_mags = torch.sqrt(real**2 + imag**2 + 1e-8)
+            spec_phase = torch.atan2(imag, real)
             mask_mags = complex_mag(mask_real, mask_imag)
             real_phase = mask_real / (mask_mags + 1e-8)
             imag_phase = mask_imag / (mask_mags + 1e-8)
             mask_phase = safe_arctan2(imag_phase, real_phase)
             est_mags = torch.tanh(mask_mags) * spec_mags
             est_phase = spec_phase + mask_phase
-            out_real = est_mags * torch.cos(est_phase)
-            out_imag = est_mags * torch.sin(est_phase)
-        elif self.masking_mode == "C":
-            out_real = real * mask_real - imag * mask_imag
-            out_imag = real * mask_imag + imag * mask_real
-        else:  # "R"
-            out_real = real * mask_real
-            out_imag = imag * mask_imag
-
-        out_wav = self.istft(torch.cat([out_real, out_imag], dim=1))[:, 0]
-        return out_real, out_imag, torch.clamp(out_wav, -1.0, 1.0)
+            return est_mags * torch.cos(est_phase), est_mags * torch.sin(est_phase)
+        if self.masking_mode == "C":
+            return real * mask_real - imag * mask_imag, real * mask_imag + imag * mask_real
+        return real * mask_real, imag * mask_imag  # "R"

@@ -295,7 +295,8 @@ class NavieComplexLSTM(nn.Module):
     over the doubled batch ``[real; imag]`` and gives r->r and i->r, the
     imaginary-weight stack r->i and i->i; then ``real = r2r - i2i`` and
     ``imag = i2r + r2i``.  Only a layer given ``projection_dim`` has the
-    ``r_trans``/``i_trans`` projections.
+    ``r_trans``/``i_trans`` projections.  Its state is the two stacks'
+    ``(h, c)``, each ``[2, 2B, hidden_size // 2]`` f32.
     """
 
     def __init__(self, input_size: int, hidden_size: int,
@@ -309,15 +310,18 @@ class NavieComplexLSTM(nn.Module):
             self.r_trans = TorchLinear(units, projection_dim // 2, generator=generator)
             self.i_trans = TorchLinear(units, projection_dim // 2, generator=generator)
 
-    def forward(self, inputs):
-        real, imag = inputs  # each [T, B, input_size // 2]
+    def forward(self, inputs, state=None, return_state: bool = False):
+        """``[real, imag]``, each ``[T, B, input_size // 2]``, from ``state``
+        (zeros when None) -> ``[real, imag]``, and with ``return_state`` the
+        final state."""
+        real, imag = inputs
         stacked = rnn_ops.LstmParams(
             *[torch.stack([a, b]) for a, b in zip(self.real_lstm.params(),
                                                    self.imag_lstm.params())]
         )
         B = real.shape[1]
         z = torch.cat([real, imag], dim=1)  # [T, 2B, in_dim]
-        ys, _ = rnn_ops.lstm_stack(stacked, z)
+        ys, final = rnn_ops.lstm_stack(stacked, z, state)
         r2r, i2r = ys[0, :, :B], ys[0, :, B:]
         r2i, i2i = ys[1, :, :B], ys[1, :, B:]
         real_out = r2r - i2i
@@ -325,6 +329,8 @@ class NavieComplexLSTM(nn.Module):
         if self.projection_dim is not None:
             real_out = self.r_trans(real_out)
             imag_out = self.i_trans(imag_out)
+        if return_state:
+            return [real_out, imag_out], final
         return [real_out, imag_out]
 
 
@@ -350,9 +356,11 @@ class _TorchRNN(nn.Module):
     ``[T, B, In]``) under their parameter names ``weight_ih_l{k}``,
     ``weight_hh_l{k}``, ``bias_ih_l{k}`` and ``bias_hh_l{k}``, with their
     init U(+-1/sqrt(H)).  Each layer is one call of the subclass's ``_layer``
-    from a zero state; in train mode, dropout at ``dropout`` follows every
-    layer but the last.  Subclasses set ``_GATES``, the gate blocks a layer's
-    weights stack (4 for the LSTM, 3 for the GRU)."""
+    from its state (zeros when none is given); in train mode, dropout at
+    ``dropout`` follows every layer but the last.  Subclasses set ``_GATES``,
+    the gate blocks a layer's weights stack (4 for the LSTM, 3 for the GRU).
+    A state is a list of one entry a layer: ``(h, c)`` of ``[B, H]`` for the
+    LSTM, ``h`` for the GRU."""
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
                  dropout: float = 0.0, *, generator: torch.Generator):
@@ -367,21 +375,25 @@ class _TorchRNN(nn.Module):
                                 (f"bias_ih_l{k}", (G,)), (f"bias_hh_l{k}", (G,))):
                 setattr(self, name, nn.Parameter(_uniform(generator, shape, bound)))
 
-    def _layer(self, params: rnn_ops.LstmParams, x: torch.Tensor) -> torch.Tensor:
+    def _layer(self, params: rnn_ops.LstmParams, x: torch.Tensor, state):
+        """One layer from ``state`` (None: zeros) -> ``(ys, final state)``."""
         raise NotImplementedError
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
-        """``x [T, B, In]`` -> ``[T, B, H]``; ``generator`` draws the dropout
-        masks in train mode."""
+    def forward(self, x, generator: Optional[torch.Generator] = None, state=None,
+                return_state: bool = False):
+        """``x [T, B, In]`` -> ``[T, B, H]``, and with ``return_state`` the
+        final state; ``generator`` draws the dropout masks in train mode."""
+        finals = []
         for k in range(self.num_layers):
             params = rnn_ops.LstmParams(
                 getattr(self, f"weight_ih_l{k}"), getattr(self, f"weight_hh_l{k}"),
                 getattr(self, f"bias_ih_l{k}"), getattr(self, f"bias_hh_l{k}"),
             )
-            x = self._layer(params, x)
+            x, final = self._layer(params, x, None if state is None else state[k])
+            finals.append(final)
             if self.training and self.dropout > 0 and k < self.num_layers - 1:
                 x = dropout(x, self.dropout, generator)
-        return x
+        return (x, finals) if return_state else x
 
 
 class TorchLSTM(_TorchRNN):
@@ -389,8 +401,8 @@ class TorchLSTM(_TorchRNN):
 
     _GATES = 4
 
-    def _layer(self, params, x):
-        return rnn_ops.lstm(params, x)[0]
+    def _layer(self, params, x, state):
+        return rnn_ops.lstm(params, x, *(state if state is not None else (None, None)))
 
 
 class TorchGRU(_TorchRNN):
@@ -398,8 +410,8 @@ class TorchGRU(_TorchRNN):
 
     _GATES = 3
 
-    def _layer(self, params, x):
-        return rnn_ops.gru(params, x)[0]
+    def _layer(self, params, x, state):
+        return rnn_ops.gru(params, x, state)
 
 
 _ACTIVATIONS = {
@@ -433,9 +445,13 @@ class SequenceModel(nn.Module):
         self.fc_output_layer = TorchLinear(hidden_size, output_size, generator=generator)
         self.activation = _ACTIVATIONS[output_activate_function]
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
+    def forward(self, x, generator: Optional[torch.Generator] = None, state=None,
+                return_state: bool = False):
+        """``[B, F, T]`` from the RNN's ``state`` (zeros when None) -> ``[B,
+        F', T]``, and with ``return_state`` the RNN's final state."""
         if x.ndim != 3:
             raise ValueError(f"SequenceModel takes [B, F, T], got {tuple(x.shape)}")
-        o = self.sequence_model(x.permute(2, 0, 1), generator)  # [T, B, F]
-        o = self.activation(self.fc_output_layer(o))
-        return o.permute(1, 2, 0)
+        o, final = self.sequence_model(x.permute(2, 0, 1), generator, state,
+                                       return_state=True)  # [T, B, F]
+        o = self.activation(self.fc_output_layer(o)).permute(1, 2, 0)
+        return (o, final) if return_state else o

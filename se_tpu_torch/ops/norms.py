@@ -6,10 +6,12 @@ FullSubNet's normalisations (counterpart of ``batch_norm_2d``,
 The FullSubNet norms take ``[B, C, F, T]`` and keep their statistics in
 f32.  ``valid_frames`` (a scalar or one count per sample) restricts the
 offline norms' statistics to the first ``valid_frames`` frames; the
-cumulative norms are causal prefix statistics and ignore it.  The
-forgetting-EMA norms and the chunk-carry forms of the cumulative norms are
-not in ``norm_wrapper``'s table and are not ported yet (ROADMAP.md, Queue 1
-items 11 and 14).
+cumulative norms are causal prefix statistics and ignore it.  Their
+chunk-carry forms (``cumulative_*_norm_carry``, chosen by
+``stream_norm_wrapper``) normalise a stream chunk by chunk, carrying the
+running sums and the entry count.  The forgetting-EMA norms are not in
+``norm_wrapper``'s table and are not ported yet (ROADMAP.md, Queue 1 item
+14).
 """
 
 from __future__ import annotations
@@ -197,6 +199,74 @@ def cumulative_layer_norm(x: torch.Tensor, valid_frames=None) -> torch.Tensor:
     cum_std = (cum_var + EPSILON).sqrt()
     out = (xr - cum_mean[:, None, :].to(x.dtype)) / cum_std[:, None, :].to(x.dtype)
     return out.reshape(B, C, F, T)
+
+
+# -- chunk-carry forms of the cumulative norms (stream inference) ----------
+#
+# A cumulative norm's statistics are causal prefix sums, so a stream can
+# normalise a chunk of frames at a time, carrying (running sum, [running
+# power sum,] entry count).  As in the JAX package, the carry is added to
+# the chunk's own cumsum, so the result equals the batch norm over the
+# concatenated chunks up to f32 rounding of that one sum.
+
+
+def init_cumulative_carry(n_rows: int, with_pow: bool, device=None) -> tuple:
+    """A fresh carry for ``n_rows = B * C`` rows: ``(sum, [pow_sum,] count)``,
+    f32, the sums ``[n_rows]`` and the count a scalar."""
+    zeros = torch.zeros(n_rows, dtype=torch.float32, device=device)
+    count = torch.zeros((), dtype=torch.float32, device=device)
+    return (zeros, zeros.clone(), count) if with_pow else (zeros, count)
+
+
+def _chunk_sums(x: torch.Tensor, carry_sums, prev_count):
+    """The running sums over the chunk's frames, each ``[BC, T]`` f32, and
+    the entry counts ``[1, T]``: the carried sums plus the chunk's cumsums of
+    each statistic in ``carry_sums``' order (x, then x^2)."""
+    B, C, F, T = x.shape
+    xf = x.reshape(B * C, F, T).float()
+    steps = (xf.sum(dim=1), xf.square().sum(dim=1))[: len(carry_sums)]
+    cums = [prev[:, None] + step.cumsum(dim=-1) for prev, step in zip(carry_sums, steps)]
+    count = prev_count + torch.arange(F, F * T + 1, F, device=x.device,
+                                      dtype=torch.float32)[None, :]
+    return cums, count
+
+
+def cumulative_laplace_norm_carry(x: torch.Tensor, carry) -> tuple:
+    """A chunk ``[B, C, F, T]`` and its carry -> ``(normed, new carry)``.
+    The statistics are f32 whatever x's dtype, as the batch norm's."""
+    B, C, F, T = x.shape
+    prev_sum, prev_count = carry
+    (cum_sum,), count = _chunk_sums(x, (prev_sum,), prev_count)
+    cum_mean = (cum_sum / count)[:, None, :].to(x.dtype)
+    y = (x.reshape(B * C, F, T) / (cum_mean + EPSILON)).reshape(B, C, F, T)
+    return y, (cum_sum[:, -1], prev_count + F * T)
+
+
+def cumulative_layer_norm_carry(x: torch.Tensor, carry) -> tuple:
+    """A chunk ``[B, C, F, T]`` and its carry -> ``(normed, new carry)``,
+    f32 statistics whatever x's dtype."""
+    B, C, F, T = x.shape
+    prev_sum, prev_pow, prev_count = carry
+    (cum_sum, cum_pow), count = _chunk_sums(x, (prev_sum, prev_pow), prev_count)
+    cum_mean = cum_sum / count
+    cum_var = (cum_pow - 2 * cum_mean * cum_sum) / count + cum_mean**2
+    cum_std = (cum_var + EPSILON).sqrt()
+    xr = x.reshape(B * C, F, T)
+    y = (xr - cum_mean[:, None, :].to(x.dtype)) / cum_std[:, None, :].to(x.dtype)
+    return y.reshape(B, C, F, T), (cum_sum[:, -1], cum_pow[:, -1], prev_count + F * T)
+
+
+def stream_norm_wrapper(norm_type: str):
+    """``(norm(x, carry) -> (y, carry), init(n_rows, device) -> carry)`` of a
+    cumulative norm; the offline norms take utterance-wide statistics, which
+    have no causal form, and raise."""
+    if norm_type == "cumulative_laplace_norm":
+        return cumulative_laplace_norm_carry, lambda n, device=None: init_cumulative_carry(
+            n, False, device)
+    if norm_type == "cumulative_layer_norm":
+        return cumulative_layer_norm_carry, lambda n, device=None: init_cumulative_carry(
+            n, True, device)
+    raise NotImplementedError(f"streaming requires a cumulative norm, got {norm_type!r}")
 
 
 _NORMS = {
