@@ -41,9 +41,11 @@ in order; any failure ends the run with a nonzero exit and no result line:
    hop 300, from a nonzero state; K4 on the chunk and its cached frame),
    each chunk also as two calls with the state carried, with times;
    then the probes (P1 bound_probe, P2 wavefront_probe, P3 vpu_probe), each
-   against its plain version, then each probe's own entry point at the sub
-   band's shape (B = 8, T = 163) with every launch count set to 0 just
-   before and read just after;
+   against its plain version (P2 also against two K2 calls, at a ragged
+   tile, in two waves of clusters and twice for the same bits; P3's
+   dots-only also at a step count its groups do not divide), then each
+   probe's own entry point at the sub band's shape (B = 8, T = 163) with
+   every launch count set to 0 just before and read just after;
 4. the enhance paths at full width, each with seeded random weights carried
    over from the JAX tree layout: ``enhance_batch`` on 8 three-second
    utterances (every kernel's launch count set to 0 just before and read
@@ -1603,13 +1605,14 @@ def _rel(got, want) -> float:
 def phase_probes() -> tuple:
     """The probes' kernels (P1-P3) against their plain versions on the card
     at small shapes and at the sub band's, P1's real mode bit for bit
-    against K2 there, then each probe's own entry point (``main`` at B=8,
-    T=163) with every launch count set to 0 just before and read just
-    after; the plain versions and the library calls timed beside them.
-    Returns the P1, P2 and P3 entries."""
+    against K2 there, P2 also against two K2 calls and in two waves, P3's
+    dots-only also at a ragged step count, then each probe's own entry
+    point (``main`` at B=8, T=163) with every launch count set to 0 just
+    before and read just after; the plain versions and the library calls
+    timed beside them.  Returns the P1, P2 and P3 entries."""
     from se_tpu_torch.device import resolve_device
     from se_tpu_torch.ops.fused_lstm_inproj import fused_lstm_scan_inproj
-    from se_tpu_torch.probes import bound_probe, cuda_ms, vpu_probe, wavefront_probe
+    from se_tpu_torch.probes import bound_probe, cuda_ms, gate_product, vpu_probe, wavefront_probe
 
     dev = resolve_device("cuda")
     per_utt, In, H = bound_probe.SUB_BAND
@@ -1672,34 +1675,47 @@ def phase_probes() -> tuple:
           "ms_by_mode": p1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
           "library_ms": lib_ms}
 
-    # P2: against its plain version at a small shape, its entry point, then
-    # against its plain version and two K2 calls at the sub band's shape
-    args = wavefront_probe.two_layer_inputs(12, 10, In, H, dev, seed=SEED + 6)
-    with torch.no_grad():
-        got = wavefront_probe.wavefront_lstm2(*args)
-        p2_err = max(_max_err(g, w) for g, w in zip(got, wavefront_probe.reference(*args)))
-        seq_bits = all(torch.equal(g, w)
-                       for g, w in zip(got, wavefront_probe.sequential_lstm2(*args)))
-    print(f"[p2] max |kernel - plain| at T=12 Bb=10: {p2_err} (tolerance {KERNEL_TOL}); "
-          f"bit-identical with two K2 calls: {seq_bits}")
-    assert p2_err <= KERNEL_TOL, p2_err
+    # P2: against its plain version and two K2 calls at a small shape (a
+    # ragged tile of 10 rows) and at a row count that needs a second wave of
+    # clusters, two calls bit for bit; its entry point; then the same
+    # checks at the sub band's shape, with the plan's clusters held to what
+    # the card holds at once
+    def p2_check(args):
+        T_, Bb_ = args[0].shape[:2]
+        with torch.no_grad():
+            got = wavefront_probe.wavefront_lstm2(*args)
+            again = wavefront_probe.wavefront_lstm2(*args)
+            err = max(_max_err(g, w) for g, w in zip(got, wavefront_probe.reference(*args)))
+            seq = max(_max_err(g, w) for g, w in zip(got, wavefront_probe.sequential_lstm2(*args)))
+        same = all(torch.equal(g, w) for g, w in zip(got, again))
+        plan = wavefront_probe.plan(Bb_, In, H)
+        fits = wavefront_probe.active_clusters(Bb_, In, H, device=dev)
+        print(f"[p2] T={T_} Bb={Bb_} ({plan.tiles} tiles of {plan.R} rows, {plan.clusters} "
+              f"clusters of {plan.N}, {plan.waves} wave(s) of at most {fits}, a ring of "
+              f"{plan.stages} slabs, {plan.smem} B): max |kernel - plain| {err} (tolerance "
+              f"{KERNEL_TOL}); max |kernel - two K2 calls| {seq} (tolerance "
+              f"{wavefront_probe.CHECK_TOL}); two calls bit-identical: {same}")
+        assert err <= KERNEL_TOL, err
+        assert seq <= wavefront_probe.CHECK_TOL, seq
+        assert same
+        assert fits >= gate_product.CLUSTERS_AT_ONCE[plan.N], (fits, plan)
+        assert -(-plan.clusters // plan.waves) <= fits, (fits, plan)
+        return err, seq
+
+    inputs = lambda T_, Bb_, seed: wavefront_probe.two_layer_inputs(T_, Bb_, In, H, dev, seed=seed)
+    p2_err, seq_err = p2_check(inputs(12, 10, SEED + 6))
+    two_wave = 32 * per_utt
+    assert wavefront_probe.plan(two_wave, In, H).waves >= 2
+    p2_err, seq_err = map(max, zip((p2_err, seq_err), p2_check(inputs(4, two_wave, SEED + 8))))
     _zero_counts()
     p2 = wavefront_probe.main(PROBE_ARGS)
     p2_launches = _counts()
     print(f"[p2] wavefront_probe.main({PROBE_ARGS}): launches {p2_launches}")
     assert p2_launches == _expected({"P2": 1 + 11, "K2f": 2 * (1 + 11)}), p2_launches
-    full = wavefront_probe.two_layer_inputs(T, Bb, In, H, dev)
+    full = inputs(T, Bb, SEED)
+    p2_err, seq_err = map(max, zip((p2_err, seq_err), p2_check(full)))
     x, wih1, b1, whh1, wih2, b2, whh2, h0, c0 = full
     with torch.no_grad():
-        got = wavefront_probe.wavefront_lstm2(*full)
-        full_err = max(_max_err(g, w) for g, w in zip(got, wavefront_probe.reference(*full)))
-        seq_err = max(_max_err(g, w) for g, w in zip(got, wavefront_probe.sequential_lstm2(*full)))
-        print(f"[p2] T={T} Bb={Bb}: max |kernel - plain| {full_err} (tolerance {KERNEL_TOL}); "
-              f"max |wavefront - two K2 calls| {seq_err} (tolerance {wavefront_probe.CHECK_TOL})")
-        assert full_err <= KERNEL_TOL, full_err
-        assert seq_err <= wavefront_probe.CHECK_TOL, seq_err
-        p2_err = max(p2_err, full_err)
-        del got
         plain_ms = cuda_ms(lambda: wavefront_probe.reference(*full), 1, 1)
         lstm2 = torch.nn.LSTM(In, H, num_layers=2).to(dev)
         for layer, (wih, b, whh) in enumerate(((wih1, b1, whh1), (wih2, b2, whh2))):
@@ -1713,7 +1729,8 @@ def phase_probes() -> tuple:
     bound_ms, bound_by = _bound(n_bytes, flops)
     print(f"[p2] wavefront {p2['wavefront_ms']:.4f} ms, two K2 calls {p2['sequential_ms']:.4f} "
           f"(ratio {p2['sequential_ms'] / p2['wavefront_ms']:.3f}), plain {plain_ms:.4f}, cuDNN "
-          f"nn.LSTM({In}, {H}, num_layers=2) {lib_ms:.4f}, bound {bound_ms:.4f} ({bound_by})")
+          f"nn.LSTM({In}, {H}, num_layers=2) {lib_ms:.4f}, bound {bound_ms:.4f} ({bound_by}); "
+          f"max |wavefront - two K2 calls| {seq_err}")
     p2 = {"name": "wavefront_lstm2", "route": "cuda", "source": "se_tpu_torch/csrc/wavefront_lstm.cu",
           "replaces": "tools/wavefront_probe.py:94::wavefront_lstm2",
           "shapes": f"the sub band's two layers at B={B} (T={T}, Bb={Bb}, In={In}, H={H})",
@@ -1722,7 +1739,9 @@ def phase_probes() -> tuple:
           "sequential_ms": p2["sequential_ms"], "plain_ms": plain_ms, "bound_ms": bound_ms,
           "bound_by": bound_by, "library_ms": lib_ms}
 
-    # P3: each op against its plain version on the tile, then its entry point
+    # P3: each op against its plain version on the tile, dots-only also at
+    # a step count its launch's groups do not divide, twice for the same
+    # bits; then its entry point
     tile = vpu_probe.tile(dev, seed=SEED + 7)
     tiles = -(-Bb // vpu_probe.BB)
     steps = T * tiles
@@ -1731,7 +1750,18 @@ def phase_probes() -> tuple:
         for op in vpu_probe.OPS:
             got = vpu_probe.run(op, *tile, steps=steps, groups=tiles)
             p3_errs[op] = _rel(got, vpu_probe.reference(op, *tile))
-    print(f"[p3] max |kernel - plain| / max(1, max |plain|) per op over {steps} steps: {p3_errs} "
+        want = vpu_probe.reference("dots-only", *tile)
+        ragged = steps + 1
+        plan = vpu_probe.dots_plan(vpu_probe.BB, In, H, ragged)
+        assert ragged % plan.groups, plan
+        fits = vpu_probe.dots_active_clusters(vpu_probe.BB, In, H, ragged, device=dev)
+        assert plan.clusters <= fits, (fits, plan)
+        got = vpu_probe.run("dots-only", *tile, steps=ragged)
+        again = vpu_probe.run("dots-only", *tile, steps=ragged)
+        assert torch.equal(got, again)
+        p3_errs["dots-only"] = max(p3_errs["dots-only"], _rel(got, want))
+    print(f"[p3] max |kernel - plain| / max(1, max |plain|) per op over {steps} steps (dots-only "
+          f"also over {ragged}, in {plan.groups} groups on clusters of {plan.N}): {p3_errs} "
           f"(tolerance {P3_TOL})")
     assert all(v <= P3_TOL for v in p3_errs.values()), p3_errs
     _zero_counts()
@@ -1749,12 +1779,27 @@ def phase_probes() -> tuple:
         for op, fn in library.items():
             p3_lib[op] = cuda_ms(lambda: fn(vol[0][..., :H]), 3, 1)
         p3_lib["0.5*tanh+0.5"] = p3_lib["tanh"]
+        # gates-only: PyTorch's fused LSTM cell (nn.LSTMCell's kernel on the
+        # card; gates i, f, g, o, its second gate input zero), held to the
+        # plain version on the tile, then timed on the volume made whole
+        cell = lambda g_, c_: torch.ops.aten._thnn_fused_lstm_cell(g_, torch.zeros_like(g_), c_)[0]
+        cell_err = _rel(cell(tile[0], tile[1]), vpu_probe.reference("gates-only", *tile))
+        assert cell_err <= P3_TOL, cell_err
+        g_vol = vol[0].reshape(-1, 4 * H).contiguous()  # rows of the volume: 2-D, as it takes
+        c_vol = vol[1].reshape(-1, H).contiguous()
+        p3_lib["gates-only"] = cuda_ms(lambda: cell(g_vol, c_vol), 3, 1)
+        del g_vol, c_vol
         xh, w = torch.cat(vol[2:4], -1), torch.cat(tile[4:])
         p3_lib["dots-only"] = cuda_ms(lambda: torch.matmul(xh, w), 3, 1)
-    shares = {op: vpu_probe.bound_ms(op, steps) / p3_ms[op] for op in vpu_probe.OPS}
+    bounds = {op: vpu_probe.bound_ms(op, steps) for op in vpu_probe.OPS}
+    bound_by = {op: "operations (FP32 FMA)" if op == "dots-only" else
+                f"operations ({vpu_probe.bound_pipe(op)})" for op in vpu_probe.OPS}
+    shares = {op: bounds[op] / p3_ms[op] for op in vpu_probe.OPS}
     print(f"[p3] {steps} steps of {vpu_probe.BB} x {H}: kernel ms {p3_ms}; plain ms (the volume "
           f"in one call) {p3_plain}; torch ms {p3_lib} (0.5*tanh+0.5 as torch.tanh; gates-only "
-          f"has no one call); share of the card's rate {shares}")
+          f"as aten._thnn_fused_lstm_cell, {cell_err} from plain on the tile); bound ms {bounds} "
+          f"by {bound_by} (each elementwise op's own MUFU and FP32 instructions "
+          f"{vpu_probe.PIPE_COUNTS}); share of the bound {shares}")
     p3 = {"name": "vpu_probe", "route": "cuda", "source": "se_tpu_torch/csrc/vpu_probe.cu",
           "replaces": "tools/vpu_probe.py:28::_run",
           "shapes": f"op gates-only, {steps} steps of the {vpu_probe.BB} x {H} tile (the sub band "
@@ -1762,8 +1807,10 @@ def phase_probes() -> tuple:
           "launches": p3_launches["P3"], "max_abs_err": p3_errs["gates-only"],
           "max_err_by_op": p3_errs, "ms": p3_ms["gates-only"], "kernel_ms": p3_ms["gates-only"],
           "ms_by_op": p3_ms, "plain_ms": p3_plain["gates-only"], "plain_ms_by_op": p3_plain,
-          "bound_ms": vpu_probe.bound_ms("gates-only", steps), "bound_by": "operations",
-          "library_ms": None, "library_ms_by_op": p3_lib, "share_of_rate_by_op": shares,
+          "bound_ms": bounds["gates-only"], "bound_by": "operations",
+          "bound_ms_by_op": bounds, "bound_by_op": bound_by,
+          "library_ms": p3_lib["gates-only"], "library_ms_by_op": p3_lib,
+          "share_of_bound_by_op": shares,
           "recurrence_ms_same_volume": p3_ms["recurrence"]}
     return p1, p2, p3
 

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the hand kernels K1-K4 in both forms (f32 and bf16) and the bound
-probe P1, and hash their outputs, to compare two checkouts on one card.
+"""Time the hand kernels K1-K4 in both forms (f32 and bf16) and the probes
+P1-P3, and hash their outputs, to compare two checkouts on one card.
 
-    (cd parent_checkout && python3 /path/to/kernels_ab.py parent)
-    python3 kernels_ab.py change
+    (cd parent_checkout && python3 /path/to/kernels_ab.py parent [families])
+    python3 kernels_ab.py change [families]
 
 Run it from the root of each checkout in turn, on one machine with an
 NVIDIA H100, in the order parent, change, change, parent.  It builds that
@@ -23,9 +23,11 @@ stages at B=8 (T=483) in both forms, each beside one cuDNN conv in the
 same dtype, P1 (its four gate modes at T=163 and 1028 rows of the sub
 band's first layer), the bf16-stream forms of K2f and K2b at FullSubNet's
 four LSTM layers, and last K3f and K3b, f32 then bf16, at
-FullSubNet-GRU's four layers (the same shapes), on inputs drawn from a
-fixed seed.  Beside K3 at each layer it times cuDNN's ``nn.GRU`` in the
-same dtype (``cuDNN ...`` keys: the forward, and forward + backward minus
+FullSubNet-GRU's four layers (the same shapes), then the wavefront probe
+P2 (and the two K2 calls it is compared with) at the sub band's two
+layers at B=8 and P3's dots-only at 1956 steps of its 176 x 384 tile, on
+inputs drawn from a fixed seed.  Beside K3 at each layer it times cuDNN's
+``nn.GRU`` in the same dtype (``cuDNN ...`` keys: the forward, and forward + backward minus
 forward), and beside K2-bf16 at the two l1 layers cuDNN's bf16
 ``nn.LSTM`` and the plain versions.  It prints one line, ``AB <tag>
 {kernel: [ms, sha256 of its outputs or null]}``: equal hashes mean equal
@@ -34,6 +36,11 @@ of one f32 K3b call at each layer in order (torch.profiler, the least of
 three calls), and, where the checkout's K3 has two designs
 (``fused_gru_inproj.plan``'s ``cluster``), each design's time and hash at
 each layer and form under ``K3f ... [cluster]`` and ``[block]`` keys.
+``families`` (comma-separated, of ``FAMILIES``) limits the run to those;
+each family draws its inputs from its own generator, so a family's
+hashes are the same in a run of some families as in a run of all.
+It calls the wrappers' public functions only, so this one script, run from
+the root of a parent checkout, times the parent's kernels.
 """
 
 from __future__ import annotations
@@ -67,18 +74,45 @@ def _hash(*tensors) -> str:
     return m.hexdigest()[:16]
 
 
-def main(tag: str) -> dict:
+FAMILIES = ("K1", "K2", "K4", "P1", "K2-bf16", "K3", "P2", "P3")
+
+
+def main(tag: str, only: str = "") -> dict:
+    """Times and hashes every family of ``FAMILIES``, or those named in
+    ``only`` (comma-separated)."""
     if not torch.cuda.is_available():
         sys.exit("no CUDA device: torch.cuda.is_available() is false")
+    wanted = set(only.split(",")) if only else set(FAMILIES)
+    if wanted - set(FAMILIES):
+        sys.exit(f"unknown families {sorted(wanted - set(FAMILIES))}; known: {FAMILIES}")
     cs.phase_build()
     from se_tpu_torch.device import resolve_device
 
     dev = resolve_device("cuda")  # TF32 off, cuDNN's RNNs too, as in chip_smoke.py
-    rng = np.random.default_rng(0)
-    cots = lambda *shapes: [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
-                            for s in shapes]
+
+    def draws(family):
+        rng = np.random.default_rng((0, FAMILIES.index(family)))
+        cots = lambda *shapes: [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                                .to(dev) for s in shapes]
+        return rng, cots
+
     out = {}
-    _k1(rng, dev, cots, out)
+    launches = {}
+    for family, run in (("K1", _k1), ("K2", _k2), ("K4", _k4), ("P1", _p1),
+                        ("K2-bf16", _k2_bf16), ("K3", _k3), ("P2", _p2), ("P3", _p3)):
+        if family in wanted:
+            launches.update(run(*draws(family), dev, out) or {})
+    print("AB", tag, json.dumps(out))
+    print("LAUNCHES", tag, json.dumps(launches))
+    return out
+
+
+# K1's tilings: (CTAs a cluster, rows a cluster at most)
+K1_TILES = tuple((N, R) for N in (2, 4, 8, 16) for R in (4, 8, 16, 20))
+
+
+def _k2(rng, cots, dev, out):
+    """K2f and K2b at CRN, DCCRN's real LSTM and FullSubNet's four layers."""
     for label, T, Bb, In, H in (("CRN", 483, 8, 512, 128), ("CRN train", 483, 10, 512, 128),
                                 ("DCCRN real l0", 483, 8, 1024, 256),
                                 ("DCCRN real l1", 483, 8, 256, 256),
@@ -95,8 +129,11 @@ def main(tag: str) -> dict:
                 ms = cuda_ms(lambda: k2.fused_lstm_scan_inproj_backward(*args, ys, cs_, *c),
                              10 if label == "CRN train" else 3, 1)
                 out[f"K2b {label}"] = (ms, _hash(*g))
-    _k4(rng, dev, out)
-    _p1(dev, out)
+
+
+def _k2_bf16(rng, cots, dev, out):
+    """The bf16-stream forms of K2f and K2b at FullSubNet's four layers,
+    then their yardsticks (:func:`_k2_bf16_yardsticks`)."""
     bf16 = torch.bfloat16
     for label, T, Bb, In, H in FULLSUBNET_LSTM:
         x, *rest = cs._inproj_inputs(rng, dev, T, 1, Bb, In, H)
@@ -111,18 +148,10 @@ def main(tag: str) -> dict:
             ms = cuda_ms(lambda: k2.fused_lstm_scan_inproj_backward(x, *rest, ys, cs_, dys, dhT,
                                                                     dcT), 3, 1)
             out[f"K2b-bf16 {label}"] = (ms, _hash(*g))
-    _k2_bf16_yardsticks(rng, dev, cots, out)
-    launches = _k3(rng, dev, cots, out)
-    print("AB", tag, json.dumps(out))
-    print("LAUNCHES", tag, json.dumps(launches))
-    return out
+    _k2_bf16_yardsticks(rng, cots, dev, out)
 
 
-# K1's tilings: (CTAs a cluster, rows a cluster at most)
-K1_TILES = tuple((N, R) for N in (2, 4, 8, 16) for R in (4, 8, 16, 20))
-
-
-def _k1(rng, dev, cots, out):
+def _k1(rng, cots, dev, out):
     """K1f at DCCRN's enhance shape (Bb=16) and K1b at its train shape
     (Bb=20), f32 then bf16, each beside cuDNN's ``nn.LSTM`` in its dtype
     (one per stack: forward, and forward + backward minus forward), and in
@@ -170,7 +199,7 @@ def _k1(rng, dev, cots, out):
                 f_ms if kind == "K1f" else b_ms, None)
 
 
-def _k4(rng, dev, out):
+def _k4(rng, cots, dev, out):
     """K4 at the default DCCRN's six encoder stages at B=8, f32 then bf16,
     each beside one cuDNN conv of the same function in the same dtype (the
     time padding on both sides, the extra last frame unread)."""
@@ -191,7 +220,7 @@ def _k4(rng, dev, out):
                 out[f"cuDNN conv{form} stage {i + 1}"] = (lib_ms, None)
 
 
-def _p1(dev, out):
+def _p1(rng, cots, dev, out):
     """The bound probe's four gate modes (K2f's forward kernel) at T=163
     and 1028 rows (B=4) of the sub band's first layer."""
     from se_tpu_torch.probes import bound_probe
@@ -204,7 +233,7 @@ def _p1(dev, out):
             out[f"P1 {mode}"] = (ms, _hash(ys, hT, cT))
 
 
-def _k2_bf16_yardsticks(rng, dev, cots, out):
+def _k2_bf16_yardsticks(rng, cots, dev, out):
     """cuDNN's bf16 ``nn.LSTM`` and K2's plain versions in bf16 at
     FullSubNet's two l1 layers: forward, and backward (cuDNN: forward +
     backward minus forward)."""
@@ -261,7 +290,7 @@ def _kernel_launches(fn, reps: int = 3) -> list:
     return [[f"{n} x{count / reps:g}", us / reps] for n, (count, us) in total.items()]
 
 
-def _k3(rng, dev, cots, out) -> dict:
+def _k3(rng, cots, dev, out) -> dict:
     """K3f and K3b at FullSubNet-GRU's four layers, f32 then bf16, each
     beside cuDNN's ``nn.GRU`` in its dtype, and each design where the
     checkout has two; returns each f32 K3b call's launches by layer."""
@@ -305,5 +334,30 @@ def _k3(rng, dev, cots, out) -> dict:
     return launches
 
 
+def _p2(rng, cots, dev, out):
+    """The wavefront probe at the sub band's two layers at B=8 (T=163,
+    Bb=2056, In=32, H=384), and the two K2 calls it is compared with."""
+    from se_tpu_torch.probes import wavefront_probe as wp
+
+    args = wp.two_layer_inputs(163, 8 * 257, 32, 384, dev)
+    with torch.no_grad():
+        for key, fn in (("P2", wp.wavefront_lstm2), ("P2's two K2 calls", wp.sequential_lstm2)):
+            got = fn(*args)
+            out[key] = (cuda_ms(lambda: fn(*args), 5, 1), _hash(*got))
+
+
+def _p3(rng, cots, dev, out):
+    """P3's dots-only at the sub band's volume at B=8: 1956 steps of the
+    176 x 384 tile (groups as the probe's ``main`` passes them)."""
+    from se_tpu_torch.probes import vpu_probe
+
+    tile = vpu_probe.tile(dev)
+    steps, groups = 163 * 12, 12
+    with torch.no_grad():
+        got = vpu_probe.run("dots-only", *tile, steps=steps, groups=groups)
+        ms = cuda_ms(lambda: vpu_probe.run("dots-only", *tile, steps=steps, groups=groups), 5, 1)
+        out["P3 dots-only"] = (ms, _hash(got))
+
+
 if __name__ == "__main__":
-    main(sys.argv[1] if len(sys.argv) > 1 else "tree")
+    main(sys.argv[1] if len(sys.argv) > 1 else "tree", sys.argv[2] if len(sys.argv) > 2 else "")

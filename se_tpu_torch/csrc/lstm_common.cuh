@@ -5,8 +5,8 @@
 // deterministic dx, dW and dbias reductions over a gate-gradient scratch
 // buffer; error_string.cuh adds the error-string export that each
 // library's Python wrapper calls.  The per-block products and the dh pass
-// take the block's row count R as a template argument (the wavefront probe
-// uses kRows; K3's per-block kernel 4 or 8).
+// take the block's row count R as a template argument (K3's per-block
+// kernel: 4 or 8).
 //
 // The bf16-stream forms of K1 and K2 (pallas_lstm.py:13-14) read their
 // input stream, ys and dys as bf16 and write ys and the input gradient as
@@ -32,7 +32,6 @@
 
 namespace {
 
-constexpr int kRows = 4;   // batch rows per scan block; a row operand is read as one float4
 constexpr int kTile = 32;  // dx tile edge, dbias columns per block
 
 __device__ __forceinline__ float sigmoid_f32(float x) {
@@ -97,31 +96,13 @@ __device__ __forceinline__ void fma_rows(const float* a, float wv, float* acc) {
 // acc[r] += sum_k a_s[k][r] * w[k][col] over k < K; a_s is [K][R].  w is
 // read from global memory, coalesced across a warp whose threads hold
 // consecutive columns; a_s gives the R rows at one k as R / 4 float4s.
-template <int R = kRows>
+template <int R>
 __device__ __forceinline__ void dot_column(const float* __restrict__ w,
                                            const float* a_s, int K, int G,
                                            int col, float* acc) {
 #pragma unroll 8
   for (int k = 0; k < K; ++k) {
     fma_rows<R>(a_s + k * R, __ldg(w + static_cast<size_t>(k) * G + col), acc);
-  }
-}
-
-// g_s[r][col] = (g_s[r][col] + h_s[r] . whh[:, col]) + b[col] for the
-// tile's kRows rows, g_s holding the step's x . W_ih; h_s is [H][kRows].
-// The LSTM gate columns of K2 and of the wavefront probe (P2).
-__device__ __forceinline__ void recurrent_columns(const float* __restrict__ whh,
-                                                  const float* __restrict__ b,
-                                                  const float* h_s, float* g_s,
-                                                  int rows, int H, int G) {
-  for (int col = threadIdx.x; col < G; col += blockDim.x) {
-    float ah[kRows] = {0.f, 0.f, 0.f, 0.f};
-    dot_column(whh, h_s, H, G, col, ah);
-    const float bv = __ldg(b + col);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (r < rows) g_s[r * G + col] = (g_s[r * G + col] + ah[r]) + bv;
-    }
   }
 }
 
@@ -202,7 +183,7 @@ __device__ __forceinline__ float cell_backward(float* g, float* dg_out, int H,
 // (kAdd: dh_s[r][k] += that sum) for the tile's rows (g_s [R][G] holds the
 // step's gate gradients, w is w_hh_t[l]), one warp per unit k: the lanes
 // read row k of w along g, coalesced, and a shuffle reduction ends each sum.
-template <int R = kRows, bool kAdd = false>
+template <int R, bool kAdd = false>
 __device__ __forceinline__ void dh_rows(const float* __restrict__ w,
                                         const float* g_s, float* dh_s,
                                         int rows, int H, int G) {

@@ -16,12 +16,17 @@ from __future__ import annotations
 import torch
 
 
-def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
+def cuda_ms(fn, iters: int, warmup: int = 1, queued: bool = False) -> float:
     """Milliseconds per call of ``fn``: CUDA events around ``iters`` calls
-    after ``warmup`` calls."""
+    after ``warmup`` calls.  With ``queued`` the stream first spins for
+    about half a millisecond a call, so that every call is queued before
+    the first starts: the device's time alone, without the host's gaps
+    between launches (for a kernel shorter than its wrapper's Python)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(1_000_000 * iters)  # clock cycles, ~1 GHz or faster
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()

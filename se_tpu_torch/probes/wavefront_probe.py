@@ -5,7 +5,9 @@ kernel, layer 2 one step behind layer 1, hide the latency of a step?
 
 Counterpart of ``tools/wavefront_probe.py``.  ``wavefront_lstm2`` is the
 hand-written kernel ``csrc/wavefront_lstm.cu``: iteration t forms layer 1's
-gates of step t and layer 2's of step t - 1, then updates both cells.
+gates of step t and layer 2's of step t - 1, then updates both cells, in
+CTAs of 16 rows whose clusters share each slab of W by multicast
+(``csrc/gate_product.cuh``); :func:`plan` picks the tiling.
 ``sequential_lstm2`` is what FullSubNet's sub band runs today, two calls of
 the in-projection scan (K2); it is the probe's comparison.  ``reference``
 is the plain version: two plain LSTM layers.  ``main`` checks the kernel
@@ -17,13 +19,14 @@ from __future__ import annotations
 
 import ctypes
 import sys
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..ops import build
 from ..ops.fused_lstm_inproj import fused_lstm_scan_inproj, fused_lstm_scan_inproj_reference
-from . import cuda_ms, sizes
+from . import cuda_ms, gate_product, sizes
 from .bound_probe import SUB_BAND
 
 CHECK_TOL = 1e-4  # the JAX tool's own check, wavefront vs sequential
@@ -48,14 +51,78 @@ def reference(x, wih1, b1, whh1, wih2, b2, whh2, h0, c0):
                        h0, c0)
 
 
+@dataclass(frozen=True)
+class Plan:
+    """One launch's tiling: ``tiles`` row tiles of ``R`` rows, one a CTA,
+    in ``clusters`` clusters of ``N`` CTAs (the last one's CTAs past the
+    batch idle), ``waves`` waves of the clusters the card holds at once; a
+    ring of ``stages`` W slabs; x padded to ``In_p`` rows k, the units to
+    ``Hp``; ``smem`` bytes a CTA."""
+
+    R: int
+    N: int
+    stages: int
+    In_p: int
+    Hp: int
+    tiles: int
+    clusters: int
+    waves: int
+    smem: int
+
+    def args(self) -> tuple:
+        """The entry's tiling arguments ``(In_p, N, stages)``."""
+        return self.In_p, self.N, self.stages
+
+
+def plan(Bb: int, In: int, H: int) -> Plan:
+    """The tiling of a launch over ``Bb`` rows of ``In`` inputs and ``H``
+    units: tiles of 16 rows; the cluster size (4 or 2 CTAs) whose launch
+    runs in the fewest waves of the clusters the card
+    holds at once (``gate_product.CLUSTERS_AT_ONCE``), the largest on a tie;
+    the deepest ring that fits beside the two buffers [x; h1; h2].  Beyond
+    one wave the rows' recurrences, being independent, run wave by wave."""
+    if Bb < 1:
+        raise ValueError(f"Bb must be at least 1, got {Bb}")
+    In_p, Hp = gate_product.padded(In, H)
+    buf_rows = In_p + 2 * Hp
+    stages = gate_product.ring_stages(Hp, buf_rows)
+    R = gate_product.TILE_ROWS
+    tiles = -(-Bb // R)
+
+    def waves(n):
+        return -(-(-(-tiles // n)) // gate_product.CLUSTERS_AT_ONCE[n])
+
+    N = min(gate_product.CLUSTER_SIZES, key=lambda n: (waves(n), -n))
+    return Plan(R, N, stages, In_p, Hp, tiles, -(-tiles // N), waves(N),
+                gate_product.smem_bytes(stages, Hp, buf_rows))
+
+
+def layout(wih1, b1, whh1, wih2, b2, whh2, p: Plan) -> tuple:
+    """``(w1 [In_p + Hp, 4 Hp], w2 [2 Hp, 4 Hp], bias [2, 4 Hp])``: the
+    layers' weights and biases as the kernel reads them, unit-major
+    columns (``gate_product.layout``)."""
+    w1 = gate_product.layout(((wih1, p.In_p), (whh1, p.Hp)), p.Hp)
+    w2 = gate_product.layout(((wih2, p.Hp), (whh2, p.Hp)), p.Hp)
+    bias = gate_product.unit_major(torch.stack([b1, b2]).float(), p.Hp).contiguous()
+    return w1, w2, bias
+
+
 def _library():
     lib = build.load("wavefront_lstm")
     if lib.se_wavefront_lstm2_f32.argtypes is None:
         lib.se_wavefront_lstm2_f32.argtypes = (
-            [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         )
         lib.se_wavefront_lstm2_f32.restype = ctypes.c_int
     return lib
+
+
+def active_clusters(Bb: int, In: int, H: int, device=None) -> int:
+    """How many clusters of :func:`plan`'s tiling fit on the CUDA ``device``
+    at once (the runtime's occupancy query)."""
+    p = plan(Bb, In, H)
+    return gate_product.active_clusters(_library(), "se_wavefront_active_clusters", In, H,
+                                        *p.args(), device)
 
 
 _NAMES = ("x", "wih1", "b1", "whh1", "wih2", "b2", "whh2", "h0", "c0")
@@ -64,8 +131,8 @@ _NAMES = ("x", "wih1", "b1", "whh1", "wih2", "b2", "whh2", "h0", "c0")
 def wavefront_lstm2(x, wih1, b1, whh1, wih2, b2, whh2, h0, c0):
     """Same signature and result as :func:`sequential_lstm2`.  CPU tensors
     run the plain version; CUDA tensors launch the wavefront kernel on the
-    current stream, or raise (float32, contiguous).  Each launch adds one
-    to ``wavefront_lstm2.launches``."""
+    current stream on :func:`plan`'s tiling, or raise (float32, contiguous).  Each launch adds one to
+    ``wavefront_lstm2.launches``."""
     args = (x, wih1, b1, whh1, wih2, b2, whh2, h0, c0)
     T, Bb, In = x.shape
     H = whh1.shape[0]
@@ -76,10 +143,16 @@ def wavefront_lstm2(x, wih1, b1, whh1, wih2, b2, whh2, h0, c0):
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
     if x.device.type == "cpu":
         return reference(*args)
+    p = plan(Bb, In, H)
+    for name, t in zip(_NAMES, args):
+        if t.device != x.device or t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32 on {x.device}, got {t.dtype} on {t.device}")
+    w1, w2, bias = layout(wih1, b1, whh1, wih2, b2, whh2, p)
     new = lambda *shape: torch.empty(shape, device=x.device, dtype=torch.float32)
     ys2, ys1, hT, cT = new(T, Bb, H), new(T, Bb, H), new(2, Bb, H), new(2, Bb, H)
-    build.cuda_launch(_library(), "se_wavefront_lstm2_f32", args, _NAMES,
-                      (ys2, ys1, hT, cT), (T, Bb, In, H), x.device)
+    build.cuda_launch(_library(), "se_wavefront_lstm2_f32", (x, w1, w2, bias, h0, c0),
+                      ("x", "w1", "w2", "bias", "h0", "c0"), (ys2, ys1, hT, cT),
+                      (T, Bb, In, H, *p.args()), x.device)
     wavefront_lstm2.launches += 1
     return ys2, ys1, hT, cT
 
