@@ -98,12 +98,21 @@ in order; any failure ends the run with a nonzero exit and no result line:
    process; meanwhile the CLI's ``main`` in this process with
    ``--streaming`` for DCCRN, CRN and FullSubNet, each held to the stream
    in process;
+6b. data-parallel training: two ranks spawned on the one card (gloo; they
+   start before phase 6 and train while it runs), each taking 5 rows of the
+   default DCCRN's global batch of 10 for 3 ``parallel_train_step``s, held to
+   the one-process step on all 10 (losses, the first step's gradients and
+   running statistics, every leaf after the last step), each rank's K1f and
+   K1b launches exact;
 7. the train CLI, ``python -m se_tpu_torch.train_interface``, for the
    default DCCRN at full width: 2 epochs at ``--batch 4`` on 8 training and
-   4 validation utterances of 3 s with the numpy PESQ/STOI, in process
+   4 validation utterances of 3 s with the native PESQ and STOI, in process
    (K1f and K1b launch counts, the run directory, the scores), a resume of
-   its epoch 1 in a subprocess held to its epoch 2, and ``Epoch_1_SCORES``
-   held to a recomputation from ``chkpt_1.pt``;
+   its epoch 1 in a subprocess held to its epoch 2, ``Epoch_1_SCORES``
+   held to a recomputation from ``chkpt_1.pt``, and meanwhile the CLI with
+   ``--mesh`` for 1 epoch under ``torch.distributed.run --nproc_per_node=1``
+   (NCCL), its run directory and ``chkpt_1.pt`` held to the in-process
+   run's;
 8. report: one JSON line of kernel numbers, then the result line.
 
 TF32 is off throughout (``resolve_device`` sets it, and keeps cuBLAS's bf16
@@ -230,6 +239,31 @@ RESUME_LEAF_TOL = 2e-2
 # sound: 2.15e-5 to 4.78e-4 in 7 resumes; faults: 3.58e-2, 4.04e-2
 RESUME_LOSS_TOL = 2e-3
 SCORES_TOL = 1e-6
+# The data-parallel step (phase 6b): DP_WORLD ranks on the one card, each a
+# process of its own over gloo (NCCL takes one rank a card), each on its
+# rows of the default DCCRN's global batch of 10, against the one-process
+# step on all 10, DP_STEPS steps from the same weights.  The ranks' BatchNorm
+# sums and gradients are reduced in another order than one process's, so
+# the yardstick is the one-process step with its batch's halves swapped:
+# each step's loss at TRAIN_LOSS_TOL and the running statistics at
+# TRAIN_STATS_TOL, the card-vs-CPU step's limits; the first step's
+# gradients (over max(the leaf's max, GRAD_FLOOR x the largest)) at
+# max(TRAIN_GRAD_TOL, CONDITION_FACTOR x the swapped run's worst reading:
+# at B=10 a PReLU slope's gradient, a sum of ~20 M terms of both signs,
+# reads 1.6e-3 on an NVIDIA H100 80GB HBM3, PERF.md section 2); after the
+# last step every leaf (parameters, buffers, Adam's moments) at
+# max(RESUME_LEAF_TOL, CONDITION_FACTOR x the swapped run's reading of that
+# leaf) of its max, and the BatchNorm-cancelled conv biases, their moments
+# and their BatchNorms' running means at Adam's bound over the steps run
+# (``_adam_bound``), the resume check's rules.
+DP_WORLD = 2
+DP_STEPS = 3
+
+
+def _adam_bound(lr: float, steps: int) -> float:
+    """The most two Adam runs can part on a leaf in ``steps`` steps from the
+    same value: Adam moves a parameter by at most lr sqrt(t) at step t."""
+    return 2 * lr * sum(t**0.5 for t in range(1, steps + 1))
 
 
 def _max_err(a, b) -> float:
@@ -290,11 +324,20 @@ def phase_environment() -> str:
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
+    from se_tpu_torch.eval import pesq_native
     from se_tpu_torch.ops import build
 
     t0 = time.perf_counter()
-    logs = build.build()
-    print(f"[build] {build.kernel_names()} in {time.perf_counter() - t0:.2f} s")
+    # the host library of the native PESQ and composite measures (phase 7's
+    # scoring) builds beside the kernels
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(pesq_native.load)
+        logs = build.build()
+        host.result()
+    print(f"[build] {build.kernel_names()} and the native metrics library in "
+          f"{time.perf_counter() - t0:.2f} s")
     # ptxas names each kernel mangled; cu++filt, beside nvcc, demangles it
     # (-p: without the parameter types)
     cu_filt = str(Path(build._nvcc()).with_name("cu++filt"))
@@ -2534,6 +2577,175 @@ def _check_cli_against_slice(run_dir: Path, label: str, wav) -> None:
     assert got.shape == want.shape and err <= CLI_TOL, (got.shape, err)
 
 
+def _dp_readings(cfg, sd, noisy, clean, steps: int, mesh=None, device="cuda") -> dict:
+    """``steps`` train steps of the global batch ``(noisy, clean)`` on the
+    card from ``sd``: on this rank's rows with ``parallel_train_step`` under
+    ``mesh``, else on all of them with ``train_step``; every count set to 0
+    just before the steps and read just after -> numpy ``losses``, the first
+    step's ``grads`` and ``stats``, the ``final`` leaves (the state dict's and
+    Adam's moments, as ``<param> exp_avg``), ``launches`` and ``ms`` a
+    step after the first (a step on a model thrown away first takes cuDNN's
+    warm-up)."""
+    from se_tpu_torch.data.dataset import WaveDataset
+    from se_tpu_torch.data.multihost import MultiHostLoader
+    from se_tpu_torch.parallel.dp import parallel_train_step
+    from se_tpu_torch.train.state import create_train_state
+    from se_tpu_torch.train.steps import train_step
+
+    dev = device if mesh is None else mesh.device
+    if mesh is not None:
+        loader = MultiHostLoader(WaveDataset(np.stack([noisy, clean], 1)), len(noisy), mesh.rank,
+                                 mesh.world, shuffle=False, grad_accum=cfg.train.grad_accum)
+        noisy, clean = next(iter(loader))
+
+    def step(model, opt):
+        if mesh is None:
+            return train_step(cfg, model, opt, noisy, clean)
+        return parallel_train_step(cfg, model, opt, mesh, noisy, clean)
+
+    step(*create_train_state(cfg, sd, device=dev))
+    model, opt = create_train_state(cfg, sd, device=dev)
+    out = {"losses": []}
+    torch.cuda.synchronize()
+    _zero_counts()
+    for s in range(steps):
+        out["losses"].append(step(model, opt)["loss"].item())
+        if s == 0:
+            grads, stats = _grads_and_stats(model)
+            # copies: on the CPU (a rehearsal) .cpu() returns the live buffer
+            out["grads"] = {k: v.numpy().copy() for k, v in grads.items()}
+            out["stats"] = {k: v.numpy().copy() for k, v in stats.items()}
+            t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    out["ms"] = 1e3 * (time.perf_counter() - t0) / max(steps - 1, 1)
+    out["launches"] = _counts()
+    final = {k: v.cpu().numpy().copy() for k, v in model.state_dict().items()
+             if v.is_floating_point()}
+    state = opt.state_dict()["state"]  # keyed by the parameter's index
+    for i, (name, _) in enumerate(model.named_parameters()):
+        final.update({f"{name} {k}": v.cpu().numpy().copy() for k, v in state[i].items()
+                      if torch.is_tensor(v) and v.ndim})
+    out["final"] = final
+    return out
+
+
+def _dp_rank(cfg, sd, noisy, clean, steps: int, device: str) -> dict:
+    """One rank of phase 6b, in a process of its own (``phase_dp_start``)."""
+    from se_tpu_torch.parallel.mesh import destroy, make_mesh
+
+    # every rank on the one card: gloo, as NCCL takes one rank a card
+    mesh = make_mesh("cuda:0" if device == "cuda" else device, backend="gloo")
+    try:
+        return _dp_readings(cfg, sd, noisy, clean, steps, mesh)
+    finally:
+        destroy(mesh)
+
+
+def _dp_batch(cfg) -> tuple:
+    return _utterances(cfg.train.batch, 3, cfg.stft.fs)
+
+
+def phase_dp_start(cfg, sd, device="cuda"):
+    """Start phase 6b: DP_WORLD ranks spawned on the one card, each running
+    ``_dp_rank`` on its rows of ``_dp_batch``; returns the future of their
+    readings.  Each rank gets two BLAS threads: two ranks' OpenBLAS pools
+    spinning on the same cores slow the conv-STFT's pseudo-inverse tenfold."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from se_tpu_torch.parallel.launch import spawn
+
+    os.environ["OPENBLAS_NUM_THREADS"] = "2"  # read by each spawned process at its start
+    noisy, clean = _dp_batch(cfg)
+    sd = {k: v.cpu() for k, v in sd.items()}
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(spawn, _dp_rank, DP_WORLD, (cfg, sd, noisy, clean, DP_STEPS, device),
+                         600.0)
+    pool.shutdown(wait=False)
+    return future
+
+
+def phase_dp_check(future, cfg, sd, per_step: dict, device="cuda") -> list:
+    """Phase 6b's check: the ranks' readings against the one-process step,
+    each rank's launches exact (``per_step`` a step, nothing else).  The
+    yardstick is the one-process step with its batch's halves swapped: the
+    same sums in another order, which is all that parts the ranks from one
+    process.  Returns each rank's launches."""
+    noisy, clean = _dp_batch(cfg)
+    one = _dp_readings(cfg, sd, noisy, clean, DP_STEPS, device=device)
+    half = len(noisy) // 2
+    swap = np.r_[half : len(noisy), 0:half]
+    swapped = _dp_readings(cfg, sd, noisy[swap], clean[swap], DP_STEPS, device=device)
+    ranks = future.result()
+    B, lr = cfg.train.batch, cfg.train.learning_rate
+    print(f"[dp] {DP_WORLD} ranks (gloo, one card) x {B // DP_WORLD} rows against one process "
+          f"x {B} rows, {DP_STEPS} steps of {cfg.model}: ms a step after the first "
+          f"{[round(r['ms'], 3) for r in ranks]} against {one['ms']:.3f}; launches "
+          f"{[r['launches'] for r in ranks]}")
+    expected = _expected(per_step, DP_STEPS)
+    assert all(r["launches"] == expected for r in ranks), ([r["launches"] for r in ranks], expected)
+    assert one["launches"] == expected, one["launches"]
+    got = ranks[0]
+    for r in ranks[1:]:
+        assert r["losses"] == got["losses"], (r["losses"], got["losses"])
+        for k, v in got["final"].items():
+            assert np.array_equal(v, r["final"][k]), k
+    loss_err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(got["losses"], one["losses"]))
+    print(f"[dp] losses {got['losses']} against {one['losses']}: relative {loss_err:.3g} "
+          f"(tolerance {TRAIN_LOSS_TOL})")
+    to_t = lambda d: {k: torch.from_numpy(v) for k, v in d.items()}
+    ref = to_t(one["grads"])
+    cancelled = _cancelled_by_batch_norm(sd)
+    scale = max(g.abs().max().item() for g in ref.values())
+    rel = _leaf_rel_errs(to_t(got["grads"]), ref, cancelled, GRAD_FLOOR * scale)
+    spread = _leaf_rel_errs(to_t(swapped["grads"]), ref, cancelled, GRAD_FLOOR * scale)
+    grad_tol = max(TRAIN_GRAD_TOL, CONDITION_FACTOR * max(spread.values()))
+    worst = max(rel, key=rel.get)
+    near = max(max(np.abs(got["grads"][k]).max(), np.abs(one["grads"][k]).max())
+               for k in cancelled)
+    stats_err = max(_max_err(torch.from_numpy(v), torch.from_numpy(one["stats"][k]))
+                    for k, v in got["stats"].items())
+    print(f"[dp] first step's gradients, over max(leaf's max, {GRAD_FLOOR} x {scale:.4g}): worst "
+          f"{worst} {rel[worst]:.3g}; the one process with its halves swapped moves "
+          f"{max(spread, key=spread.get)} by {max(spread.values()):.3g}; tolerance max("
+          f"{TRAIN_GRAD_TOL}, {CONDITION_FACTOR} x that) = {grad_tol:.3g}; {len(cancelled)} "
+          f"BatchNorm-cancelled conv biases at most {near:.3g} (<= 1e-5 x {scale:.4g}); running "
+          f"statistics max |diff| {stats_err:.3g} (tolerance {TRAIN_STATS_TOL})")
+    bns = {".".join(k.split(".")[:2]) + ".1" for k in cancelled}
+    apart = {k for k in got["final"] if k.split(" ")[0] in cancelled
+             or (k.rsplit(".", 1)[0] in bns and k.endswith(("running_mean", "RMr", "RMi")))}
+
+    def final_errs(run):
+        return {k: _max_err(torch.from_numpy(v), torch.from_numpy(one["final"][k]))
+                for k, v in run["final"].items()}
+
+    final, final_spread = final_errs(got), final_errs(swapped)
+    top = lambda k: max(np.abs(one["final"][k]).max(), 1e-30)
+    # each leaf over its max, to max(RESUME_LEAF_TOL, CONDITION_FACTOR x the
+    # swapped run's reading of it): a PReLU slope's gradient sums millions of
+    # terms of both signs, and Adam's moments of it move by tens of percent
+    leaf_tol = {k: max(RESUME_LEAF_TOL, CONDITION_FACTOR * final_spread[k] / top(k))
+                for k in final if k not in apart}
+    over = {k: final[k] / top(k) / tol for k, tol in leaf_tol.items()}
+    worst_leaf = max(over, key=over.get)
+    worst_near = max(apart, key=final.get)
+    bound = _adam_bound(lr, DP_STEPS)
+    print(f"[dp] after {DP_STEPS} steps: {len(leaf_tol)} leaves, the nearest its tolerance "
+          f"{worst_leaf} {final[worst_leaf] / top(worst_leaf):.3g} of its max (tolerance "
+          f"{leaf_tol[worst_leaf]:.3g}; the swapped run "
+          f"{final_spread[worst_leaf] / top(worst_leaf):.3g}); worst over its max of the rest "
+          + ", ".join(f"{k} {final[k] / top(k):.3g}" for k in sorted(
+              leaf_tol, key=lambda k: -final[k] / top(k))[:3])
+          + f"; {len(apart)} leaves of the cancelled biases, their moments and running means, "
+          f"worst {worst_near} {final[worst_near]:.3g} (tolerance {bound:.3g})")
+    assert all(np.isfinite(got["losses"])) and loss_err <= TRAIN_LOSS_TOL, loss_err
+    assert rel[worst] <= grad_tol and near <= 1e-5 * scale, (worst, rel[worst], near)
+    assert stats_err <= TRAIN_STATS_TOL, stats_err
+    assert over[worst_leaf] <= 1.0, (worst_leaf, final[worst_leaf], leaf_tol[worst_leaf])
+    assert final[worst_near] <= bound, (worst_near, final[worst_near])
+    return [r["launches"] for r in ranks]
+
+
 def _train_cli_data(workdir: Path, device: str, fs: int) -> tuple:
     """Phase 7's data, 8 training and 4 validation utterances of 3 s
     (``_utterances``, from SEED) written to ``workdir`` as ``[N, 2, T]``
@@ -2560,14 +2772,17 @@ def _resume_copy(run: Path, suffix: str = "resumed") -> Path:
     return copy
 
 
-def _resume_readings(run: Path, copy: Path, param_names: list, lr: float) -> dict:
-    """The resumed run in ``copy`` against the uninterrupted ``run`` at epoch
-    2: ``rel``, each leaf of ``chkpt_2.pt`` (parameter or buffer, Adam's
-    moments) but the BatchNorm-cancelled ones, its max |difference| over its
-    max; ``near``, those, absolute, against ``bound``; ``loss``, the epoch-2
-    validation loss's relative difference; ``epoch``, the resumed blob's."""
-    got = torch.load(copy / "chkpt_2.pt", map_location="cpu", weights_only=True)
-    want = torch.load(run / "chkpt_2.pt", map_location="cpu", weights_only=True)
+def _resume_readings(run: Path, copy: Path, param_names: list, lr: float, epoch: int = 2,
+                     steps=(3, 4)) -> dict:
+    """The run in ``copy`` against the ``run`` it should equal at ``epoch``
+    (a resume of it at epoch 2): ``rel``, each leaf of ``chkpt_{epoch}.pt``
+    (parameter or buffer, Adam's moments) but the BatchNorm-cancelled ones,
+    its max |difference| over its max; ``near``, those, absolute, against
+    ``bound``, Adam's over the ``steps`` in which the runs can part;
+    ``loss``, the epoch's validation loss's relative difference; ``epoch``,
+    the blob's."""
+    got = torch.load(copy / f"chkpt_{epoch}.pt", map_location="cpu", weights_only=True)
+    want = torch.load(run / f"chkpt_{epoch}.pt", map_location="cpu", weights_only=True)
     # leaves by the name of the parameter or buffer they belong to: Adam's
     # state is keyed by the parameter's index in model.parameters()
     cancelled = _cancelled_by_batch_norm(want["model"])
@@ -2578,13 +2793,14 @@ def _resume_readings(run: Path, copy: Path, param_names: list, lr: float) -> dic
         leaves.update({(param_names[i], k): (v, got["optimizer"]["state"][i][k])
                        for k, v in st.items() if torch.is_tensor(v)})
     mse, mse_resumed = np.load(run / "mse_vali_total.npy"), np.load(copy / "mse_vali_total.npy")
+    e = epoch - 1
     return dict(
         rel={f"{k} {what}": _max_err(a, b) / max(a.abs().max().item(), 1e-30)
              for (k, what), (a, b) in leaves.items() if k not in apart},
         near={f"{k} {what}": _max_err(a, b) for (k, what), (a, b) in leaves.items()
               if k in apart},
-        bound=2 * lr * (3 ** 0.5 + 4 ** 0.5), epoch=got["epoch"],
-        loss=abs(mse_resumed[1] - mse[1]) / abs(mse[1]), losses=(mse_resumed[1], mse[1]))
+        bound=2 * lr * sum(t**0.5 for t in steps), epoch=got["epoch"],
+        loss=abs(mse_resumed[e] - mse[e]) / abs(mse[e]), losses=(mse_resumed[e], mse[e]))
 
 
 def _resume_summary(r: dict) -> str:
@@ -2593,21 +2809,27 @@ def _resume_summary(r: dict) -> str:
             + ", ".join(f"{k} {v:.3g}" for k, v in worst) + f" (tolerance {RESUME_LEAF_TOL}); "
             f"{len(r['near'])} leaves of the BatchNorm-cancelled biases (with their Adam "
             f"moments) and their running means, worst {max(r['near'].values()):.3g} "
-            f"(tolerance {r['bound']:.3g}); epoch-2 validation loss {r['losses'][0]} against "
+            f"(tolerance {r['bound']:.3g}); epoch-{r['epoch']} validation loss {r['losses'][0]} "
+            f"against "
             f"{r['losses'][1]}: relative {r['loss']:.3g} (tolerance {RESUME_LOSS_TOL})")
 
 
 def phase_train_cli(workdir: Path, device="cuda") -> None:
     """The train CLI on the card for the default ``Config`` at full width:
     ``_train_cli_data``'s utterances, ``--batch 4 --max-epochs 2``, real
-    numpy PESQ/STOI.  (1) ``train_interface.main`` in this process, every
-    count set to 0 just before and read just after: K1f 2 x (4 train steps +
-    2 validation batches), K1b 2 x 4, nothing else; the run's artifacts and
-    scores.  (2) A resume of a copy of the run directory as it stood after
-    epoch 1, in a subprocess, held to the uninterrupted run's epoch 2.
-    (3) ``Epoch_1_SCORES`` against ``eval_step`` on ``chkpt_1.pt`` in a fresh
-    model, scored by ``cal_pesq``/``cal_stoi``.  Every number is printed
-    before any is checked."""
+    PESQ (the native P.862.2) and STOI.  (1) ``train_interface.main`` in this
+    process, every count set to 0 just before and read just after: K1f 2 x (4
+    train steps + 2 validation batches), K1b 2 x 4, nothing else; the run's
+    artifacts and scores.  (2) A resume of a copy of the run directory as it
+    stood after epoch 1, in a subprocess, held to the uninterrupted run's
+    epoch 2.  (3) ``Epoch_1_SCORES`` against ``eval_step`` on ``chkpt_1.pt``
+    in a fresh model, scored by ``cal_pesq``/``cal_stoi``.  (4) Meanwhile the
+    CLI with ``--mesh`` for 1 epoch under ``torch.distributed.run
+    --nproc_per_node=1`` (NCCL on the card), its run directory, and its
+    epoch-1 losses and ``chkpt_1.pt`` held to (1)'s: both start from the
+    seed's weights on the same batches, and part by the BatchNorms' and the
+    reductions' order only.  Every number is printed before any is
+    checked."""
     from se_tpu_torch import train_interface
     from se_tpu_torch.config import Config
     from se_tpu_torch.eval.metrics import cal_pesq, cal_stoi
@@ -2644,6 +2866,14 @@ def phase_train_cli(workdir: Path, device="cuda") -> None:
     proc = subprocess.Popen([sys.executable, "-m", "se_tpu_torch.train_interface", *common,
                              "--chkpt-model", copy.name, "--chkpt", "1"],
                             cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    # (4) the --mesh run, one rank under torchrun
+    t_mesh = time.perf_counter()
+    mesh_args = [*common, "--max-epochs", "1", "--job-dir", str(workdir / "mesh" / "models"),
+                 "--logs-dir", str(workdir / "mesh" / "logs"), "--mesh"]
+    mesh_proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                  "--nproc_per_node=1", "-m", "se_tpu_torch.train_interface",
+                                  *mesh_args], cwd=REPO, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
     try:
         # (3) meanwhile, epoch 1's scores again from chkpt_1.pt
         t_score = time.perf_counter()
@@ -2657,15 +2887,40 @@ def phase_train_cli(workdir: Path, device="cuda") -> None:
                           cal_stoi(est, valid[:, 1], fs, workers=workers)], 1)
         rescore_s = time.perf_counter() - t_score
         stdout, stderr = proc.communicate(timeout=600)
+        mesh_out, mesh_err = mesh_proc.communicate(timeout=600)
+        mesh_s = time.perf_counter() - t_mesh
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        for p in (proc, mesh_proc):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     print(stdout.strip().splitlines()[-3:])
     assert proc.returncode == 0, stderr[-3000:]
+    print(f"[train-cli] --mesh under torch.distributed.run, 1 epoch in {mesh_s:.1f} s: "
+          + "; ".join(line for line in mesh_out.splitlines()
+                      if line.startswith(("mesh:", "Epoch"))))
+    assert mesh_proc.returncode == 0, (mesh_out[-2000:], mesh_err[-3000:])
     r = _resume_readings(run, copy, [k for k, _ in model.named_parameters()],
                          cfg.train.learning_rate)
     print(f"[train-cli] resume, chkpt_2.pt against the uninterrupted run's: {_resume_summary(r)}")
+    (mesh_run,) = (workdir / "mesh" / "models").iterdir()
+    names = [k for k, _ in model.named_parameters()]
+    rm = _resume_readings(run, mesh_run, names, cfg.train.learning_rate, epoch=1,
+                          steps=range(1, steps // 2 + 1))
+    # From the same weights each step moves a parameter by at most Adam's
+    # bound, so a value that roundoff flips Adam's sign on parts by up to it
+    # (1.7% of a leaf's max, enhance.1.r_trans.weight, on an H100): the
+    # values are held to the bound, the losses tightly
+    mesh_blob, one_blob = (torch.load(d / "chkpt_1.pt", map_location="cpu", weights_only=True)
+                           for d in (mesh_run, run))
+    value_err = max(_max_err(mesh_blob["model"][k], one_blob["model"][k]) for k in names)
+    mesh_train = float((mesh_run / "log.txt").read_text().split("| T ")[1].split()[0])
+    train_err = abs(mesh_train - hist[0]["train_loss"]) / max(1.0, abs(hist[0]["train_loss"]))
+    print(f"[train-cli] --mesh run's chkpt_1.pt against the one-process run's: "
+          f"{_resume_summary(rm)}; parameters max |diff| {value_err:.3g} (tolerance "
+          f"{rm['bound']:.3g}); epoch-1 train loss {mesh_train} against "
+          f"{hist[0]['train_loss']}: relative {train_err:.3g} (tolerance {TRAIN_LOSS_TOL})")
+    mesh_scores = (mesh_run / "Epoch_1_SCORES").read_text().splitlines()
     score_err = np.abs(again - scores[1]).max()
     print(f"[train-cli] Epoch_1_SCORES against chkpt_1.pt rescored in process: max |diff| "
           f"{score_err:.3g} (tolerance {SCORES_TOL}); {again.tolist()}")
@@ -2676,8 +2931,8 @@ def phase_train_cli(workdir: Path, device="cuda") -> None:
     score_s = " + ".join(f"{h['score_seconds']:.2f}" for h in hist)
     print(f"[train-cli] phase {wall:.1f} s; training {1e3 * train_s / steps:.3f} ms per step "
           f"over {steps} steps ({per_epoch}; epoch wall time over its steps, the first with "
-          f"cuDNN's warm-up); scoring {score_s} s in the 2 epochs; rescoring with the "
-          f"checkpoint's forward {rescore_s:.2f} s")
+          f"cuDNN's warm-up); scoring (native P.862.2 and STOI) {score_s} s in the 2 epochs; "
+          f"rescoring with the checkpoint's forward {rescore_s:.2f} s")
 
     assert launches == expected, (launches, expected)
     assert all(np.isfinite([h["train_loss"], h["valid_loss"]]).all() for h in hist), hist
@@ -2691,6 +2946,14 @@ def phase_train_cli(workdir: Path, device="cuda") -> None:
     assert max(r["rel"].values()) <= RESUME_LEAF_TOL and max(r["near"].values()) <= r["bound"]
     assert r["loss"] <= RESUME_LOSS_TOL, r["loss"]
     assert score_err <= SCORES_TOL, score_err
+    backend = "nccl" if device == "cuda" else "gloo"
+    where = "cuda:0" if device == "cuda" else "cpu"
+    assert f"mesh: rank 0 of 1 on {where}, torch.distributed group ({backend})" in mesh_out
+    assert {"log.txt", "chkpt_1.pt", "chkpt_opt.pt", "mse_vali_total.npy",
+            "Epoch_1_SCORES"} <= {p.name for p in mesh_run.iterdir()}
+    assert len(mesh_scores) == len(valid), mesh_scores
+    assert rm["epoch"] == 1 and value_err <= rm["bound"] and train_err <= TRAIN_LOSS_TOL
+    assert max(rm["near"].values()) <= rm["bound"] and rm["loss"] <= RESUME_LOSS_TOL, rm
 
 
 def main() -> int:
@@ -2778,9 +3041,13 @@ def main() -> int:
     stamp("train")
     build_dir = REPO / "build"
     build_dir.mkdir(exist_ok=True)
+    # the data-parallel ranks (phase 6b) start now, after every timed phase,
+    # and train while phase 6's processes run
+    dccrn_cfg, dccrn_sd, _, _, _ = paths["DCCRN"]
+    dp = phase_dp_start(dccrn_cfg, dccrn_sd)
     # the train CLI's scoring workers (phase 7; Trainer.setup finds them
-    # running) start now, after every timed phase: each spawned interpreter
-    # imports this script, torch with it, and scipy while phase 6 runs
+    # running) start now too: each spawned interpreter imports this script,
+    # torch with it, and scipy while phase 6 runs
     from se_tpu_torch.eval.metrics import start_pool
     from se_tpu_torch.train.loop import score_workers
 
@@ -2791,6 +3058,9 @@ def main() -> int:
         phase_cli(Path(tmp), paths, held_to={"DCCRN-cbn-noskip": waves["DCCRN-cbn-noskip"]},
                   streams={k: streams[k][:2] for k in ("DCCRN", "CRN", "FullSubNet")})
     stamp("CLI")
+    dp_launches = phase_dp_check(dp, dccrn_cfg, dccrn_sd,
+                                 {**paths["DCCRN"][2], **paths["DCCRN"][3]})
+    stamp("data-parallel")
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         phase_train_cli(Path(tmp))
     stamp("train CLI")
@@ -2803,10 +3073,12 @@ def main() -> int:
                launches_per_forward={k: enhanced[k]["K1f"] for k in k1_paths},
                launches_per_train_step={k: trained[k][0]["K1f"] for k in k1_train},
                launches_in_5_steps_pmsqe=trained["DCCRN-PMSQE"][1]["K1f"],
+               launches_per_rank_in_3_data_parallel_steps=[r["K1f"] for r in dp_launches],
                **stash_times)
     bwd.update(launches=trained["DCCRN"][1]["K1b"],
                launches_per_train_step={k: trained[k][0]["K1b"] for k in k1_train},
-               launches_in_5_steps_pmsqe=trained["DCCRN-PMSQE"][1]["K1b"])
+               launches_in_5_steps_pmsqe=trained["DCCRN-PMSQE"][1]["K1b"],
+               launches_per_rank_in_3_data_parallel_steps=[r["K1b"] for r in dp_launches])
     k2f.update(launches=enhanced["CRN"]["K2f"],
                launches_per_forward={k: enhanced[k]["K2f"] for k in k2_paths},
                launches_per_train_step={k: trained[k][0]["K2f"] for k in k2_train})

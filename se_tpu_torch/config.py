@@ -6,8 +6,10 @@ STFT geometry and training, so a ``Config`` built with the same arguments
 in either package describes the same model.  Of the JAX package's
 accelerator switches only ``use_pallas_conv`` is copied, under its own
 name: here it selects the hand-written encoder conv.  The others (the
-Pallas LSTM switch, conv space-to-depth, rematerialisation, mesh axes)
-have no meaning here and are not copied.
+Pallas LSTM switch, conv space-to-depth, rematerialisation) have no meaning
+here and are not copied.  Nor is ``ParallelConfig``: a data-parallel run
+takes its ranks from torchrun's environment (``parallel/mesh.py``), not
+from a config.
 """
 
 from __future__ import annotations

@@ -1,12 +1,11 @@
 """Objective-metric checker CLI (counterpart of
 ``se_tpu/eval/check_object_metrics.py``; reference:
-estimation/check_object_metrics.py), printing PESQ and STOI.
+estimation/check_object_metrics.py), printing PESQ, STOI and the composite
+measures CSIG, CBAK, COVL and segSNR.
 
 Usage:
     python -m se_tpu_torch.eval.check_object_metrics clean.wav enhanced.wav
     python -m se_tpu_torch.eval.check_object_metrics --dir targets/ estimates/
-
-The composite measures (CSIG, CBAK, COVL, segSNR) are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,13 +16,14 @@ import sys
 import numpy as np
 
 from ..data.wav import read_wav
+from .composite import composite_measures
 from .metrics import run_pesq_waveforms
 from .stoi import stoi
 
 
 def check_pair(clean_path: str, estimated_path: str):
-    """PESQ and STOI of one estimate against its target, both cut to the
-    shorter length."""
+    """PESQ, STOI, CSIG, CBAK, COVL and segSNR of one estimate against its
+    target, both cut to the shorter length."""
     clean, fs = read_wav(clean_path)
     est, fs2 = read_wav(estimated_path)
     if fs != fs2:
@@ -32,8 +32,15 @@ def check_pair(clean_path: str, estimated_path: str):
     clean, est = clean[:n], est[:n]
     pesq_score = run_pesq_waveforms(est, clean, fs)
     stoi_score = stoi(clean, est, fs, extended=False)
-    print(f"{os.path.basename(estimated_path)}: PESQ {pesq_score:.4f} | STOI {stoi_score:.4f}")
-    return pesq_score, stoi_score
+    # the composite of the same arrays, with the printed PESQ added to its
+    # regressions (reference: tools_for_estimate.py:27-29)
+    csig, cbak, covl, ssnr = composite_measures(clean, est, fs)
+    csig += 0.603 * pesq_score
+    cbak += 0.478 * pesq_score
+    covl += 0.805 * pesq_score
+    print(f"{os.path.basename(estimated_path)}: PESQ {pesq_score:.4f} | STOI {stoi_score:.4f} | "
+          f"CSIG {csig:.4f} | CBAK {cbak:.4f} | COVL {covl:.4f} | segSNR {ssnr:.4f}")
+    return pesq_score, stoi_score, csig, cbak, covl, ssnr
 
 
 def check_dirs(target_dir: str, estimated_dir: str):
@@ -52,7 +59,8 @@ def check_dirs(target_dir: str, estimated_dir: str):
         results.append(check_pair(os.path.join(target_dir, name), est_path))
     if results:
         mean = np.asarray(results).mean(axis=0)
-        print(f"\nMEAN: PESQ {mean[0]:.4f} | STOI {mean[1]:.4f}")
+        print(f"\nMEAN: PESQ {mean[0]:.4f} | STOI {mean[1]:.4f} | CSIG {mean[2]:.4f} | "
+              f"CBAK {mean[3]:.4f} | COVL {mean[4]:.4f} | segSNR {mean[5]:.4f}")
     return results
 
 

@@ -2,9 +2,10 @@
 reference: tools_for_estimate.py).
 
 The scorers run on the host.  A batch's utterances fan out over a process
-pool that is made once per worker count and kept.  PESQ is the numpy
-P.862.2 (``pesq_np.py``), which gives the scores of the JAX package's
-native library.
+pool that is made once per worker count and kept.  PESQ is the native
+P.862.2 (``pesq_native.py``), as the JAX loop scores when its library
+loads; it is built before the pool starts, so no worker compiles it.  The
+numpy P.862.2 (``pesq_np.py``) is its plain version in the tests.
 """
 
 from __future__ import annotations
@@ -16,14 +17,15 @@ from typing import List, Sequence
 
 import numpy as np
 
-from .pesq_np import pesq_np
+from . import pesq_native
 from .stoi import stoi as _stoi
 
 
 def run_pesq_waveforms(dirty_wav: np.ndarray, clean_wav: np.ndarray, fs: int = 16000) -> float:
     """PESQ MOS-LQO of a degraded waveform against its clean reference
     (reference: tools_for_estimate.py:68-75)."""
-    return pesq_np(np.asarray(clean_wav, np.float64), np.asarray(dirty_wav, np.float64), fs)
+    return pesq_native.pesq(np.asarray(clean_wav, np.float64),
+                            np.asarray(dirty_wav, np.float64), fs)
 
 
 def _pesq_one(args):
@@ -45,7 +47,8 @@ def _pool(workers: int) -> ProcessPoolExecutor:
     start and imports every time.  ``concurrent.futures`` shuts the kept
     pools down at exit.  The workers are spawned, never forked: the trainer
     holds a CUDA context and threads, which a forked child must not
-    inherit.  They import numpy and scipy only."""
+    inherit.  They import numpy and scipy only, and load the PESQ library
+    the parent built."""
     ex = _POOLS.get(workers)
     if ex is None:
         ex = ProcessPoolExecutor(max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
@@ -62,7 +65,8 @@ def start_pool(workers: int) -> None:
     """Start the kept pool's ``workers`` processes now and return without
     waiting for them: each submitted task starts a worker, so a caller that
     scores later overlaps the workers' start (a fresh interpreter importing
-    numpy and scipy) with its own work."""
+    numpy and scipy) with its own work.  The PESQ library is built first."""
+    pesq_native.load()
     if workers > 1:
         ex = _pool(workers)
         for _ in range(workers):
@@ -89,6 +93,7 @@ def cal_pesq(dirty_wavs: Sequence[np.ndarray], clean_wavs: Sequence[np.ndarray],
              fs: int = 16000, workers: int | None = None) -> List[float]:
     """PESQ of each pair (reference: tools_for_estimate.py:79-84), over
     ``workers`` processes when more than one."""
+    pesq_native.load()
     return _map(_pesq_one, [(d, c, fs) for d, c in zip(dirty_wavs, clean_wavs)], workers)
 
 

@@ -7,9 +7,11 @@ alignment, the 49-band bark psychoacoustic model, and the wideband
 MOS-LQO mapping.  Validated end-to-end against the reference oracle
 binary (reference: PESQ.so, called per tools_for_estimate.py:51-75).
 
-Constants are the published P.862 tables (``p862_tables.py``).  The JAX
-package also builds a C++ port of this module (native/pesq/pesq.cc) for
-its validation loop; the PyTorch port scores with this module alone.
+Constants are the published P.862 tables (``p862_tables.py``).  The port
+scores with its own build of this module's C++ form
+(``csrc/host/pesq.cc``, ``pesq_native.py``), as the JAX package's loop
+does with its build; this module is the plain version the tests hold that
+one to.
 
 Implements the COMPLETE P.862 utterance machinery: id_searchwindows,
 per-utterance crude + histogram time alignment, id_utterances, recursive

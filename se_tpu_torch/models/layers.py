@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from ..ops import conv as conv_ops
 from ..ops import rnn as rnn_ops
+from ..ops import shard
 from ..ops.activations import prelu
 from ..ops.fused_conv import fused_complex_conv2d
 from ..ops.norms import ComplexBnState, batch_norm_2d, complex_batch_norm
@@ -335,10 +336,13 @@ class NavieComplexLSTM(nn.Module):
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """``flax.linen.Dropout`` in train mode: each value kept with probability
-    ``1 - rate`` (a uniform draw from ``generator`` below it) and scaled by
-    ``1 / (1 - rate)``, the rest set to 0.  The generator lives on x's
-    device."""
+    """``flax.linen.Dropout`` in train mode on ``x [T, B, ...]``: each value
+    kept with probability ``1 - rate`` (a uniform draw from ``generator``
+    below it) and scaled by ``1 / (1 - rate)``, the rest set to 0.  The
+    generator lives on x's device.  Inside ``shard.shard_context`` every
+    rank draws the global batch's mask from the same generator and keeps
+    its own rows, so a data-parallel step drops what the one-process step
+    drops."""
     if generator is None:
         raise ValueError(
             "dropout in train mode draws its mask from an explicit torch.Generator; "
@@ -347,7 +351,8 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) 
     keep = 1.0 - rate
     if keep == 0.0:
         return torch.zeros_like(x)
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = shard.local_rows(
+        x.shape, 1, lambda shape: torch.rand(shape, generator=generator, device=x.device)) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -4,8 +4,9 @@ Each ``se_tpu_torch/csrc/<name>.cu`` has a plain C interface and may
 include the shared ``csrc/*.cuh`` headers.  At first use it is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<digest>.so``
 beside the package (the digest covers the source, the headers and the
-flags, so an edited source builds anew) and loaded with ``ctypes``.
-Nothing is compiled when a module is imported.
+flags, so an edited source builds anew) and loaded with ``ctypes``
+(``ops/compile.py`` runs the compilers).  Nothing is compiled when a module
+is imported.
 """
 
 from __future__ import annotations
@@ -14,10 +15,11 @@ import ctypes
 import hashlib
 import os
 import shutil
-import subprocess
 from pathlib import Path
 
 import torch
+
+from .compile import compile_all
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -53,29 +55,8 @@ def build(names=None) -> dict:
     are not built yet, one ``nvcc`` each, all started together.  Returns
     ``{name: compiler output}`` for the ones compiled; raises if any fails."""
     names = kernel_names() if names is None else list(names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    running = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        running[name] = (proc, tmp, out)
-    logs, failed = {}, []
-    for name, (proc, tmp, out) in running.items():
-        logs[name], _ = proc.communicate()
-        if proc.returncode == 0:
-            os.replace(tmp, out)
-        else:
-            tmp.unlink(missing_ok=True)
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n{logs[name]}")
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return logs
+    return compile_all({name: ([_nvcc(), *NVCC_FLAGS, str(CSRC_DIR / f"{name}.cu")],
+                            library_path(name)) for name in names}, "kernel")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -21,6 +21,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from . import shard
+
 EPSILON = float(np.finfo(np.float32).eps)
 
 
@@ -38,14 +40,29 @@ def batch_norm_2d(
 
     Training normalises with the biased batch statistics and moves the
     running buffers toward the mean and the unbiased variance by
-    ``momentum``; evaluation normalises with the running buffers.
+    ``momentum``; evaluation normalises with the running buffers.  Inside
+    ``shard.shard_context`` the statistics are the global batch's, and
+    the gradient flows through them to every rank's rows.
     """
-    if train:
+    if train and shard.active() is not None:
+        # the global batch's statistics: its sum and count, then its
+        # centred sum of squares, each all-reduced over the group
+        sums = shard.all_reduce_sum(torch.cat([
+            x.sum(dim=(0, 2, 3), dtype=torch.float32),
+            _count(x, x.shape[1]),
+        ]))
+        n = sums[-1]
+        mean = sums[:-1] / n
+        xc = x - mean.to(x.dtype)[None, :, None, None]
+        var = shard.all_reduce_sum(xc.square().sum(dim=(0, 2, 3), dtype=torch.float32)) / n
+        unbiased = var * n / (n - 1).clamp(min=1)
+    elif train:
         mean = x.mean(dim=(0, 2, 3), dtype=torch.float32)
         xc = x - mean.to(x.dtype)[None, :, None, None]
         var = xc.square().mean(dim=(0, 2, 3), dtype=torch.float32)
         n = x.shape[0] * x.shape[2] * x.shape[3]
         unbiased = var * n / max(n - 1, 1)
+    if train:
         new_mean = (1 - momentum) * running_mean + momentum * mean
         new_var = (1 - momentum) * running_var + momentum * unbiased
     else:
@@ -57,6 +74,11 @@ def batch_norm_2d(
     ]
     y = y + bias.to(x.dtype)[None, :, None, None]
     return y, new_mean, new_var
+
+
+def _count(x: torch.Tensor, channels: int) -> torch.Tensor:
+    """``[1]`` f32: the values per channel of ``x``, exact below 2**24."""
+    return torch.full((1,), x.numel() // channels, dtype=torch.float32, device=x.device)
 
 
 class ComplexBnState(NamedTuple):
@@ -91,14 +113,27 @@ def complex_batch_norm(
     [Wri, Wii]]``, and shifted by ``(Br, Bi)``.  Training uses the batch's
     means and biased covariance and moves the running statistics toward them
     by ``momentum``; evaluation uses the running statistics.  The new state
-    carries no gradient."""
+    carries no gradient.  Inside ``shard.shard_context`` the means and the
+    covariance are the global batch's, as in :func:`batch_norm_2d`."""
     C2 = x.shape[1]
     xr, xi = x[:, : C2 // 2], x[:, C2 // 2 :]
     vdim = (1, C2 // 2, 1, 1)
     redux = (0, 2, 3)
     lerp = lambda old, new: ((1 - momentum) * old + momentum * new.detach().reshape(-1))
 
-    if train:
+    # inside shard.shard_context: the global batch's sums and count, in f32,
+    # all-reduced over the group
+    if train and shard.active() is not None:
+        C = C2 // 2
+        sums = shard.all_reduce_sum(torch.cat([
+            xr.sum(dim=redux, dtype=torch.float32), xi.sum(dim=redux, dtype=torch.float32),
+            _count(xr, C),
+        ]))
+        n = sums[-1]
+        Mr = (sums[:C] / n).to(x.dtype).reshape(vdim)
+        Mi = (sums[C : 2 * C] / n).to(x.dtype).reshape(vdim)
+        new_RMr, new_RMi = lerp(state.RMr, Mr), lerp(state.RMi, Mi)
+    elif train:
         Mr = xr.mean(dim=redux, keepdim=True)
         Mi = xi.mean(dim=redux, keepdim=True)
         new_RMr, new_RMi = lerp(state.RMr, Mr), lerp(state.RMi, Mi)
@@ -107,10 +142,16 @@ def complex_batch_norm(
         new_RMr, new_RMi = state.RMr, state.RMi
     xr, xi = xr - Mr, xi - Mi
 
-    if train:
+    if train and shard.active() is not None:
+        sums = shard.all_reduce_sum(torch.cat([
+            (a * b).sum(dim=redux, dtype=torch.float32) for a, b in ((xr, xr), (xr, xi), (xi, xi))
+        ])) / n
+        Vrr, Vri, Vii = (v.to(x.dtype).reshape(vdim) for v in sums.chunk(3))
+    elif train:
         Vrr = (xr * xr).mean(dim=redux, keepdim=True)
         Vri = (xr * xi).mean(dim=redux, keepdim=True)
         Vii = (xi * xi).mean(dim=redux, keepdim=True)
+    if train:
         new_RVrr, new_RVri, new_RVii = (lerp(state.RVrr, Vrr), lerp(state.RVri, Vri),
                                         lerp(state.RVii, Vii))
     else:

@@ -137,6 +137,19 @@ def train_step(cfg: Config, model: torch.nn.Module, optimizer: torch.optim.Optim
     step's scan does.  The averaged gradients are left in each
     parameter's ``.grad``.
     """
+    accum = cfg.train.grad_accum
+    params, grads, sums = accumulate_gradients(cfg, model, inputs, targets, generator)
+    for p, g in zip(params, grads):
+        p.grad = g / accum
+    optimizer.step()
+    return {k: v / accum for k, v in sums.items()}
+
+
+def accumulate_gradients(cfg: Config, model: torch.nn.Module, inputs, targets,
+                         generator: Optional[torch.Generator] = None) -> tuple:
+    """The train-mode forward and backward of :func:`train_step` without the
+    optimiser -> ``(params, the gradients summed over the micro-batches,
+    {metric: sum over the micro-batches})``."""
     variant = trainer_variant(cfg)
     accum = cfg.train.grad_accum
     inputs, targets = _batch(model, inputs, targets)
@@ -157,10 +170,7 @@ def train_step(cfg: Config, model: torch.nn.Module, optimizer: torch.optim.Optim
         grads = g if grads is None else [a + b for a, b in zip(grads, g)]
         for k, v in {"loss": loss, **aux}.items():
             sums[k] = sums.get(k, 0.0) + v.detach()
-    for p, g in zip(params, grads):
-        p.grad = g / accum
-    optimizer.step()
-    return {k: v / accum for k, v in sums.items()}
+    return params, grads, sums
 
 
 def eval_step(cfg: Config, model: torch.nn.Module, inputs, targets):

@@ -7,6 +7,7 @@
     python -m se_tpu_torch.train_interface ... --perceptual PMSQE  # or LMS
     python -m se_tpu_torch.train_interface ... --no-skip --use-cbn
     python -m se_tpu_torch.train_interface ... --masking-mode 'Direct(None make)'
+    torchrun --nproc_per_node=N -m se_tpu_torch.train_interface ... --mesh
 
 The data are ``[N, 2, T]`` float32 ``.npy`` files, rows (noisy, clean).  A
 run writes ``{job-dir}/{expr-num}_{month}.{day}_{model}_{loss}/``: ``log.txt``,
@@ -17,8 +18,12 @@ of least validation loss.  ``--chkpt-model``/``--chkpt`` resume a run from
 its directory under ``--job-dir``.  ``--perceptual``, ``--masking-mode``,
 ``--no-skip`` and ``--use-cbn`` pick the trainer variant and the model as
 the JAX CLI's do; a perceptual run's ``log.txt`` gives each epoch's main
-and perceptual losses on a second line.  ``--mesh`` is not ported.  Runs on
-the card unless ``--device cpu`` is given.  ``--pallas-lstm`` is accepted
+and perceptual losses on a second line.  ``--mesh`` trains data-parallel:
+under ``torchrun`` (``python -m torch.distributed.run``) one rank a card,
+``cuda:LOCAL_RANK`` over NCCL (gloo with ``--device cpu``), ``--batch`` the
+global batch, which must divide by ``--grad-accum`` x the ranks; without
+torchrun's environment a group of one process.  Runs on the card unless
+``--device cpu`` is given.  ``--pallas-lstm`` is accepted
 for the JAX CLI's command lines and has no effect: on a CUDA tensor the
 hand-written kernels always run.
 """
@@ -56,7 +61,8 @@ def parse_args(argv=None):
     p.add_argument("--expr-num", default="EXPERIMENT_NUMBER")
     p.add_argument("--chkpt-model", default=None, help="run dir name to resume")
     p.add_argument("--chkpt", default="EPOCH", help="epoch number to resume from")
-    p.add_argument("--mesh", action="store_true", help="data-parallel (not ported yet)")
+    p.add_argument("--mesh", action="store_true",
+                   help="data-parallel over the torchrun group (a group of one without it)")
     p.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
                    help="activation dtype of the compute path")
     p.add_argument("--grad-accum", type=int, default=1,
@@ -70,20 +76,13 @@ def parse_args(argv=None):
     return p, p.parse_args(argv)
 
 
-def _reject_unported(args):
-    """Raise for a flag that asks for what is not ported yet, naming its
-    item in ROADMAP.md's Queue 1: data parallelism, ``--mesh``."""
-    if args.mesh:
-        raise NotImplementedError("--mesh is not ported yet (ROADMAP.md, Queue 1 item 12)")
-
-
 def main(argv=None):
     """Parse ``argv``, train, and return the finished ``Trainer``."""
     from .device import resolve_device
+    from .parallel.mesh import destroy
     from .train.loop import Trainer
 
     p, args = parse_args(argv)
-    _reject_unported(args)
     try:
         dev = resolve_device(args.device)
     except RuntimeError as e:
@@ -117,9 +116,13 @@ def main(argv=None):
             valid_data_path=args.valid_data,
         ),
     )
-    trainer = Trainer(cfg, device=dev)
-    trainer.setup()
-    trainer.run()
+    trainer = Trainer(cfg, device=dev, use_mesh=args.mesh)
+    try:
+        trainer.setup()
+        trainer.run()
+    finally:
+        if getattr(trainer, "mesh", None) is not None:
+            destroy(trainer.mesh)
     return trainer
 
 

@@ -15,7 +15,9 @@ import jax.numpy as jnp
 from se_tpu.config import Config as JConfig, DccrnConfig as JDccrnConfig
 from se_tpu.data import DataLoader as JDataLoader, MixingDataset as JMixingDataset
 from se_tpu.data import WaveDataset as JWaveDataset
+from se_tpu.eval import check_object_metrics as jcheck
 from se_tpu.eval import metrics as jmetrics
+from se_tpu.eval import pesq_native as jpesq_native
 from se_tpu.eval.pesq_np import pesq_np as jpesq_np
 from se_tpu.eval.stoi import stoi as jstoi
 from se_tpu.models import build_model as jbuild_model
@@ -84,16 +86,18 @@ def test_scorers_equal_the_jax_package_exactly():
     """The port's copies of the numpy P.862.2 and STOI give the JAX
     package's scores bit for bit on six pairs (three lengths, two SNRs), and
     so do ``cal_pesq``/``cal_stoi`` (serial and over a spawned pool of two)
-    against the same scorers; PESQ lies in [1, 4.64] and falls with the SNR."""
+    against the same scorers, ``cal_pesq`` being the native P.862.2 of both
+    packages; PESQ lies in [1, 4.64] and falls with the SNR."""
     clean = [c for c, _ in PAIRS]
     deg = [d for _, d in PAIRS]
     want_p = [jpesq_np(c, d) for c, d in PAIRS]
     want_s = [jstoi(c, d, FS) for c, d in PAIRS]
+    want_native = [jpesq_native.pesq(c, d) for c, d in PAIRS]
     assert [pesq_np(c, d) for c, d in PAIRS] == want_p
     assert [stoi(c, d, FS) for c, d in PAIRS] == want_s
-    assert metrics.cal_pesq(deg, clean, FS) == want_p
+    assert metrics.cal_pesq(deg, clean, FS) == want_native
     assert metrics.cal_stoi(deg, clean, FS) == want_s
-    assert metrics.cal_pesq(deg, clean, FS, workers=2) == want_p
+    assert metrics.cal_pesq(deg, clean, FS, workers=2) == want_native
     assert metrics.cal_stoi(deg, clean, FS, workers=2) == want_s
     assert metrics._pool(2)._mp_context.get_start_method() == "spawn"
     # the JAX package's front end, on its numpy P.862 or its native build
@@ -181,8 +185,9 @@ def test_port_checkpoint_scores_the_same_in_both_packages(tmp_path, monkeypatch)
 
 def test_metric_checker_cli_scores_wav_files(tmp_path, capsys):
     """``check_object_metrics`` reads two wav files (int16, as written) and
-    prints the PESQ and STOI that the scorers give on the read samples, for
-    one pair and for a directory of targets and estimates."""
+    prints the PESQ, STOI and composite measures that the JAX package's
+    checker gives on the same files, for one pair and for a directory of
+    targets and estimates."""
     from se_tpu_torch.data.wav import read_wav, write_wav
     from se_tpu_torch.eval import check_object_metrics
 
@@ -193,8 +198,12 @@ def test_metric_checker_cli_scores_wav_files(tmp_path, capsys):
     write_wav(str(tmp_path / "e" / "a_estimated.wav"), deg, FS)
     c, d = (read_wav(str(p))[0] for p in (tmp_path / "t" / "a_target.wav",
                                            tmp_path / "e" / "a_estimated.wav"))
-    want = (jpesq_np(c, d), jstoi(c, d, FS))
+    want = jcheck.check_pair(str(tmp_path / "t" / "a_target.wav"),
+                             str(tmp_path / "e" / "a_estimated.wav"))
+    assert want[:2] == (jpesq_native.pesq(c, d), jstoi(c, d, FS))
+    capsys.readouterr()
     check_object_metrics.main([str(tmp_path / "t" / "a_target.wav"),
                                str(tmp_path / "e" / "a_estimated.wav")])
-    assert f"PESQ {want[0]:.4f} | STOI {want[1]:.4f}" in capsys.readouterr().out
+    assert (f"PESQ {want[0]:.4f} | STOI {want[1]:.4f} | CSIG {want[2]:.4f} | CBAK {want[3]:.4f} "
+            f"| COVL {want[4]:.4f} | segSNR {want[5]:.4f}") in capsys.readouterr().out
     assert check_object_metrics.check_dirs(str(tmp_path / "t"), str(tmp_path / "e")) == [want]

@@ -329,11 +329,12 @@ def test_cli_writes_the_jax_log_entry_for_a_perceptual_run(tmp_path):
     ["--no-skip"], ["--use-cbn"], ["--no-skip", "--use-cbn", "--model", "CRN"],
 ], ids=["lms", "pmsqe", "dccrn-direct", "no-skip", "use-cbn", "crn-no-skip"])
 def test_reject_unported_raises_only_for_mesh(flags):
-    """Every trainer variant and model switch passes; ``--mesh`` alone
-    raises, naming its ROADMAP item."""
+    """Every trainer variant and model switch parses; with ``--mesh`` only a
+    batch its ranks cannot split raises, in JAX's words (a group of one,
+    3 rows in 2 micro-batches)."""
     base = ["--train-data", "x.npy", "--valid-data", "x.npy"]
     _, args = train_interface.parse_args(base + flags)
-    train_interface._reject_unported(args)
-    _, args = train_interface.parse_args(base + flags + ["--mesh"])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        train_interface._reject_unported(args)
+    assert not args.mesh
+    with pytest.raises(ValueError, match="grad_accum x mesh devices"):
+        train_interface.main(base + flags + ["--mesh", "--batch", "3", "--grad-accum", "2",
+                                             "--device", "cpu"])

@@ -2,7 +2,7 @@
 against the JAX package's on the CPU at a tiny width: two epochs of both
 Trainers from the same weights and data, the run directory's artifacts and
 their formats, resume (bit-exact on the CPU), the CLI at full width, and
-the one flag that asks for what is not ported yet.
+its flags.
 
 The JAX side runs with ``use_pallas_lstm="auto"`` (the scan LSTM on the
 CPU), its ``setup()`` given a state of ``random_dccrn_params`` in place of
@@ -290,7 +290,8 @@ def test_cli_trains_full_width_dccrn_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--mesh"], "item 12"),
+    (["--mesh", "--batch", "3", "--grad-accum", "2", "--device", "cpu"],
+     "grad_accum x mesh devices"),
     (["--perceptual", "LMS"], None),
     (["--perceptual", "PMSQE"], None),
     (["--masking-mode", "Direct(None make)"], None),
@@ -298,16 +299,17 @@ def test_cli_trains_full_width_dccrn_on_the_cpu(tmp_path):
     (["--use-cbn"], None),
 ], ids=["mesh", "lms", "pmsqe", "dccrn-direct", "no-skip", "use-cbn"])
 def test_unported_flags_raise_before_any_work(tmp_path, flags, item):
-    """``--mesh``, the one flag left unported, raises ``NotImplementedError``
-    naming its ROADMAP item, before a device is asked for or a directory
-    made; the trainer variants and model switches that were unported before
-    pass the check, and the Trainer takes a perceptual configuration."""
+    """Every flag is ported: ``--mesh`` with a batch that its ranks cannot
+    split raises ``ValueError`` in JAX's words before a model is built or a
+    directory made (a group of one without torchrun); the trainer variants
+    and model switches parse, and the Trainer takes a perceptual
+    configuration."""
     argv = ["--train-data", "none.npy", "--valid-data", "none.npy", "--job-dir",
             str(tmp_path / "models"), *flags]
     if item is None:
-        train_interface._reject_unported(train_interface.parse_args(argv)[1])
+        assert not train_interface.parse_args(argv)[1].mesh
     else:
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError, match=item):
             train_interface.main(argv)
     cfg = Config(train=_train_cfg(tmp_path))
     Trainer(cfg.replace(perceptual="LMS"), TRAIN, VALID, device="cpu")
@@ -318,7 +320,7 @@ def test_crn_direct_masking_is_accepted():
     """CRN's direct mapping is ported (``crn_direct``): the CLI takes it."""
     _, args = train_interface.parse_args(["--model", "CRN", "--masking-mode", "Direct(None make)",
                                           "--train-data", "x", "--valid-data", "x"])
-    train_interface._reject_unported(args)
+    assert (args.model, args.masking_mode) == ("CRN", "Direct(None make)")
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
