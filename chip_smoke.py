@@ -35,7 +35,12 @@ in order; any failure ends the run with a nonzero exit and no result line:
    held on the kernel's own saved ys) and K4 (the six stages at B = 10 and
    8, a ragged case), by the same phases as their f32 forms, with the f32
    form's time and cuDNN's GRU or conv in bf16 beside them (K4's bound at
-   the tensor cores' bf16 rate, its products being bf16);
+   the tensor cores' bf16 rate, its products being bf16); K2f and K2b with
+   the bf16 cell-state stash (``cs_dtype=bfloat16``) in both stream forms at
+   CRN's train shape and the sub band's layer 0 at B = 2, the forward bit
+   for bit the f32 stash's but its stash rounded, each against its plain
+   version, the gradients also against the f32 stash's within the
+   reference's 5e-3 of each leaf's max, with both stashes' times;
    then the f32 forms of K1, K2, K3 and K4 at the streaming path's shapes
    (B = 1, 100-ms chunks: T = 16, 3 and 1 frames at hop 100, 5, 3 and 1 at
    hop 300, from a nonzero state; K4 on the chunk and its cached frame),
@@ -89,7 +94,12 @@ in order; any failure ends the run with a nonzero exit and no result line:
    one-rounding change of its input: for an ill-conditioned loss, the
    model's gradients for the CPU loss's cotangents at TRAIN_GRAD_TOL; for
    an ill-conditioned model, a multiple of that spread, measured in the
-   run);
+   run); then one CRN step at B=2 with the bf16 stash on, card against CPU
+   (K2f-cs16 and K2b-cs16 once each); one step at B=10 of the default DCCRN
+   and of DCCRN with ``use_pallas_conv`` with ``remat_convs=True`` against
+   the same step without it (loss, gradients, running statistics, the
+   recompute's K4 launches, peak device memory); one FullSubNet forward at
+   B=2 with ``weight_init=True`` and the three EMA norms, card against CPU;
 6. the enhance CLI as a subprocess for every path but the two fused-conv
    ones (no CLI takes that switch) and the four that only train (bf16
    paths with ``--compute-dtype bfloat16``; DCCRN with ``--use-cbn
@@ -628,21 +638,25 @@ def _k2_tiling(Bb, In, H) -> str:
     return f"forward {one(False)}; backward {one(True)}"
 
 
-def _k2_bound(T, L, Bb, In, H, stream_bytes=4, backward=False) -> tuple:
+def _k2_bound(T, L, Bb, In, H, stream_bytes=4, backward=False, stash_bytes=None) -> tuple:
     """K2's bound at a shape -> ``(bound_ms, bound_by, bytes, FLOP)``: the
     forward reads x, the weights, h0 and c0 and writes ys, hT and cT (2 T L
-    Bb (In + H) 4H FLOP, + the bias); the backward reads x, the weights,
-    h0, c0, ys, cs, dys, dhT and dcT and writes dx, the weight gradients,
-    dh0 and dc0 (three times the products).  x, ys, dys and dx at
-    ``stream_bytes`` each (bf16: 2), the rest f32."""
+    Bb (In + H) 4H FLOP, + the bias), and the stash cs where ``stash_bytes``
+    is given; the backward reads x, the weights, h0, c0, ys, cs, dys, dhT and
+    dcT and writes dx, the weight gradients, dh0 and dc0 (three times the
+    products).  x, ys, dys and dx at ``stream_bytes`` each (bf16: 2), cs at
+    ``stash_bytes`` (default 4), the rest f32."""
     G = 4 * H
     n_w = L * (In * G + G + H * G)
+    n_cs = T * L * Bb * H
     if backward:
         n_bytes = (stream_bytes * (2 * T * L * Bb * In + 2 * T * L * Bb * H)
-                   + 4 * (2 * n_w + T * L * Bb * H + 6 * L * Bb * H))
+                   + (4 if stash_bytes is None else stash_bytes) * n_cs
+                   + 4 * (2 * n_w + 6 * L * Bb * H))
         flops = 3 * 2 * T * L * Bb * (In + H) * G
     else:
-        n_bytes = stream_bytes * T * L * Bb * (In + H) + 4 * (n_w + 4 * L * Bb * H)
+        n_bytes = (stream_bytes * T * L * Bb * (In + H) + (stash_bytes or 0) * n_cs
+                   + 4 * (n_w + 4 * L * Bb * H))
         flops = 2 * T * L * Bb * (In + H) * G + T * L * Bb * G
     return (*_bound(n_bytes, flops), n_bytes, flops)
 
@@ -1080,6 +1094,140 @@ def phase_bf16_kernels() -> tuple:
                source="se_tpu_torch/csrc/lstm_inproj.cu",
                replaces="se_tpu/ops/pallas_lstm.py:503::_inproj_bwd (bf16 stream: :397, :553)")
     return k1f, k1b, k2f, k2b
+
+
+# K2's bf16 cell-state stash: (label, T, Bb, In, H) at CRN's train shape
+# and one sub-band layer (layer 0, B = 2: 2 x 257 rows)
+_K2_STASH = (("CRN", 483, 10, 512, 128), ("FullSubNet sb l0 B=2", 163, 514, 32, 384))
+# bf16 against f32 stash gradients, over each leaf's max: the reference's
+# own bound (tests/test_pallas_lstm.py::test_inproj_bf16_cs_stash_grads_close)
+STASH_GRAD_TOL = 5e-3
+
+
+def phase_stash_kernels() -> tuple:
+    """K2f and K2b with the bf16 cell-state stash (``cs_dtype=bfloat16``),
+    in the f32 and the bf16-stream form, at ``_K2_STASH``'s shapes, against
+    their plain versions on the card: the forward's ys, hT and cT bit for bit
+    those of the f32-stash forward and its stash those values rounded
+    (``cs16 == cs32.to(bf16)``), and within KERNEL_TOL (or one bf16 ulp) of
+    the plain forward's; the backward on the kernel's own ys and stash
+    against the plain backward by phase 3's K2b rules; its gradients within
+    STASH_GRAD_TOL of each leaf's max of the f32-stash backward's; two calls
+    of each backward, f32 stash and bf16, bit-identical.  Times at the sub
+    band, f32 stream, of the forward with either stash, of K2b with either
+    stash, of the plain versions and of cuDNN's LSTM.  Returns the entries
+    K2f-cs16 and K2b-cs16."""
+    from se_tpu_torch.device import resolve_device
+    from se_tpu_torch.probes import cuda_ms
+    from se_tpu_torch.ops import fused_lstm_inproj as k2
+
+    dev = resolve_device("cuda")
+    rng = np.random.default_rng(SEED + 16)
+    bf16, f32 = torch.bfloat16, torch.float32
+    fwd = k2._forward
+    bwd = k2.fused_lstm_scan_inproj_backward
+    rel = lambda got, want: {n: _max_err(g, w) / max(w.abs().max().item(), 1e-30)
+                             for n, g, w in zip(_K2B_NAMES, got, want)
+                             if g.dtype == f32}
+    entries = {}
+    for stream in (f32, bf16):
+        for label, T, Bb, In, H in _K2_STASH:
+            x, *rest = _inproj_inputs(rng, dev, T, 1, Bb, In, H)
+            x = x.to(stream)
+            dys, dhT, dcT = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+                             for s in ((T, 1, Bb, H), (1, Bb, H), (1, Bb, H))]
+            cots = (dys.to(stream), dhT, dcT)
+            tag = f"{label} T={T} Bb={Bb} In={In} H={H}, {str(stream)[6:]} stream"
+            with torch.no_grad():
+                ys, cs, hT, cT = fwd(x, *rest, need_cs=True, cs_dtype=bf16)
+                ys32, cs32, hT32, cT32 = fwd(x, *rest, need_cs=True, cs_dtype=f32)
+                assert cs.dtype == bf16 and cs32.dtype == f32, tag
+                assert (torch.equal(ys, ys32) and torch.equal(hT, hT32) and torch.equal(cT, cT32)
+                        and torch.equal(cs, cs32.to(bf16))), \
+                    f"{tag}: the bf16 stash is not the f32 stash rounded, or moved the carry"
+                ys_p, cs_p, hT_p, cT_p = k2._reference_forward(x, *rest, True, bf16)
+                got = bwd(x, *rest, ys, cs, *cots, cs_dtype=bf16)
+                again = bwd(x, *rest, ys, cs, *cots, cs_dtype=bf16)
+                want = k2.fused_lstm_scan_inproj_backward_reference(x, *rest, ys, cs, *cots)
+                got32 = bwd(x, *rest, ys32, cs32, *cots, cs_dtype=f32)
+                again32 = bwd(x, *rest, ys32, cs32, *cots, cs_dtype=f32)
+                torch.cuda.synchronize()
+            f_errs = {"hT": _max_err(hT, hT_p), "cT": _max_err(cT, cT_p)}
+            cs_e = _bf16_errs(cs, cs_p, KERNEL_TOL)
+            if stream == f32:
+                f_errs["ys"] = _max_err(ys, ys_p)
+                ys_e = None
+            else:
+                ys_e = _bf16_errs(ys, ys_p, KERNEL_TOL)
+            b_rel = rel(got, want)
+            dx_e = (None if stream == f32 else
+                    _bf16_errs(got[0], want[0], BWD_REL_TOL * want[0].abs().max().item()))
+            # over each leaf's max; a bf16 dx (the bf16 stream) may round
+            # either way besides: its excess over one bf16 ulp of each element
+            vs32 = {}
+            for n, g, w in zip(_K2B_NAMES, got, got32):
+                d = (g.float() - w.float()).abs()
+                if g.dtype == bf16:
+                    mag = torch.maximum(g.float().abs(), w.float().abs())
+                    d = (d - torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
+                         ).clamp_min(0)
+                vs32[n] = d.max().item() / max(w.float().abs().max().item(), 1e-30)
+            print(f"[stash] {tag} ({_k2_tiling(Bb, In, H)}): forward bit for bit the f32 "
+                  f"stash's, its stash that rounded; against plain: f32 {f_errs} (tolerance "
+                  f"{KERNEL_TOL}), cs bf16 {cs_e}" + (f", ys bf16 {ys_e}" if ys_e else "")
+                  + f"; backward against plain, f32 outputs over their max {b_rel} (tolerance "
+                  f"{BWD_REL_TOL})" + (f", dx bf16 {dx_e}" if dx_e else "")
+                  + f"; against the f32 stash's, over each leaf's max (a bf16 dx: beyond one "
+                  f"ulp) {vs32} (tolerance {STASH_GRAD_TOL})")
+            assert all(np.isfinite(v) and v <= KERNEL_TOL for v in f_errs.values()), (tag, f_errs)
+            assert cs_e["within"] <= 1 and (ys_e is None or ys_e["within"] <= 1), (tag, cs_e, ys_e)
+            assert all(np.isfinite(v) and v <= BWD_REL_TOL for v in b_rel.values()), (tag, b_rel)
+            assert dx_e is None or dx_e["within"] <= 1, (tag, dx_e)
+            assert all(np.isfinite(v) and v <= STASH_GRAD_TOL for v in vs32.values()), (tag, vs32)
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{tag}: not repeatable"
+            assert all(torch.equal(a, b) for a, b in zip(got32, again32)), \
+                f"{tag}: the f32 stash's backward not repeatable"
+            if stream != f32 or label == "CRN":
+                continue
+            # the sub band, f32 stream: the numbers of the kernels line
+            with torch.no_grad():
+                t = {"fwd_cs16": cuda_ms(lambda: fwd(x, *rest, True, bf16), 3, 1),
+                     "fwd_cs32": cuda_ms(lambda: fwd(x, *rest, True, f32), 3, 1),
+                     "bwd_cs16": cuda_ms(lambda: bwd(x, *rest, ys, cs, *cots, cs_dtype=bf16), 3, 1),
+                     "bwd_cs32": cuda_ms(lambda: bwd(x, *rest, ys32, cs32, *cots, cs_dtype=f32),
+                                         3, 1),
+                     "plain_fwd": cuda_ms(lambda: k2._reference_forward(x, *rest, True, bf16), 1, 1),
+                     "plain_bwd": cuda_ms(lambda: k2.fused_lstm_scan_inproj_backward_reference(
+                         x, *rest, ys, cs, *cots), 1, 1)}
+            w_ih, bias, w_hh, h0, c0 = rest
+            lib_f, lib_b, lib_dtype = _cudnn_yardstick(
+                [_cudnn_lstm(w_ih, bias, w_hh, dev)], [(x[:, 0], h0, c0)],
+                [(cots[0][:, 0], cots[1], cots[2])], dtypes=(f32,))
+            stash_mb = {"cs16": cs.numel() * 2 / 1e6, "cs32": cs32.numel() * 4 / 1e6}
+            print(f"[stash] {tag}: K2f with the bf16 stash {t['fwd_cs16']:.4f} ms, with the f32 "
+                  f"stash {t['fwd_cs32']:.4f}; K2b with the bf16 stash {t['bwd_cs16']:.4f} ms, "
+                  f"with the f32 stash {t['bwd_cs32']:.4f}; plain {t['plain_fwd']:.4f} and "
+                  f"{t['plain_bwd']:.4f}; cuDNN ({lib_dtype}) {lib_f:.4f} and {lib_b:.4f}; "
+                  f"stash {stash_mb} MB")
+            for kind, ms, ms32, plain_ms, library_ms, err in (
+                    ("fwd", t["fwd_cs16"], t["fwd_cs32"], t["plain_fwd"], lib_f,
+                     max(*f_errs.values(), cs_e["abs"])),
+                    ("bwd", t["bwd_cs16"], t["bwd_cs32"], t["plain_bwd"], lib_b,
+                     max(_max_err(g, w) for g, w in zip(got, want)))):
+                bound_ms, bound_by, n_bytes, flops = _k2_bound(T, 1, Bb, In, H, stash_bytes=2,
+                                                               backward=kind == "bwd")
+                entries[kind] = {
+                    "name": f"fused_lstm_scan_inproj_{kind}_cs16", "route": "cuda",
+                    "source": "se_tpu_torch/csrc/lstm_inproj.cu",
+                    "replaces": ("se_tpu/ops/pallas_lstm.py:432::_inproj_call (cs_dtype "
+                                 "bfloat16: :38-41, :335, :473)" if kind == "fwd" else
+                                 "se_tpu/ops/pallas_lstm.py:503::_inproj_bwd (cs_dtype "
+                                 "bfloat16: :362, :377)"),
+                    "shapes": tag, "max_abs_err": err, "ms": ms, "kernel_ms": ms,
+                    "f32_stash_ms": ms32, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "bytes": n_bytes, "library_ms": library_ms,
+                    "stash_mb": stash_mb["cs16"], "f32_stash_mb": stash_mb["cs32"]}
+    return entries["fwd"], entries["bwd"]
 
 
 # FullSubNet's two sequence models, two layers each, at 3 s (T = 163):
@@ -1909,7 +2057,11 @@ def _counters() -> dict:
             "K1f-bf16": (k1f, "launches_bf16"), "K1b-bf16": (k1b, "launches_bf16"),
             "K2f-bf16": (k2f, "launches_bf16"), "K2b-bf16": (k2b, "launches_bf16"),
             "K3f-bf16": (k3f, "launches_bf16"), "K3b-bf16": (k3b, "launches_bf16"),
-            "K4-bf16": (k4, "launches_bf16")}
+            "K4-bf16": (k4, "launches_bf16"),
+            # K2's bf16 cell-state stash, in each stream form
+            "K2f-cs16": (k2f, "launches_cs16"), "K2b-cs16": (k2b, "launches_cs16"),
+            "K2f-bf16-cs16": (k2f, "launches_bf16_cs16"),
+            "K2b-bf16-cs16": (k2b, "launches_bf16_cs16")}
 
 
 def _zero_counts():
@@ -2234,6 +2386,131 @@ def _utterances(n: int, seconds: int, fs: int) -> tuple:
     clean = np.stack(clean).astype(np.float32)
     noisy = (clean + 0.05 * rng.standard_normal(clean.shape)).astype(np.float32)
     return noisy, clean
+
+
+def phase_stash_train(paths: dict) -> dict:
+    """One CRN train step at B=2 with K2's bf16 cell-state stash on
+    (``CS_STASH_DTYPE`` as ``SE_TPU_LSTM_CS_STASH=bfloat16`` sets it), on the
+    card and on the CPU from the same weights, by phase 5's f32 rules
+    (``phase_train``): K2f-cs16 and K2b-cs16 launch once each, the f32-stash
+    forms not at all.  Returns the launches."""
+    from se_tpu_torch.ops import fused_lstm_inproj as k2
+
+    cfg, sd, _, _, _ = paths["CRN"]
+    saved, k2.CS_STASH_DTYPE = k2.CS_STASH_DTYPE, torch.bfloat16
+    try:
+        launches, _ = phase_train("CRN-cs16", cfg, sd, {"K2f-cs16": 1}, {"K2b-cs16": 1}, steps=0)
+    finally:
+        k2.CS_STASH_DTYPE = saved
+    return launches
+
+
+def phase_remat(paths: dict) -> dict:
+    """``remat_convs`` on the card: for the default DCCRN and for
+    DCCRN-fused-conv, one ``train_step`` at the default batch (B=10) with
+    ``remat_convs=True`` against the same step without it, from the same
+    weights: the loss and the running statistics by phase 5's f32 rules,
+    each gradient leaf by the data-parallel phase's (over max(its max,
+    GRAD_FLOOR x the largest), within TRAIN_GRAD_TOL; the BatchNorm-cancelled
+    conv biases at roundoff), each BatchNorm's ``num_batches_tracked`` at 1,
+    the launches exact (the recompute runs each encoder stage's K4 again:
+    12 a step on the fused conv; K1f and K1b 2 each); the peak device memory
+    of each step.  Returns ``{label: the remat step's launches}``."""
+    from se_tpu_torch.train.state import create_train_state
+    from se_tpu_torch.train.steps import train_step
+
+    out = {}
+    for label in ("DCCRN", "DCCRN-fused-conv"):
+        cfg, sd, per_fwd, per_bwd, _ = paths[label]
+        noisy, clean = _utterances(cfg.train.batch, 3, cfg.stft.fs)
+        runs = {}
+        for remat in (False, True):
+            c = cfg.replace(remat_convs=remat)
+            model, opt = create_train_state(c, sd, device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()  # weights and Adam's state
+            _zero_counts()
+            loss = train_step(c, model, opt, noisy, clean)["loss"].item()
+            torch.cuda.synchronize()
+            grads, stats = _grads_and_stats(model)
+            runs[remat] = {"loss": loss, "grads": grads, "stats": stats, "launches": _counts(),
+                           "peak": torch.cuda.max_memory_allocated(), "held": held,
+                           "tracked": {v.item() for k, v in model.state_dict().items()
+                                       if k.endswith("num_batches_tracked")}}
+            del model, opt
+        plain, rem = runs[False], runs[True]
+        per_step = {**per_fwd, **per_bwd}
+        twice = {k: (2 * v if k.startswith("K4") else v) for k, v in per_step.items()}
+        loss_err = abs(rem["loss"] - plain["loss"]) / max(1.0, abs(plain["loss"]))
+        cancelled = _cancelled_by_batch_norm(sd)
+        scale = max(g.abs().max().item() for g in plain["grads"].values())
+        rel = _leaf_rel_errs(rem["grads"], plain["grads"], cancelled, GRAD_FLOOR * scale)
+        worst = max(rel, key=rel.get)
+        near = max(max(rem["grads"][k].abs().max().item(), plain["grads"][k].abs().max().item())
+                   for k in cancelled)
+        stats_err = max(_max_err(rem["stats"][k], v) for k, v in plain["stats"].items())
+        mib = lambda r: (r["peak"] / 2**20, (r["peak"] - r["held"]) / 2**20)
+        nonzero = lambda launches: {k: v for k, v in launches.items() if v}
+        print(f"[remat {label}] train_step B={cfg.train.batch} with remat_convs against without: "
+              f"loss {rem['loss']} and {plain['loss']} (relative {loss_err:.3g}, tolerance "
+              f"{TRAIN_LOSS_TOL}); gradients over max(leaf's max, {GRAD_FLOOR} x {scale:.4g}) "
+              f"worst {worst} {rel[worst]:.3g} (tolerance {TRAIN_GRAD_TOL}), {len(cancelled)} "
+              f"cancelled conv biases at most {near:.3g}; running statistics max |diff| "
+              f"{stats_err:.3g} (tolerance {TRAIN_STATS_TOL}); num_batches_tracked "
+              f"{rem['tracked']} and {plain['tracked']}; launches {nonzero(rem['launches'])} and "
+              f"{nonzero(plain['launches'])}; peak device memory (MiB; beyond the weights and Adam's "
+              f"state) {mib(rem)} with remat, {mib(plain)} without")
+        assert plain["launches"] == _expected(per_step), plain["launches"]
+        assert rem["launches"] == _expected(twice), rem["launches"]
+        assert np.isfinite(rem["loss"]) and loss_err <= TRAIN_LOSS_TOL, loss_err
+        assert rel[worst] <= TRAIN_GRAD_TOL and near <= 1e-5 * scale, (worst, rel[worst], near)
+        assert stats_err <= TRAIN_STATS_TOL, stats_err
+        assert rem["tracked"] == plain["tracked"] == {1}, (rem["tracked"], plain["tracked"])
+        out[label] = {"launches": rem["launches"], "peak_mib": mib(rem)[0],
+                      "peak_mib_without": mib(plain)[0]}
+    return out
+
+
+# the EMA norms' tolerance, card against CPU, over the output's max: the
+# frame means summed in another order, then 163 dependent steps
+NORM_TOL = 1e-5
+
+
+def phase_fsn_init_and_norms() -> dict:
+    """FullSubNet with ``weight_init=True`` at full width (its init table
+    drawn on the host from a generator seeded SEED + 1): one forward at
+    B=2 on 1-s utterances on the card and on the CPU from the same build,
+    the cRM within SLICE_TOL of its max; then each EMA norm
+    (``forgetting_norm``, ``sband_forgetting_norm``, ``hybrid_norm``, their
+    sample length 100 frames, so that each runs past its warm-up) on a
+    ``[2, 257, 163]`` tensor on the card against the CPU, within NORM_TOL
+    of the output's max.  Returns the errors."""
+    from se_tpu_torch.config import Config, FullSubNetConfig
+    from se_tpu_torch.dsp.stft import stft
+    from se_tpu_torch.models import build_model
+    from se_tpu_torch import ops
+
+    cfg = Config(model="FullSubNet", loss="MSE", fullsubnet=FullSubNetConfig(weight_init=True))
+    s = cfg.stft
+    noisy, _ = _utterances(2, 1, s.fs)
+    mag = stft(torch.from_numpy(noisy), s.fft_len, s.torch_hop, s.win_len).abs()
+    with torch.inference_mode():
+        cpu = build_model(cfg, device="cpu", seed=SEED)(mag)
+        card = build_model(cfg, device="cuda", seed=SEED)(mag.cuda()).cpu()
+    errs = {"cRM": _max_err(card, cpu) / cpu.abs().max().item()}
+    x = torch.from_numpy(np.abs(np.random.default_rng(SEED + 17).standard_normal(
+        (2, 257, 163))).astype(np.float32) + 0.01)
+    for name in ("forgetting_norm", "sband_forgetting_norm", "hybrid_norm"):
+        fn = getattr(ops, name)
+        want = fn(x, 100)
+        errs[name] = _max_err(fn(x.cuda(), 100).cpu(), want) / want.abs().max().item()
+    print(f"[fsn] FullSubNet weight_init=True B=2 forward cRM {tuple(cpu.shape)} and the EMA "
+          f"norms on [2, 257, 163]: max |card - cpu| over the output's max {errs} (tolerances "
+          f"{SLICE_TOL} and {NORM_TOL})")
+    assert np.isfinite(errs["cRM"]) and errs["cRM"] <= SLICE_TOL, errs
+    assert all(np.isfinite(v) and v <= NORM_TOL for k, v in errs.items() if k != "cRM"), errs
+    return errs
 
 
 def phase_slice(label: str, cfg, sd, per_forward: dict) -> tuple:
@@ -2970,6 +3247,8 @@ def main() -> int:
     stamp("K1, K2")
     k1f16, k1b16, k2f16, k2b16 = phase_bf16_kernels()
     stamp("K1, K2 bf16")
+    k2f_cs16, k2b_cs16 = phase_stash_kernels()
+    stamp("K2 with the bf16 stash")
     k3f, k3b = phase_gru_kernels()
     k4 = phase_conv_kernel()
     stamp("K3, K4")
@@ -3039,6 +3318,12 @@ def main() -> int:
         "CRN-direct", cfg.replace(masking_mode="Direct(None make)"), sd, per_fwd, per_bwd,
         steps=0)
     stamp("train")
+    stash_launches = phase_stash_train(paths)
+    stamp("train CRN with the bf16 stash")
+    remat = phase_remat(paths)
+    stamp("remat_convs")
+    phase_fsn_init_and_norms()
+    stamp("FullSubNet weight_init and the EMA norms")
     build_dir = REPO / "build"
     build_dir.mkdir(exist_ok=True)
     # the data-parallel ranks (phase 6b) start now, after every timed phase,
@@ -3118,6 +3403,13 @@ def main() -> int:
                  launches_per_forward=enhanced["DCCRN-fused-conv-bf16"]["K4-bf16"],
                  launches_per_train_step=trained["DCCRN-fused-conv-bf16"][0]["K4-bf16"],
                  launches_in_3_train_steps=trained["DCCRN-fused-conv-bf16"][1]["K4-bf16"])
+    k4.update(launches_per_remat_train_step=remat["DCCRN-fused-conv"]["launches"]["K4"])
+    fwd.update(launches_per_remat_train_step={k: r["launches"]["K1f"] for k, r in remat.items()})
+    bwd.update(launches_per_remat_train_step={k: r["launches"]["K1b"] for k, r in remat.items()})
+    k2f_cs16.update(launches=stash_launches["K2f-cs16"],
+                    launches_per_train_step={"CRN": stash_launches["K2f-cs16"]})
+    k2b_cs16.update(launches=stash_launches["K2b-cs16"],
+                    launches_per_train_step={"CRN": stash_launches["K2b-cs16"]})
     for key, labels in (("K1f", ("DCCRN", "DCCRN-fused-conv")),
                         ("K2f", ("CRN", "DCCRN-real", "FullSubNet")),
                         ("K3f", ("FullSubNet-GRU",)), ("K4", ("DCCRN-fused-conv",))):
@@ -3130,7 +3422,8 @@ def main() -> int:
     stamp("every check")
     print(smi)
     print(json.dumps({"kernels": [fwd, bwd, k2f, k2b, k3f, k3b, k4, p1, p2, p3,
-                                  k1f16, k1b16, k2f16, k2b16, k3f16, k3b16, k4_16]}))
+                                  k1f16, k1b16, k2f16, k2b16, k3f16, k3b16, k4_16,
+                                  k2f_cs16, k2b_cs16]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -22,7 +22,9 @@ Bb=2056, In=32 and 384, H=384), K4 at the default DCCRN's six encoder
 stages at B=8 (T=483) in both forms, each beside one cuDNN conv in the
 same dtype, P1 (its four gate modes at T=163 and 1028 rows of the sub
 band's first layer), the bf16-stream forms of K2f and K2b at FullSubNet's
-four LSTM layers, and last K3f and K3b, f32 then bf16, at
+four LSTM layers, K2f and K2b with the bf16 cell-state stash and with the
+f32 one at FullSubNet's four LSTM layers (family ``K2-cs16``, which a
+parent without the stash lacks), and last K3f and K3b, f32 then bf16, at
 FullSubNet-GRU's four layers (the same shapes), then the wavefront probe
 P2 (and the two K2 calls it is compared with) at the sub band's two
 layers at B=8 and P3's dots-only at 1956 steps of its 176 x 384 tile, on
@@ -74,7 +76,7 @@ def _hash(*tensors) -> str:
     return m.hexdigest()[:16]
 
 
-FAMILIES = ("K1", "K2", "K4", "P1", "K2-bf16", "K3", "P2", "P3")
+FAMILIES = ("K1", "K2", "K4", "P1", "K2-bf16", "K3", "P2", "P3", "K2-cs16")
 
 
 def main(tag: str, only: str = "") -> dict:
@@ -99,7 +101,8 @@ def main(tag: str, only: str = "") -> dict:
     out = {}
     launches = {}
     for family, run in (("K1", _k1), ("K2", _k2), ("K4", _k4), ("P1", _p1),
-                        ("K2-bf16", _k2_bf16), ("K3", _k3), ("P2", _p2), ("P3", _p3)):
+                        ("K2-bf16", _k2_bf16), ("K2-cs16", _k2_cs16), ("K3", _k3), ("P2", _p2),
+                        ("P3", _p3)):
         if family in wanted:
             launches.update(run(*draws(family), dev, out) or {})
     print("AB", tag, json.dumps(out))
@@ -149,6 +152,27 @@ def _k2_bf16(rng, cots, dev, out):
                                                                     dcT), 3, 1)
             out[f"K2b-bf16 {label}"] = (ms, _hash(*g))
     _k2_bf16_yardsticks(rng, cots, dev, out)
+
+
+def _k2_cs16(rng, cots, dev, out):
+    """K2f and K2b with the bf16 cell-state stash (``cs_dtype=bfloat16``) at
+    FullSubNet's four layers, each beside the same call with the f32 stash
+    (``... cs32`` keys).  A checkout whose K2 has no stash dtype has no such
+    family."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    for label, T, Bb, In, H in FULLSUBNET_LSTM:
+        args = cs._inproj_inputs(rng, dev, T, 1, Bb, In, H)
+        c = cots((T, 1, Bb, H), (1, Bb, H), (1, Bb, H))
+        with torch.no_grad():
+            for tag, dt in (("", bf16), (" cs32", f32)):
+                ys, cs_, hT, cT = k2._forward(*args, need_cs=True, cs_dtype=dt)
+                ms = cuda_ms(lambda: k2._forward(*args, need_cs=True, cs_dtype=dt), 5, 2)
+                out[f"K2f-cs16 {label}{tag}"] = (ms, _hash(ys, cs_, hT, cT))
+                g = k2.fused_lstm_scan_inproj_backward(*args, ys, cs_, *c, cs_dtype=dt)
+                ms = cuda_ms(lambda: k2.fused_lstm_scan_inproj_backward(
+                    *args, ys, cs_, *c, cs_dtype=dt), 3, 1)
+                out[f"K2b-cs16 {label}{tag}"] = (ms, _hash(*g))
+                del ys, cs_, g
 
 
 def _k1(rng, cots, dev, out):

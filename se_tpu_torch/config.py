@@ -4,10 +4,13 @@ An own copy of the JAX package's config dataclasses (``se_tpu/config.py``):
 the same fields, defaults and validity rules for the model families, the
 STFT geometry and training, so a ``Config`` built with the same arguments
 in either package describes the same model.  Of the JAX package's
-accelerator switches only ``use_pallas_conv`` is copied, under its own
-name: here it selects the hand-written encoder conv.  The others (the
-Pallas LSTM switch, conv space-to-depth, rematerialisation) have no meaning
-here and are not copied.  Nor is ``ParallelConfig``: a data-parallel run
+accelerator switches two are copied under their own names:
+``use_pallas_conv`` selects the hand-written encoder conv, and
+``remat_convs`` recomputes DCCRN's encoder and decoder stages in the
+backward (``torch.utils.checkpoint``), trading that recompute for
+activation memory on the card as it did on the TPU.  The others (the
+Pallas LSTM switch, conv space-to-depth) have no meaning here and are not
+copied.  Nor is ``ParallelConfig``: a data-parallel run
 takes its ranks from torchrun's environment (``parallel/mesh.py``), not
 from a config.
 """
@@ -132,6 +135,12 @@ class Config:
     # kernel K4 (ops/fused_conv.py, csrc/complex_conv.cu) instead of
     # cuDNN's block-form conv.  Off by default, as in the JAX package.
     use_pallas_conv: bool = False
+
+    # Rematerialise DCCRN's whole encoder and decoder stages (conv + BN +
+    # PReLU) in the backward pass: only the stages' inputs stay on the card
+    # between the forward and the backward.  Off by default, as in the JAX
+    # package.
+    remat_convs: bool = False
 
     def __post_init__(self):
         checks = (

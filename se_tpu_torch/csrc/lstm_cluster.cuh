@@ -175,12 +175,15 @@ __device__ __forceinline__ void unit_gates_stored(const float* g_s, int u, int r
   }
 }
 
-template <int M, typename TS, bool kProj = true>
+// TC: the storage type of the cell-state stash cs (float, or __nv_bfloat16
+// for K2's bf16 stash: each c rounded to nearest even as it is stored,
+// pallas_lstm.py:335); the carry c itself stays f32 in shared memory.
+template <int M, typename TS, bool kProj = true, typename TC = float>
 __global__ void __launch_bounds__(kThreads)
 lstm_cluster_fwd_kernel(const TS* __restrict__ x, const float* __restrict__ wih_t,
                         const float* __restrict__ bias, const float* __restrict__ whh_t,
                         const float* __restrict__ h0, const float* __restrict__ c0,
-                        TS* __restrict__ ys, float* __restrict__ cs, float* __restrict__ hT,
+                        TS* __restrict__ ys, TC* __restrict__ cs, float* __restrict__ hT,
                         float* __restrict__ cT, int T, int L, int Bb, int In, int H, int R,
                         int N, int C, int resident) {
   extern __shared__ float4 smem4[];
@@ -254,7 +257,7 @@ lstm_cluster_fwd_kernel(const TS* __restrict__ x, const float* __restrict__ wih_
           if (r0 + i < k.rows) {
             const size_t o = (row0 + r0 + i) * H + k.u0 + u;
             store_as(ys + o, hv[i]);
-            if (cs != nullptr) cs[o] = cv[i];
+            if (cs != nullptr) store_as(cs + o, cv[i]);
           }
         }
       }
@@ -276,13 +279,15 @@ lstm_cluster_fwd_kernel(const TS* __restrict__ x, const float* __restrict__ wih_
   }
 }
 
-template <typename TS, bool kProj = true>
+// TC: the stash's storage type, as the forward's; c_t and c_prev at t > 0
+// are read back from it and widened to f32 (pallas_lstm.py:362, :377).
+template <typename TS, bool kProj = true, typename TC = float>
 __global__ void __launch_bounds__(kThreads)
 lstm_cluster_bwd_kernel(const TS* __restrict__ x, const float* __restrict__ wih_t,
                         const float* __restrict__ bias, const float* __restrict__ whh_t,
                         const float* __restrict__ whh_tt, const float* __restrict__ h0,
                         const float* __restrict__ c0, const TS* __restrict__ ys,
-                        const float* __restrict__ cs, const TS* __restrict__ dys,
+                        const TC* __restrict__ cs, const TS* __restrict__ dys,
                         const float* __restrict__ dhT, const float* __restrict__ dcT,
                         float* __restrict__ dh0, float* __restrict__ dc0,
                         float* __restrict__ dg, TS* __restrict__ dxs, int T, int L, int Bb,
@@ -363,8 +368,9 @@ lstm_cluster_bwd_kernel(const TS* __restrict__ x, const float* __restrict__ wih_
             const int r = r0 + i;
             const size_t o = (row0 + r) * H + k.u0 + u;
             const bool in = r < k.rows;
-            k1_c_prev[i] = !in ? 0.f : t > 0 ? cs[o - LBb * H] : c0[(state0 + r) * H + k.u0 + u];
-            k1_c[i] = in ? cs[o] : 0.f;
+            k1_c_prev[i] = !in ? 0.f
+                           : t > 0 ? to_f32(cs[o - LBb * H]) : c0[(state0 + r) * H + k.u0 + u];
+            k1_c[i] = in ? to_f32(cs[o]) : 0.f;
             k1_dy[i] = in ? dys[o] : TS{};
           }
         }
@@ -398,8 +404,8 @@ lstm_cluster_bwd_kernel(const TS* __restrict__ x, const float* __restrict__ wih_
           if constexpr (kProj) {
             if (r < k.rows) {
               const size_t o = (row0 + r) * H + j;
-              c_prev = t > 0 ? cs[o - LBb * H] : c0[(state0 + r) * H + j];
-              c = cs[o];
+              c_prev = t > 0 ? to_f32(cs[o - LBb * H]) : c0[(state0 + r) * H + j];
+              c = to_f32(cs[o]);
               dy = to_f32(dys[o]);
             }
           } else {

@@ -108,6 +108,15 @@
 // its shared-memory or global store (to_f32, store_as in lstm_common.cuh),
 // so the f32 form compiles as if the type were fixed.
 //
+// The bf16 cell-state stash (pallas_lstm.py:32-41, the cs_dtype of
+// _inproj_call, :432-434 and :473) is the storage type of cs alone: the
+// forward rounds each stored c to bf16 (__float2bfloat16_rn, as the Pallas
+// kernel's c.astype(cs_ref.dtype), :335) while its carry, hT and cT stay
+// f32; the backward widens c_t and c_prev at t > 0 from it (:362, :377),
+// c_prev at t = 0 coming from c0 in f32.  It halves the stash's bytes and
+// is independent of the stream's type, so each form has a stash entry
+// (se_lstm_inproj_{fwd,bwd}_{f32,bf16}_cs16) beside its f32-stash one.
+//
 // The bound probe (P1; se_tpu_torch/probes/bound_probe.py, replacing the
 // Pallas kernel of tools/bound_probe.py:43-138) is this forward kernel with
 // its cell update swapped at compile time (the template argument M): the
@@ -123,21 +132,21 @@
 
 namespace {
 
-template <int M, typename TS>
+template <int M, typename TS, typename TC>
 cudaError_t launch_fwd(const TS* x, const float* wih_t, const float* bias, const float* whh_t,
-                       const float* h0, const float* c0, TS* ys, float* cs, float* hT,
+                       const float* h0, const float* c0, TS* ys, TC* cs, float* hT,
                        float* cT, int T, int L, int Bb, int In, int H, int R, int N, int C,
                        int resident, cudaStream_t s) {
   const size_t smem = tiling_smem(false, 4, R, N, C, resident, In, H);
   if (smem == 0) return cudaErrorInvalidValue;
-  return launch_cluster(lstm_cluster_fwd_kernel<M, TS>, N, (Bb + R - 1) / R, L, smem, s, x,
-                        wih_t, bias, whh_t, h0, c0, ys, cs, hT, cT, T, L, Bb, In, H, R, N, C,
-                        resident);
+  return launch_cluster(lstm_cluster_fwd_kernel<M, TS, true, TC>, N, (Bb + R - 1) / R, L, smem,
+                        s, x, wih_t, bias, whh_t, h0, c0, ys, cs, hT, cT, T, L, Bb, In, H, R, N,
+                        C, resident);
 }
 
-template <typename TS>
+template <typename TS, typename TC>
 int inproj_fwd(const TS* x, const float* wih_t, const float* bias, const float* whh_t,
-               const float* h0, const float* c0, TS* ys, float* cs, float* hT, float* cT,
+               const float* h0, const float* c0, TS* ys, TC* cs, float* hT, float* cT,
                int T, int L, int Bb, int In, int H, int R, int N, int C, int resident,
                int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -147,10 +156,10 @@ int inproj_fwd(const TS* x, const float* wih_t, const float* bias, const float* 
                                             static_cast<cudaStream_t>(stream)));
 }
 
-template <typename TS>
+template <typename TS, typename TC>
 int inproj_bwd(const TS* x, const float* wih_t, const float* bias, const float* whh_t,
                const float* whh, const float* h0, const float* c0, const TS* ys,
-               const float* cs, const TS* dys, const float* dhT, const float* dcT, TS* dx,
+               const TC* cs, const TS* dys, const float* dhT, const float* dcT, TS* dx,
                float* dwih_t, float* dbias, float* dwhh_t, float* dh0, float* dc0, float* dg,
                float* ws, int T, int L, int Bb, int In, int H, int R, int N, int C,
                int resident, int ws_floats, int device, void* stream) {
@@ -160,8 +169,8 @@ int inproj_bwd(const TS* x, const float* wih_t, const float* bias, const float* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = tiling_smem(true, 4, R, N, C, resident, In, H);
   if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
-  err = launch_cluster(lstm_cluster_bwd_kernel<TS>, N, (Bb + R - 1) / R, L, smem, s, x, wih_t,
-                       bias, whh_t, whh, h0, c0, ys, cs, dys, dhT, dcT, dh0, dc0, dg,
+  err = launch_cluster(lstm_cluster_bwd_kernel<TS, true, TC>, N, (Bb + R - 1) / R, L, smem, s, x,
+                       wih_t, bias, whh_t, whh, h0, c0, ys, cs, dys, dhT, dcT, dh0, dc0, dg,
                        static_cast<TS*>(nullptr), T, L, Bb, In, H, R, N, C, resident);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t wsf = static_cast<size_t>(ws_floats);
@@ -208,6 +217,30 @@ extern "C" int se_lstm_inproj_fwd_bf16(const __nv_bfloat16* x, const float* wih_
                     resident, device, stream);
 }
 
+// The bf16-stash forwards: as se_lstm_inproj_fwd_f32 and _bf16, with the
+// stash cs (not null) stored as bf16.
+extern "C" int se_lstm_inproj_fwd_f32_cs16(const float* x, const float* wih_t,
+                                           const float* bias, const float* whh_t,
+                                           const float* h0, const float* c0,
+                                           float* ys, __nv_bfloat16* cs, float* hT, float* cT,
+                                           int T, int L, int Bb, int In, int H,
+                                           int R, int N, int C, int resident,
+                                           int device, void* stream) {
+  return inproj_fwd(x, wih_t, bias, whh_t, h0, c0, ys, cs, hT, cT, T, L, Bb, In, H, R, N, C,
+                    resident, device, stream);
+}
+
+extern "C" int se_lstm_inproj_fwd_bf16_cs16(const __nv_bfloat16* x, const float* wih_t,
+                                            const float* bias, const float* whh_t,
+                                            const float* h0, const float* c0,
+                                            __nv_bfloat16* ys, __nv_bfloat16* cs, float* hT,
+                                            float* cT, int T, int L, int Bb, int In, int H,
+                                            int R, int N, int C, int resident,
+                                            int device, void* stream) {
+  return inproj_fwd(x, wih_t, bias, whh_t, h0, c0, ys, cs, hT, cT, T, L, Bb, In, H, R, N, C,
+                    resident, device, stream);
+}
+
 // Launches the bound probe's forward (one stack: x [T, Bb, In], w_ih_t
 // [In, 4H], bias [4H], w_hh_t [H, 4H], h0, c0 [Bb, H] -> ys [T, Bb, H], hT,
 // cT [Bb, H]) with the cell update of `mode` (GateMode: 0 real, 1 bf16
@@ -225,11 +258,12 @@ extern "C" int se_lstm_inproj_probe_f32(const float* x, const float* wih_t,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* const no_cs = nullptr;  // no stash
   switch (mode) {
-    case kReal: return launch_fwd<kReal>(x, wih_t, bias, whh_t, h0, c0, ys, nullptr, hT, cT, T, 1, Bb, In, H, R, N, C, resident, s);
-    case kBf16Gates: return launch_fwd<kBf16Gates>(x, wih_t, bias, whh_t, h0, c0, ys, nullptr, hT, cT, T, 1, Bb, In, H, R, N, C, resident, s);
-    case kPolySwap: return launch_fwd<kPolySwap>(x, wih_t, bias, whh_t, h0, c0, ys, nullptr, hT, cT, T, 1, Bb, In, H, R, N, C, resident, s);
-    case kNoGates: return launch_fwd<kNoGates>(x, wih_t, bias, whh_t, h0, c0, ys, nullptr, hT, cT, T, 1, Bb, In, H, R, N, C, resident, s);
+    case kReal: return launch_fwd<kReal>(x, wih_t, bias, whh_t, h0, c0, ys, no_cs, hT, cT, T, 1, Bb, In, H, R, N, C, resident, s);
+    case kBf16Gates: return launch_fwd<kBf16Gates>(x, wih_t, bias, whh_t, h0, c0, ys, no_cs, hT, cT, T, 1, Bb, In, H, R, N, C, resident, s);
+    case kPolySwap: return launch_fwd<kPolySwap>(x, wih_t, bias, whh_t, h0, c0, ys, no_cs, hT, cT, T, 1, Bb, In, H, R, N, C, resident, s);
+    case kNoGates: return launch_fwd<kNoGates>(x, wih_t, bias, whh_t, h0, c0, ys, no_cs, hT, cT, T, 1, Bb, In, H, R, N, C, resident, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -285,6 +319,41 @@ extern "C" int se_lstm_inproj_bwd_bf16(const __nv_bfloat16* x, const float* wih_
                                        int T, int L, int Bb, int In, int H,
                                        int R, int N, int C, int resident, int ws_floats,
                                        int device, void* stream) {
+  return inproj_bwd(x, wih_t, bias, whh_t, whh, h0, c0, ys, cs, dys, dhT, dcT, dx, dwih_t,
+                    dbias, dwhh_t, dh0, dc0, dg, ws, T, L, Bb, In, H, R, N, C, resident,
+                    ws_floats, device, stream);
+}
+
+// The bf16-stash backwards: as se_lstm_inproj_bwd_f32 and _bf16, with the
+// stash cs read as bf16.
+extern "C" int se_lstm_inproj_bwd_f32_cs16(const float* x, const float* wih_t,
+                                           const float* bias, const float* whh_t,
+                                           const float* whh, const float* h0, const float* c0,
+                                           const float* ys, const __nv_bfloat16* cs,
+                                           const float* dys, const float* dhT,
+                                           const float* dcT, float* dx, float* dwih_t,
+                                           float* dbias, float* dwhh_t, float* dh0,
+                                           float* dc0, float* dg, float* ws,
+                                           int T, int L, int Bb, int In, int H,
+                                           int R, int N, int C, int resident, int ws_floats,
+                                           int device, void* stream) {
+  return inproj_bwd(x, wih_t, bias, whh_t, whh, h0, c0, ys, cs, dys, dhT, dcT, dx, dwih_t,
+                    dbias, dwhh_t, dh0, dc0, dg, ws, T, L, Bb, In, H, R, N, C, resident,
+                    ws_floats, device, stream);
+}
+
+extern "C" int se_lstm_inproj_bwd_bf16_cs16(const __nv_bfloat16* x, const float* wih_t,
+                                            const float* bias, const float* whh_t,
+                                            const float* whh, const float* h0,
+                                            const float* c0, const __nv_bfloat16* ys,
+                                            const __nv_bfloat16* cs,
+                                            const __nv_bfloat16* dys, const float* dhT,
+                                            const float* dcT, __nv_bfloat16* dx,
+                                            float* dwih_t, float* dbias, float* dwhh_t,
+                                            float* dh0, float* dc0, float* dg, float* ws,
+                                            int T, int L, int Bb, int In, int H,
+                                            int R, int N, int C, int resident, int ws_floats,
+                                            int device, void* stream) {
   return inproj_bwd(x, wih_t, bias, whh_t, whh, h0, c0, ys, cs, dys, dhT, dcT, dx, dwih_t,
                     dbias, dwhh_t, dh0, dc0, dg, ws, T, L, Bb, In, H, R, N, C, resident,
                     ws_floats, device, stream);

@@ -14,7 +14,10 @@ encoder convs through the hand-written kernel K4 (``ops/fused_conv.py``);
 and ``compute_dtype="bfloat16"``: the reference's mixed precision
 (parameters f32, each op casting them to its activation dtype), with the
 STFT, the mask, the iSTFT and the real LSTM in f32 and the complex LSTM on
-bf16 streams around an f32 carry.
+bf16 streams around an f32 carry; ``remat_convs``: in a train-mode forward
+with gradients, each encoder and decoder stage is recomputed from its input
+in the backward (``layers.remat``), its BatchNorm's running statistics
+updated once.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from .layers import (
     TorchLinear,
     TorchLSTM,
     complex_cat,
+    remat,
 )
 
 
@@ -79,6 +83,7 @@ class DCCRN(nn.Module):
         self.compute_dtype = torch.bfloat16 if c.compute_dtype == "bfloat16" else torch.float32
         self.masking_mode = c.masking_mode
         self.skip = c.skip_type
+        self.remat = c.remat_convs
         self.real_lstm = c.lstm == "real"
         self.fft_len = c.stft.fft_len
         s = c.stft
@@ -155,9 +160,16 @@ class DCCRN(nn.Module):
         # drop the DC bin; the network runs in the compute dtype from here
         out = torch.stack([real, imag], dim=1)[:, :, 1:].to(self.compute_dtype)
 
+        # remat_convs: each stage (conv + BN + PReLU) recomputed from its input
+        # in the backward (se_tpu/models/dccrn.py:199-210, :252).  Under
+        # --mesh the recompute runs the global BatchNorm's all-reduces
+        # (ops/shard.py) again; every rank recomputes the same stages in the
+        # same order, so the collectives stay matched
+        stage_remat = self.remat and self.training and torch.is_grad_enabled()
+        run = remat if stage_remat else (lambda fn, x: fn(x))
         encoder_out = []
         for stage in self.encoder:
-            out = stage(out)
+            out = run(stage, out)
             encoder_out.append(out)
 
         B, C, D, T = out.shape
@@ -180,7 +192,7 @@ class DCCRN(nn.Module):
         for idx, stage in enumerate(self.decoder):
             if self.skip:
                 out = complex_cat([out, encoder_out[-1 - idx]], 1)
-            out = stage(out)[..., 1:]  # causal time trim per stage
+            out = run(lambda x, stage=stage: stage(x)[..., 1:], out)  # causal time trim per stage
         out = out.float()  # the mask and the iSTFT in f32
 
         mask_real = F.pad(out[:, 0], (0, 0, 1, 0))  # re-pad the DC bin

@@ -35,10 +35,6 @@ class FullSubNet(nn.Module):
     def __init__(self, cfg: Config, *, generator: torch.Generator):
         super().__init__()
         fsn = cfg.fullsubnet
-        if fsn.weight_init:
-            raise NotImplementedError(
-                "FullSubNet weight_init=True is not ported yet (ROADMAP.md, Queue 1 item 14)"
-            )
         self.cfg = cfg
         self.compute_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
         num_freqs = cfg.stft.num_freqs

@@ -9,12 +9,14 @@ initialisation draws from an explicit ``torch.Generator``.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..ops import conv as conv_ops
 from ..ops import rnn as rnn_ops
@@ -46,6 +48,33 @@ class TorchLinear(nn.Module):
         return x @ self.weight.T.to(x.dtype) + self.bias.to(x.dtype)
 
 
+# How many rematerialised forwards are running (remat's recompute in the
+# backward).  A train-mode BatchNorm in one takes its batch statistics again
+# but leaves its running statistics and num_batches_tracked as the first
+# forward left them, as flax's nn.remat discards the recompute's updates.
+_recomputing = 0
+
+
+@contextlib.contextmanager
+def _recompute():
+    global _recomputing
+    _recomputing += 1
+    try:
+        yield
+    finally:
+        _recomputing -= 1
+
+
+def remat(fn, *args):
+    """``fn(*args)`` with nothing of it kept for the backward but ``args``:
+    the backward runs ``fn`` again to recompute its activations
+    (``torch.utils.checkpoint``, non-reentrant), the counterpart of flax's
+    ``nn.remat``.  ``fn`` draws no random numbers."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), _recompute()))
+
+
 class TorchBatchNorm2d(nn.Module):
     """``nn.BatchNorm2d`` semantics: running statistics in eval mode, batch
     statistics and a momentum update of the running buffers in train mode."""
@@ -64,7 +93,7 @@ class TorchBatchNorm2d(nn.Module):
             x, self.weight, self.bias, self.running_mean, self.running_var,
             self.training, self.momentum, self.eps,
         )
-        if self.training:
+        if self.training and not _recomputing:
             with torch.no_grad():
                 self.running_mean.copy_(new_mean)
                 self.running_var.copy_(new_var)
@@ -97,7 +126,7 @@ class ComplexBatchNorm(nn.Module):
         state = ComplexBnState(*(getattr(self, n) for n in ComplexBnState._fields))
         y, new = complex_batch_norm(x, self.Wrr, self.Wri, self.Wii, self.Br, self.Bi, state,
                                     self.training, self.momentum, self.eps)
-        if self.training:
+        if self.training and not _recomputing:
             with torch.no_grad():
                 for name, value in zip(ComplexBnState._fields, new):
                     getattr(self, name).copy_(value)

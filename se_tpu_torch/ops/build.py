@@ -101,13 +101,13 @@ def check_dtypes(named, stream_dtype) -> None:
             raise TypeError(f"{name} must be {want}, got {t.dtype}")
 
 
-def count_launch(fn, stream_dtype) -> None:
+def count_launch(fn, stream_dtype, form: str = "") -> None:
     """One launch of ``fn``'s kernel: ``fn.launches`` counts the f32 form,
-    ``fn.launches_bf16`` the bf16-stream form."""
-    if stream_dtype == torch.bfloat16:
-        fn.launches_bf16 += 1
-    else:
-        fn.launches += 1
+    ``fn.launches_bf16`` the bf16-stream form; a ``form`` suffix (K2's
+    bf16 cell-state stash: ``"_cs16"``) counts on ``fn.launches<form>`` and
+    ``fn.launches_bf16<form>``."""
+    attr = ("launches_bf16" if stream_dtype == torch.bfloat16 else "launches") + form
+    setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def cuda_launch(lib, fn_name, tensors, names, outs, dims, dev, dtypes=None):

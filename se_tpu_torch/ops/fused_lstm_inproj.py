@@ -18,17 +18,44 @@ gate math, the stash and the weight and bias gradients stay f32
 (``pallas_lstm.py:318-321``).  The plain versions take the form from
 ``x``'s dtype; each kernel form has its own C entry and its own launch
 count (``launches``, ``launches_bf16``).
+
+The cell-state stash is f32, or bf16 where ``cs_dtype`` (a keyword of
+:func:`fused_lstm_scan_inproj` and of its backward) or, by default,
+:data:`CS_STASH_DTYPE` says so, as the Pallas kernel's ``cs_dtype``
+(``pallas_lstm.py:32-41``, ``:432-434``).  In bf16 each stored ``c`` is
+rounded to nearest even; the carry, ``cT`` and ``c_prev`` at t = 0 (from
+``c0``) stay f32, and the backward reads ``c_t`` and ``c_prev`` at t > 0
+back from the rounded stash.  The stash entries count on
+``launches_cs16`` and ``launches_bf16_cs16``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
 from . import build
 from .cluster_plan import MAX_SMEM, Plan, cell_threads, smem_bytes  # noqa: F401 (K2's tiling)
 from .cluster_plan import plan as _cluster_plan
+
+# Storage dtype of the cell-state stash that a call with gradients writes
+# for its backward, read at import from the variable the JAX package reads:
+# SE_TPU_LSTM_CS_STASH=bfloat16 halves the stash's bytes; anything else
+# keeps it f32 (the default: gradients bit-stable).
+CS_STASH_DTYPE = (
+    torch.bfloat16 if os.environ.get("SE_TPU_LSTM_CS_STASH") == "bfloat16" else torch.float32
+)
+# the suffix of a stash form's C entry and launch count
+_STASH_FORMS = {torch.float32: "", torch.bfloat16: "_cs16"}
+
+
+def _stash_dtype(cs_dtype):
+    cs_dtype = CS_STASH_DTYPE if cs_dtype is None else cs_dtype
+    if cs_dtype not in _STASH_FORMS:
+        raise TypeError(f"the cell-state stash must be float32 or bfloat16, got {cs_dtype}")
+    return cs_dtype
 
 
 def plan(Bb: int, In: int, H: int, backward: bool = False) -> Plan:
@@ -56,8 +83,9 @@ def _gates(x_t, w_ih_t, bias, h, w_hh_t):
     return torch.bmm(x_t, w_ih_t) + torch.bmm(h, w_hh_t) + bias[:, None, :]
 
 
-def _reference_forward(x, w_ih_t, bias, w_hh_t, h0, c0, need_cs):
-    """The plain recurrence -> ``(ys, cs or None, hT, cT)``."""
+def _reference_forward(x, w_ih_t, bias, w_hh_t, h0, c0, need_cs, cs_dtype=torch.float32):
+    """The plain recurrence -> ``(ys, cs or None, hT, cT)``, the stash in
+    ``cs_dtype`` (each f32 ``c`` rounded to it; the carry stays f32)."""
     H = h0.shape[-1]
     h, c = h0.float(), c0.float()
     w_ih, w_hh, b = w_ih_t.float(), w_hh_t.float(), bias.float()
@@ -72,7 +100,7 @@ def _reference_forward(x, w_ih_t, bias, w_hh_t, h0, c0, need_cs):
         h = o * torch.tanh(c)
         ys.append(h.to(x.dtype))
         if need_cs:
-            cs.append(c)
+            cs.append(c.to(cs_dtype))
     return torch.stack(ys), torch.stack(cs) if need_cs else None, h, c
 
 
@@ -88,9 +116,9 @@ def fused_lstm_scan_inproj_reference(x, w_ih_t, bias, w_hh_t, h0, c0):
 def fused_lstm_scan_inproj_backward_reference(x, w_ih_t, bias, w_hh_t, h0, c0,
                                               ys, cs, dys, dhT, dcT):
     """The plain backward, step by step as the Pallas ``_bwd_inproj_kernel``:
-    the forward's inputs, its ``ys`` and stash ``cs [T, L, Bb, H]``, and
-    the cotangents of ``(ys, hT, cT)`` -> ``(dx, dw_ih_t, dbias, dw_hh_t,
-    dh0, dc0)``."""
+    the forward's inputs, its ``ys`` and stash ``cs [T, L, Bb, H]`` (f32 or
+    bf16, widened as it is read), and the cotangents of ``(ys, hT, cT)`` ->
+    ``(dx, dw_ih_t, dbias, dw_hh_t, dh0, dc0)``."""
     T = x.shape[0]
     H = h0.shape[-1]
     w_ih, w_hh, b = w_ih_t.float(), w_hh_t.float(), bias.float()
@@ -101,13 +129,13 @@ def fused_lstm_scan_inproj_backward_reference(x, w_ih_t, bias, w_hh_t, h0, c0,
     for t in range(T - 1, -1, -1):
         x_t = x[t].float()
         h_prev = h0 if t == 0 else ys[t - 1].float()
-        c_prev = c0 if t == 0 else cs[t - 1]
+        c_prev = c0 if t == 0 else cs[t - 1].float()
         gates = _gates(x_t, w_ih, b, h_prev, w_hh)
         i = torch.sigmoid(gates[..., 0 * H : 1 * H])
         f = torch.sigmoid(gates[..., 1 * H : 2 * H])
         g = torch.tanh(gates[..., 2 * H : 3 * H])
         o = torch.sigmoid(gates[..., 3 * H : 4 * H])
-        tanh_c = torch.tanh(cs[t])
+        tanh_c = torch.tanh(cs[t].float())
         dh = dys[t].float() + dh
         do = dh * tanh_c * o * (1.0 - o)
         dc = dc + dh * o * (1.0 - tanh_c * tanh_c)
@@ -152,11 +180,12 @@ def _library():
     lib = build.load("lstm_inproj")
     if lib.se_lstm_inproj_fwd_f32.argtypes is None:
         for form in build.STREAM_FORMS.values():
-            fwd = getattr(lib, f"se_lstm_inproj_fwd_{form}")
-            bwd = getattr(lib, f"se_lstm_inproj_bwd_{form}")
-            fwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-            bwd.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-            fwd.restype = bwd.restype = ctypes.c_int
+            for stash in _STASH_FORMS.values():
+                fwd = getattr(lib, f"se_lstm_inproj_fwd_{form}{stash}")
+                bwd = getattr(lib, f"se_lstm_inproj_bwd_{form}{stash}")
+                fwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+                bwd.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+                fwd.restype = bwd.restype = ctypes.c_int
         lib.se_lstm_inproj_active_clusters.argtypes = [ctypes.c_int] * 8
         lib.se_lstm_inproj_active_clusters.restype = ctypes.c_int
     return lib
@@ -165,41 +194,49 @@ def _library():
 _INPUTS = ("x", "w_ih_t", "bias", "w_hh_t", "h0", "c0")
 
 
-def _forward(x, w_ih_t, bias, w_hh_t, h0, c0, need_cs):
-    """``(ys, cs or None, hT, cT)``: the plain version for CPU tensors, the
-    forward kernel for CUDA tensors (counted on ``fused_lstm_scan_inproj``)."""
+def _forward(x, w_ih_t, bias, w_hh_t, h0, c0, need_cs, cs_dtype=None):
+    """``(ys, cs or None, hT, cT)``, the stash in ``cs_dtype`` (None:
+    :data:`CS_STASH_DTYPE`): the plain version for CPU tensors, the forward
+    kernel for CUDA tensors (counted on ``fused_lstm_scan_inproj``, a bf16
+    stash on ``launches_cs16`` or ``launches_bf16_cs16``)."""
+    cs_dtype = _stash_dtype(cs_dtype)
     dev = x.device
     if dev.type == "cpu":
-        return _reference_forward(x, w_ih_t, bias, w_hh_t, h0, c0, need_cs)
+        return _reference_forward(x, w_ih_t, bias, w_hh_t, h0, c0, need_cs, cs_dtype)
     T, L, Bb, In = x.shape
     H = h0.shape[-1]
     sdt, f32 = x.dtype, torch.float32
     new = lambda *shape: torch.empty(shape, device=dev, dtype=f32)
     ys = torch.empty((T, L, Bb, H), device=dev, dtype=sdt)
     hT, cT = new(L, Bb, H), new(L, Bb, H)
-    cs = new(T, L, Bb, H) if need_cs else None
+    # no stash, no stash form: the inference launch is the f32-stash entry's
+    stash = _STASH_FORMS[cs_dtype] if need_cs else ""
+    cs = torch.empty((T, L, Bb, H), device=dev, dtype=cs_dtype) if need_cs else None
     build.cuda_launch(
-        _library(), f"se_lstm_inproj_fwd_{build.STREAM_FORMS[sdt]}",
+        _library(), f"se_lstm_inproj_fwd_{build.STREAM_FORMS[sdt]}{stash}",
         (x, w_ih_t, bias, w_hh_t, h0, c0), _INPUTS, (ys, cs, hT, cT),
         (T, L, Bb, In, H, *plan(Bb, In, H).args()), dev, (sdt,) + (f32,) * 5,
     )
-    build.count_launch(fused_lstm_scan_inproj, sdt)
+    build.count_launch(fused_lstm_scan_inproj, sdt, stash)
     return ys, cs, hT, cT
 
 
-def fused_lstm_scan_inproj_backward(x, w_ih_t, bias, w_hh_t, h0, c0, ys, cs, dys, dhT, dcT):
+def fused_lstm_scan_inproj_backward(x, w_ih_t, bias, w_hh_t, h0, c0, ys, cs, dys, dhT, dcT,
+                                    cs_dtype=None):
     """Same signature and result as
     :func:`fused_lstm_scan_inproj_backward_reference`; a cotangent given as
-    None counts as zeros.
+    None counts as zeros.  ``cs`` must be in ``cs_dtype`` (None:
+    :data:`CS_STASH_DTYPE`), float32 or bfloat16.
 
     CPU tensors run the plain version.  CUDA tensors launch the backward
     kernels (the reverse scan on :func:`plan`'s tiling, then the
     deterministic dx product and dW_ih, dW_hh and dbias reductions over an
     f32 ``[T, L, Bb, 4H]`` dgates scratch buffer) on the current stream, or
     raise: contiguous only; x, ys and dys all
-    float32 or all bfloat16 (then dx is bfloat16 too), the rest float32.
-    Each call that launches adds one to
-    ``fused_lstm_scan_inproj_backward.launches`` (f32) or ``.launches_bf16``.
+    float32 or all bfloat16 (then dx is bfloat16 too), the rest float32
+    but the stash.  Each call that launches adds one to
+    ``fused_lstm_scan_inproj_backward.launches`` (f32) or ``.launches_bf16``,
+    with a bf16 stash to ``.launches_cs16`` or ``.launches_bf16_cs16``.
     """
     _check(x, w_ih_t, bias, w_hh_t, h0, c0)
     T, L, Bb, In = x.shape
@@ -216,7 +253,11 @@ def fused_lstm_scan_inproj_backward(x, w_ih_t, bias, w_hh_t, h0, c0, ys, cs, dys
     for name, t, shape, _ in named:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    build.check_dtypes([(n, t, s) for n, t, _, s in named], sdt)
+    build.check_dtypes([(n, t, s) for n, t, _, s in named if n != "cs"], sdt)
+    cs_dtype = _stash_dtype(cs_dtype)
+    if cs.dtype != cs_dtype:
+        raise TypeError(f"cs must be {cs_dtype}, got {cs.dtype}")
+    stash = _STASH_FORMS[cs_dtype]
     dev = x.device
     if dev.type == "cpu":
         return fused_lstm_scan_inproj_backward_reference(
@@ -230,14 +271,14 @@ def fused_lstm_scan_inproj_backward(x, w_ih_t, bias, w_hh_t, h0, c0, ys, cs, dys
     # [L, 4H, H], read only by the dh pass of a streamed slice (else unread)
     w_hh = w_hh_t if tiling.resident else w_hh_t.transpose(1, 2).contiguous()
     build.cuda_launch(
-        _library(), f"se_lstm_inproj_bwd_{build.STREAM_FORMS[sdt]}",
+        _library(), f"se_lstm_inproj_bwd_{build.STREAM_FORMS[sdt]}{stash}",
         (x, w_ih_t, bias, w_hh_t, w_hh, h0, c0, ys, cs, dys, dhT, dcT),
         ("x", "w_ih_t", "bias", "w_hh_t", "w_hh", "h0", "c0", "ys", "cs", "dys", "dhT", "dcT"),
         (dx, dw_ih, db, dw_hh, dh0, dc0, scratch, build.dw_workspace(dev)),
         (T, L, Bb, In, H, *tiling.args(), build.DW_WORKSPACE_FLOATS),
-        dev, (sdt,) + (f32,) * 6 + (sdt, f32, sdt, f32, f32),
+        dev, (sdt,) + (f32,) * 6 + (sdt, cs_dtype, sdt, f32, f32),
     )
-    build.count_launch(fused_lstm_scan_inproj_backward, sdt)
+    build.count_launch(fused_lstm_scan_inproj_backward, sdt, stash)
     return dx, dw_ih, db, dw_hh, dh0, dc0
 
 
@@ -245,23 +286,25 @@ class _FusedLstmScanInproj(torch.autograd.Function):
     """The custom VJP of ``pallas_lstm.fused_lstm_scan_inproj``: the forward
     keeps ``(x, w_ih_t, bias, w_hh_t, h0, c0, ys, cs)``; the backward maps
     ``(dys, dhT, dcT)``, zeros where an output was unused, to the six input
-    gradients."""
+    gradients (and None for ``cs_dtype``)."""
 
     @staticmethod
-    def forward(ctx, x, w_ih_t, bias, w_hh_t, h0, c0):
-        ys, cs, hT, cT = _forward(x, w_ih_t, bias, w_hh_t, h0, c0, need_cs=True)
+    def forward(ctx, x, w_ih_t, bias, w_hh_t, h0, c0, cs_dtype):
+        ys, cs, hT, cT = _forward(x, w_ih_t, bias, w_hh_t, h0, c0, True, cs_dtype)
         ctx.save_for_backward(x, w_ih_t, bias, w_hh_t, h0, c0, ys, cs)
+        ctx.cs_dtype = cs_dtype
         return ys, hT, cT
 
     @staticmethod
     def backward(ctx, dys, dhT, dcT):
         cont = lambda t: None if t is None else t.contiguous()
-        return fused_lstm_scan_inproj_backward(
-            *ctx.saved_tensors, cont(dys), cont(dhT), cont(dcT)
+        grads = fused_lstm_scan_inproj_backward(
+            *ctx.saved_tensors, cont(dys), cont(dhT), cont(dcT), cs_dtype=ctx.cs_dtype
         )
+        return (*grads, None)
 
 
-def fused_lstm_scan_inproj(x, w_ih_t, bias, w_hh_t, h0, c0):
+def fused_lstm_scan_inproj(x, w_ih_t, bias, w_hh_t, h0, c0, *, cs_dtype=None):
     """Same signature and result as :func:`fused_lstm_scan_inproj_reference`.
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel on
@@ -269,18 +312,20 @@ def fused_lstm_scan_inproj(x, w_ih_t, bias, w_hh_t, h0, c0):
     (the bf16-stream form: ys bfloat16), the rest float32.  Each launch adds
     one to ``fused_lstm_scan_inproj.launches`` (f32) or ``.launches_bf16``.
     When gradients are on
-    and an input requires one, the call also writes the cell-state stash
-    and its backward is :func:`fused_lstm_scan_inproj_backward`; otherwise
-    no stash is allocated.
+    and an input requires one, the call also writes the cell-state stash,
+    in ``cs_dtype`` (None: :data:`CS_STASH_DTYPE`), and its backward is
+    :func:`fused_lstm_scan_inproj_backward`; otherwise no stash is
+    allocated.
     """
     args = (x, w_ih_t, bias, w_hh_t, h0, c0)
     _check(*args)
+    cs_dtype = _stash_dtype(cs_dtype)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        ys, hT, cT = _FusedLstmScanInproj.apply(*args)
+        ys, hT, cT = _FusedLstmScanInproj.apply(*args, cs_dtype)
         return ys, (hT, cT)
     ys, _, hT, cT = _forward(*args, need_cs=False)
     return ys, (hT, cT)
 
 
-fused_lstm_scan_inproj.launches = fused_lstm_scan_inproj.launches_bf16 = 0
-fused_lstm_scan_inproj_backward.launches = fused_lstm_scan_inproj_backward.launches_bf16 = 0
+for _fn in (fused_lstm_scan_inproj, fused_lstm_scan_inproj_backward):
+    _fn.launches = _fn.launches_bf16 = _fn.launches_cs16 = _fn.launches_bf16_cs16 = 0

@@ -9,9 +9,10 @@ offline norms' statistics to the first ``valid_frames`` frames; the
 cumulative norms are causal prefix statistics and ignore it.  Their
 chunk-carry forms (``cumulative_*_norm_carry``, chosen by
 ``stream_norm_wrapper``) normalise a stream chunk by chunk, carrying the
-running sums and the entry count.  The forgetting-EMA norms are not in
-``norm_wrapper``'s table and are not ported yet (ROADMAP.md, Queue 1 item
-14).
+running sums and the entry count.  The forgetting-EMA norms
+(``forgetting_norm``, ``sband_forgetting_norm``, ``hybrid_norm``) take
+``[B, F, T]`` and, as in the JAX package, are exported but not in
+``norm_wrapper``'s table.
 """
 
 from __future__ import annotations
@@ -240,6 +241,67 @@ def cumulative_layer_norm(x: torch.Tensor, valid_frames=None) -> torch.Tensor:
     cum_std = (cum_var + EPSILON).sqrt()
     out = (xr - cum_mean[:, None, :].to(x.dtype)) / cum_std[:, None, :].to(x.dtype)
     return out.reshape(B, C, F, T)
+
+
+# -- the forgetting-EMA norms (tools_for_model.py:881-994) ------------------
+#
+# mu_t = alp_t mu_{t-1} + (1 - alp_t) stat_t from mu_{-1} = 0, with the
+# reference's warm-up quirk alp_t = min((t - 1) / (t + 1), alpha) for t <
+# sample_length: alp_0 = -1 (so mu_0 = 2 stat_0) and alp_1 = 0.  A closed
+# form through the cumulative product of alp would divide by alp_1 = 0, so
+# this is the plain loop over frames, as the JAX package's scan.
+
+
+def _forgetting_alpha(x: torch.Tensor, sample_length: int) -> torch.Tensor:
+    """``alp_t`` over the ``T`` frames of ``x [B, F, T]``, in its dtype."""
+    alpha = torch.tensor((sample_length - 1) / (sample_length + 1), dtype=x.dtype,
+                         device=x.device)
+    t = torch.arange(x.shape[2], device=x.device, dtype=x.dtype)
+    return torch.where(t < sample_length, torch.minimum((t - 1) / (t + 1), alpha), alpha)
+
+
+def _ema_mu(stat: torch.Tensor, alp: torch.Tensor) -> torch.Tensor:
+    """``[B, T]`` frame statistics and ``[T]`` forgetting factors -> ``[B, T]``
+    EMA means."""
+    mu = torch.zeros_like(stat[:, 0])
+    out = []
+    for t in range(stat.shape[1]):
+        mu = alp[t] * mu + (1 - alp[t]) * stat[:, t]
+        out.append(mu)
+    return torch.stack(out, dim=1)
+
+
+def forgetting_norm(x: torch.Tensor, sample_length: int) -> torch.Tensor:
+    """``[B, F, T]`` divided by the EMA of each frame's mean over
+    frequencies (the warm-up quirk above; alpha after ``sample_length``
+    frames)."""
+    alp = _forgetting_alpha(x, sample_length)
+    mu = _ema_mu(x.mean(dim=1), alp)
+    return x / (mu[:, None, :] + 1e-10)
+
+
+def sband_forgetting_norm(x: torch.Tensor, train_sample_length: int) -> torch.Tensor:
+    """As :func:`forgetting_norm`, but after the warm-up the statistic is the
+    value of bin ``F // 2 - 1``."""
+    B, F, T = x.shape
+    alp = _forgetting_alpha(x, train_sample_length)
+    warm = torch.arange(T, device=x.device) < train_sample_length
+    stat = torch.where(warm[None, :], x.mean(dim=1), x[:, F // 2 - 1, :])
+    mu = _ema_mu(stat, alp)
+    return x / (mu[:, None, :] + 1e-10)
+
+
+def hybrid_norm(x: torch.Tensor, sample_length: int = 192) -> torch.Tensor:
+    """The EMA of the frequency mean during the first ``sample_length``
+    frames, the cumulative mean over frequencies and frames after."""
+    B, F, T = x.shape
+    alp = _forgetting_alpha(x, sample_length)
+    mu_warm = _ema_mu(x.mean(dim=1), alp)
+    entry_count = torch.arange(F, F * T + 1, F, device=x.device, dtype=x.dtype)[None, :]
+    cum_mean = x.sum(dim=1).cumsum(dim=-1) / entry_count
+    t = torch.arange(T, device=x.device)
+    mu = torch.where(t[None, :] < sample_length, mu_warm, cum_mean)
+    return x / (mu[:, None, :] + 1e-10)
 
 
 # -- chunk-carry forms of the cumulative norms (stream inference) ----------

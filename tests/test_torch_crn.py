@@ -168,7 +168,7 @@ def test_inproj_wrapper_on_cpu_runs_plain_without_counting(monkeypatch):
     real = fused_lstm_inproj._reference_forward
 
     def spy(*a):
-        asked.append(a[-1])  # need_cs
+        asked.append(a[6])  # need_cs, after the six inputs
         return real(*a)
 
     monkeypatch.setattr(fused_lstm_inproj, "_reference_forward", spy)

@@ -543,13 +543,16 @@ def test_fullsubnet_entry_points_default_to_cuda(tiny, tmp_path):
 
 
 def test_pieces_left_out_raise():
-    """weight_init=True, the EMA norms (not in ``norm_wrapper``'s table) and
-    FullSubNet with a perceptual loss each raise; the first names its
-    ROADMAP item.  (bf16 is ported: tests/test_torch_fullsubnet_bf16.py.)"""
+    """The EMA norms (not in ``norm_wrapper``'s table, as in the JAX package)
+    and FullSubNet with a perceptual loss raise.  weight_init=True, once
+    left out, builds: it redraws the weights
+    (tests/test_torch_fsn_extras.py holds it to the reference's table; bf16
+    is ported: tests/test_torch_fullsubnet_bf16.py)."""
     _, cfg = _cfgs("GRU")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        build_model(cfg.replace(fullsubnet=FullSubNetConfig(**TINY_FSN, weight_init=True)),
-                    device="cpu")
+    wi = build_model(cfg.replace(fullsubnet=FullSubNetConfig(**TINY_FSN, weight_init=True)),
+                     device="cpu").state_dict()
+    plain = build_model(cfg, device="cpu").state_dict()
+    assert wi.keys() == plain.keys() and all(not torch.equal(wi[k], plain[k]) for k in wi)
     with pytest.raises(NotImplementedError):
         norms.norm_wrapper("forgetting_norm")
     with pytest.raises(ValueError, match="perceptual"):

@@ -159,15 +159,37 @@ def test_loop_matches_jax_over_two_epochs(runs):
     np.testing.assert_allclose(total / len(VALID), jva[-1]["loss"], rtol=1e-4)
 
 
-def _shape(text):
-    """A file's text with each number replaced by its digit count after the
-    point, so two files compare by format."""
-    return re.sub(r"-?\d+(\.(\d+))?", lambda m: f"<{len(m.group(2) or '')}>", text)
+_NUMBER = r"-?\d+(?:\.\d+)?(?:e[-+]\d+)?"
+# Each line of Epoch_N_SCORES and of log.txt after its date: its text with
+# {} for each number, and the format each number is written with
+# (se_tpu/train/loop.py and se_tpu_torch/train/loop.py alike)
+_LINE_FORMATS = (
+    ("PESQ {} | STOI {}", (".6f", ".6f")),
+    ("total params   : {} ({} M, {} MBytes)", ("d", ".2f", ".2f")),
+    ("Epoch [{}] | T {} | V {} takes {} seconds", ("d", ".6f", ".6", ".2f")),
+    ("          | V PESQ: {} | STOI: {} ", (".6f", ".6f")),
+)
+
+
+def _check_format(line):
+    """Assert that ``line`` is one of ``_LINE_FORMATS`` and that each of its
+    numbers is what its field's format writes (re-formats to itself: the
+    general ``.6`` drops trailing zeros, ``.6f`` keeps six decimals);
+    return its text with {} for the numbers."""
+    text = re.sub(_NUMBER, "{}", line)
+    fmts = dict(_LINE_FORMATS).get(text)
+    assert fmts is not None, f"unexpected line {line!r}"
+    numbers = re.findall(_NUMBER, line)
+    for tok, fmt in zip(numbers, fmts):
+        value = int(tok) if fmt == "d" else float(tok)
+        assert format(value, fmt) == tok, (line, tok, fmt)
+    return text
 
 
 def test_run_directory_artifacts_and_formats_match_jax(runs, tmp_path):
     """The port's run directory holds the reference's artifacts; its
-    ``Epoch_N_SCORES`` lines and epoch lines have the JAX loop's format (and
+    ``Epoch_N_SCORES`` lines and epoch lines have the JAX loop's text, each
+    number as its field's format writes it (and
     scores within 1e-4 of its, from the same fake scorer), and
     ``chkpt_opt.pt`` is the epoch of least validation loss."""
     pt, jt = runs["port"], runs["jax"]
@@ -182,7 +204,8 @@ def test_run_directory_artifacts_and_formats_match_jax(runs, tmp_path):
         got = open(os.path.join(d, name)).read()
         want = open(os.path.join(jt.dir_to_save, name)).read()
         assert len(got.splitlines()) == len(VALID)
-        assert _shape(got) == _shape(want)
+        for a, b in zip(got.splitlines(), want.splitlines()):
+            assert _check_format(a) == _check_format(b), (a, b)
         g = np.array(re.findall(r"-?\d+\.\d+", got), float)
         np.testing.assert_allclose(g, np.array(re.findall(r"-?\d+\.\d+", want), float),
                                    atol=1e-4)
@@ -191,7 +214,7 @@ def test_run_directory_artifacts_and_formats_match_jax(runs, tmp_path):
     assert len(log) == len(jlog) == 6
     assert log[1].startswith("total params   : ")
     for a, b in zip(log[1:], jlog[1:]):
-        assert _shape(a) == _shape(b), (a, b)
+        assert _check_format(a) == _check_format(b), (a, b)
     best = int(np.argmin(runs["pmse"])) + 1
     blob = torch.load(os.path.join(d, "chkpt_opt.pt"), weights_only=True)
     assert blob["epoch"] == best and set(blob) == {"model", "optimizer", "epoch"}
