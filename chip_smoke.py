@@ -21,9 +21,11 @@ in order; any failure ends the run with a nonzero exit and no result line:
    wide (4H = 2048, In = 257) case, each with the planner's tiling printed
    (clusters, CTAs, rows, the W_hh slice resident or streamed, shared
    bytes), then the in-projection GRU scan's forward (K3f) and
-   backward (K3b) at FullSubNet's four GRU layers (B = 2, 10 and 8) and three
+   backward (K3b) at FullSubNet's four GRU layers (B = 2, 10 and 8) and four
    ragged cases, each with the planner's design printed (thread-block
-   clusters, with their tiling, or the per-block kernel), then the DCCRN
+   clusters, with their tiling; the wave design of 16-row CTAs, with its
+   tiles, waves, ring and the occupancy query's clusters; or the per-block
+   kernel), then the DCCRN
    encoder's fused complex conv (K4) at its six
    stages (B = 10 and 8) and a ragged case, with one cuDNN conv beside it;
    the bf16-stream forms of K1 (DCCRN's enhance and train shapes) and K2
@@ -31,7 +33,7 @@ in order; any failure ends the run with a nonzero exit and no result line:
    cases), each backward held on the
    kernel's own saved ys and cs, with the f32 form's time at the same shape
    and cuDNN's LSTM in bf16 beside them; the bf16 forms of K3 (FullSubNet-
-   GRU's four layers at B = 2, 10 and 8, three ragged cases, each backward
+   GRU's four layers at B = 2, 10 and 8, four ragged cases, each backward
    held on the kernel's own saved ys) and K4 (the six stages at B = 10 and
    8, a ragged case), by the same phases as their f32 forms, with the f32
    form's time and cuDNN's GRU or conv in bf16 beside them (K4's bound at
@@ -1239,7 +1241,8 @@ _FSN_LAYERS = (("fb l0", 1, 257, 512), ("fb l1", 1, 512, 512),
 # the batches of the train paths besides the enhance batch of 8: the card
 # vs CPU step (2) and the 10 steps (the default batch, 10).  At B=10 the
 # last row tile is partial: 10 rows in tiles of 4 at the full band, 2570
-# in tiles of 8 at the sub band (K3), where K3b runs two steps a chunk
+# in tiles of 16 at the sub band (K3's wave design, in two waves); at B=2
+# K3 runs the sub band on its per-block kernel
 _FSN_TRAIN_BATCHES = (2, 10)
 
 
@@ -1300,19 +1303,47 @@ def _cudnn_gru(w_ih_t, b_ih, w_hh_t, b_hh, dev):
 _K3B_NAMES = ("dx", "dw_ih_t", "db_ih", "dw_hh_t", "db_hh", "dh0")
 
 
-def _k3_tiling(Bb, In, H) -> str:
+def _k3_bound(args, ys, backward) -> tuple:
+    """``(bound ms, bound_by, bytes, FLOP)`` of one K3 call on ``args``
+    (x, w_ih_t, b_ih, w_hh_t, b_hh, h0) and its ``ys``.  Forward: read x,
+    the weights and h0, write ys and hT; backward: read x, ys and dys, the
+    weights, h0 and dhT, write dx, the weight gradients and dh0; x, ys, dys
+    and dx in the stream's dtype; the products 2 T Bb (In + H) 3H FLOP a
+    forward, three times that a backward, at the f32 rate."""
+    x, w_ih, b_ih, w_hh, b_hh, h0 = args
+    T, _, Bb, In = x.shape
+    H = h0.shape[-1]
+    n_w = w_ih.numel() + b_ih.numel() + w_hh.numel() + b_hh.numel()
+    s = x.element_size()
+    flops = 2 * T * Bb * (In + H) * 3 * H
+    if backward:
+        n_bytes = s * (2 * x.numel() + 2 * ys.numel()) + 4 * (2 * n_w + 3 * h0.numel())
+        flops *= 3
+    else:
+        n_bytes = s * (x.numel() + ys.numel()) + 4 * (n_w + 2 * h0.numel())
+    return (*_bound(n_bytes, flops), n_bytes, flops)
+
+
+def _k3_tiling(Bb, In, H, L=1) -> str:
     """The planner's design for K3's forward and backward scans at a shape:
     on clusters (clusters x CTAs, rows a cluster, units a CTA, chunk steps,
     shared bytes a CTA, and how many such clusters the card runs at once),
-    or the per-block kernel."""
+    in waves of 16-row CTAs (tiles, clusters of N, waves, ring slabs, x's
+    padded rows, shared bytes a CTA and the occupancy query's clusters at
+    once), or the per-block kernel."""
     from se_tpu_torch.ops.fused_gru_inproj import active_clusters, plan
 
     def one(backward):
-        p = plan(Bb, In, H, backward)
-        if not p.cluster:
+        p = plan(Bb, In, H, backward, L)
+        if p.design == "block":
             return "per-block kernel"
+        if p.design == "wave":
+            return (f"wave design, {p.tiles} tiles of {p.R} rows a stack in {p.clusters} clusters "
+                    f"of {p.N} CTAs, {p.waves} wave(s), ring of {p.stages} slabs, In_p={p.In_p}, "
+                    f"Hp={p.Hp}, {p.smem} B, {active_clusters(Bb, In, H, backward, L=L)} "
+                    f"clusters at once")
         return (f"{p.tiles} x {p.N} CTAs, R={p.R}, U={p.U}, resident, C={p.C}, {p.smem} B, "
-                f"{active_clusters(Bb, In, H, backward)} clusters at once")
+                f"{active_clusters(Bb, In, H, backward, L=L)} clusters at once")
 
     return f"forward {one(False)}; backward {one(True)}"
 
@@ -1321,11 +1352,14 @@ def phase_gru_kernels(dtype=torch.float32) -> tuple:
     """fused_gru_scan_inproj (K3f) and its backward (K3b) in the form of the
     stream ``dtype`` against their plain versions, at every shape
     FullSubNet-GRU runs: each of its four layer calls at the train
-    comparison's batch (B=2), the 10 train steps' (B=10) and the enhance
-    batch (B=8), and three ragged cases (Bb not a multiple of the row tile, In
-    odd; one with 4 rows a block, one with 8; one where neither the rows
-    divide by the cluster's tile nor the units by its CTAs), each with the
-    planner's design and tiling printed.  Each backward is held on the
+    comparison's batch (B=2: the sub band on the per-block kernel), the 10
+    train steps' (B=10: the wave design in two waves) and the enhance batch
+    (B=8: the wave design in one), and four ragged cases (Bb not a multiple
+    of the row tile, In odd; three stacks on clusters; 1069 rows at H=64 on
+    the per-block kernel; one where neither the rows divide by the
+    cluster's tile nor the units by its CTAs; two stacks in the wave design,
+    H=200 padded to 224 units), each with the planner's design and tiling
+    printed.  Each backward is held on the
     kernel's own ys; two backward calls bit-identical.  In the bf16-stream
     form x, ys, dys and dx are bf16 (each within one bf16 ulp of its plain
     version); the h carry, the gate math, the scratch and the weight, bias
@@ -1376,7 +1410,7 @@ def phase_gru_kernels(dtype=torch.float32) -> tuple:
         else:
             fwd_ok = e["fwd_abs"] <= KERNEL_TOL
             bf16_part = ""
-        print(f"[{tag}] {label} T={T} L={L} Bb={Bb} In={In} H={H}: {_k3_tiling(Bb, In, H)}; "
+        print(f"[{tag}] {label} T={T} L={L} Bb={Bb} In={In} H={H}: {_k3_tiling(Bb, In, H, L)}; "
               f"forward max |kernel - plain| "
               f"{e['fwd_abs']} (tolerance {KERNEL_TOL}); backward max |kernel - plain| / "
               f"max |plain| {rel} (tolerance {BWD_REL_TOL}), max abs {e['bwd_abs']}{bf16_part}")
@@ -1387,7 +1421,8 @@ def phase_gru_kernels(dtype=torch.float32) -> tuple:
         return args, ys, cots, e
 
     for case in (("ragged", 9, 3, 5, 33, 32), ("ragged 8-row tiles", 9, 1, 1069, 33, 64),
-                 ("ragged tiles and units", 7, 2, 37, 20, 44)):
+                 ("ragged tiles and units", 7, 2, 37, 20, 44),
+                 ("ragged wave, two stacks", 5, 2, 600, 20, 200)):
         check(*case)
     print(f"[{tag}] every case: two backward calls bit-identical")
 
@@ -1398,7 +1433,10 @@ def phase_gru_kernels(dtype=torch.float32) -> tuple:
     per_layer, lib_dtype = {}, None
     for label, per_utt, In, H in _FSN_LAYERS:
         for B in _FSN_TRAIN_BATCHES:
-            check(f"{label} B={B}", T, 1, B * per_utt, In, H)
+            args, ys, _, _ = check(f"{label} B={B}", T, 1, B * per_utt, In, H)
+            print(f"[{tag}] {label} B={B}: bound forward {_k3_bound(args, ys, False)[0]} ms, "
+                  f"backward {_k3_bound(args, ys, True)[0]} ms")
+            del args, ys
         args, ys, cots, e = check(f"{label} B=8", T, 1, 8 * per_utt, In, H)
         worst.update({k: max(worst[k], e[k]) for k in ("fwd_abs", "bwd_abs", "bwd_rel")})
         if bf16:
@@ -1431,19 +1469,10 @@ def phase_gru_kernels(dtype=torch.float32) -> tuple:
             [_cudnn_gru(w_ih, b_ih, w_hh, b_hh, dev)], [(x[:, 0], h0)],
             [(cots[0][:, 0], cots[1])], dtypes=(dtype, torch.float32) if bf16 else (dtype,))
         t["fwd"]["library_ms"], t["bwd"]["library_ms"] = lib_f, lib_b
-        Bb, G = x.shape[2], 3 * H
-        n_w = w_ih.numel() + b_ih.numel() + w_hh.numel() + b_hh.numel()
-        s = x.element_size()
-        # forward: read x, the weights and h0, write ys and hT; backward:
-        # read x, ys and dys, the weights, h0 and dhT, write dx, the weight
-        # gradients and dh0; x, ys, dys and dx in the stream's dtype
-        t["fwd"]["bytes"] = s * (x.numel() + ys.numel()) + 4 * (n_w + 2 * h0.numel())
-        t["fwd"]["flops"] = 2 * T * Bb * (In + H) * G
-        t["bwd"]["bytes"] = s * (2 * x.numel() + 2 * ys.numel()) + 4 * (2 * n_w + 3 * h0.numel())
-        t["bwd"]["flops"] = 3 * 2 * T * Bb * (In + H) * G
         for kind in t:
-            t[kind]["bound_ms"] = _bound(t[kind]["bytes"], t[kind]["flops"])[0]
-            t[kind]["design"] = "cluster" if k3.plan(Bb, In, H, kind == "bwd").cluster else "block"
+            t[kind]["bound_ms"], _, t[kind]["bytes"], t[kind]["flops"] = _k3_bound(
+                args, ys, kind == "bwd")
+            t[kind]["design"] = k3.plan(x.shape[2], In, H, kind == "bwd").design
         per_layer[label] = t
         for kind in tot:
             for k in keys:

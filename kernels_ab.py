@@ -25,7 +25,8 @@ band's first layer), the bf16-stream forms of K2f and K2b at FullSubNet's
 four LSTM layers, K2f and K2b with the bf16 cell-state stash and with the
 f32 one at FullSubNet's four LSTM layers (family ``K2-cs16``, which a
 parent without the stash lacks), and last K3f and K3b, f32 then bf16, at
-FullSubNet-GRU's four layers (the same shapes), then the wavefront probe
+FullSubNet-GRU's four layers (the same shapes) and its sub band at B=10
+(Bb=2570), then the wavefront probe
 P2 (and the two K2 calls it is compared with) at the sub band's two
 layers at B=8 and P3's dots-only at 1956 steps of its 176 x 384 tile, on
 inputs drawn from a fixed seed.  Beside K3 at each layer it times cuDNN's
@@ -35,9 +36,12 @@ forward), and beside K2-bf16 at the two l1 layers cuDNN's bf16
 {kernel: [ms, sha256 of its outputs or null]}``: equal hashes mean equal
 bits; then ``LAUNCHES <tag> {layer: [[kernel, us], ...]}``, each launch
 of one f32 K3b call at each layer in order (torch.profiler, the least of
-three calls), and, where the checkout's K3 has two designs
-(``fused_gru_inproj.plan``'s ``cluster``), each design's time and hash at
-each layer and form under ``K3f ... [cluster]`` and ``[block]`` keys.
+three calls), and each design of the checkout's K3 forced at each layer
+and form, its time and hash under ``K3f ... [cluster]``, ``[block]`` and,
+where the checkout has it, ``[wave]`` keys.  The family ``K3-sweep`` times
+K3f and K3b in the per-block and the wave design at every sub-band shape
+the paths launch (B = 1 to 10, a stream's chunk, the ragged H = 64 case;
+``K3_SWEEP``) beside the design the planner takes there.
 ``families`` (comma-separated, of ``FAMILIES``) limits the run to those;
 each family draws its inputs from its own generator, so a family's
 hashes are the same in a run of some families as in a run of all.
@@ -76,7 +80,7 @@ def _hash(*tensors) -> str:
     return m.hexdigest()[:16]
 
 
-FAMILIES = ("K1", "K2", "K4", "P1", "K2-bf16", "K3", "P2", "P3", "K2-cs16")
+FAMILIES = ("K1", "K2", "K4", "P1", "K2-bf16", "K3", "P2", "P3", "K2-cs16", "K3-sweep")
 
 
 def main(tag: str, only: str = "") -> dict:
@@ -102,7 +106,7 @@ def main(tag: str, only: str = "") -> dict:
     launches = {}
     for family, run in (("K1", _k1), ("K2", _k2), ("K4", _k4), ("P1", _p1),
                         ("K2-bf16", _k2_bf16), ("K2-cs16", _k2_cs16), ("K3", _k3), ("P2", _p2),
-                        ("P3", _p3)):
+                        ("P3", _p3), ("K3-sweep", _k3_sweep)):
         if family in wanted:
             launches.update(run(*draws(family), dev, out) or {})
     print("AB", tag, json.dumps(out))
@@ -314,28 +318,51 @@ def _kernel_launches(fn, reps: int = 3) -> list:
     return [[f"{n} x{count / reps:g}", us / reps] for n, (count, us) in total.items()]
 
 
-def _k3(rng, cots, dev, out) -> dict:
-    """K3f and K3b at FullSubNet-GRU's four layers, f32 then bf16, each
-    beside cuDNN's ``nn.GRU`` in its dtype, and each design where the
-    checkout has two; returns each f32 K3b call's launches by layer."""
+# FullSubNet-GRU's sub band at the 10 train steps' batch, B=10 (T=163)
+SUB_BAND_B10 = (("sb l0 B=10", 163, 2570, 32, 384), ("sb l1 B=10", 163, 2570, 384, 384))
+
+
+def _k3_designs() -> dict:
+    """``{key suffix: planner}``: the checkout's own plan (``""``) and each
+    design it has forced at every shape: ``[cluster]`` and ``[block]`` on
+    the cluster tiling, and ``[wave]`` where the checkout has that design
+    (``fused_gru_inproj.wave_plan``; H at most 384).  A checkout whose plan
+    has a ``cluster`` bool instead of ``design`` forces that bool."""
     import dataclasses
 
-    planner = getattr(k3, "plan", None)  # a checkout whose K3 has two designs
+    planner = k3.plan
     designs = {"": planner}
-    if planner is not None:
-        force = lambda d: lambda *a, **kw: dataclasses.replace(planner(*a, **kw), cluster=d)
-        designs.update({" [cluster]": force(True), " [block]": force(False)})
+    if not hasattr(k3, "wave_plan"):  # the per-block and cluster designs only
+        for d in ("cluster", "block"):
+            designs[f" [{d}]"] = (lambda d: lambda *a, **kw: dataclasses.replace(
+                planner(*a, **kw), cluster=d == "cluster"))(d)
+        return designs
+    for d in ("cluster", "block"):
+        designs[f" [{d}]"] = (lambda d: lambda Bb, In, H, backward=False, L=1: dataclasses.replace(
+            k3.cluster_tiling(Bb, In, H, backward), design=d))(d)
+    designs[" [wave]"] = lambda Bb, In, H, backward=False, L=1: k3.wave_plan(Bb, In, H, backward, L)
+    return designs
+
+
+def _k3(rng, cots, dev, out) -> dict:
+    """K3f and K3b at FullSubNet-GRU's four layers at B=8 and its sub band
+    at B=10, f32 then bf16, each beside cuDNN's ``nn.GRU`` in its dtype, in
+    the checkout's design and in each design forced (``_k3_designs``; the
+    wave design only at H <= 384); returns each f32 K3b call's launches by
+    layer at B=8."""
+    designs = _k3_designs()
     launches = {}
-    for dtype, form in ((torch.float32, ""), (torch.bfloat16, "-bf16")):
-        for label, T, Bb, In, H in FULLSUBNET_LSTM:
-            x, *rest = cs._gru_inputs(rng, dev, T, 1, Bb, In, H)
-            args = (x.to(dtype), *rest)
-            dys, dhT = cots((T, 1, Bb, H), (1, Bb, H))
-            c = (dys.to(dtype), dhT)
-            try:
+    try:
+        for dtype, form in ((torch.float32, ""), (torch.bfloat16, "-bf16")):
+            for label, T, Bb, In, H in (*FULLSUBNET_LSTM, *SUB_BAND_B10):
+                x, *rest = cs._gru_inputs(rng, dev, T, 1, Bb, In, H)
+                args = (x.to(dtype), *rest)
+                dys, dhT = cots((T, 1, Bb, H), (1, Bb, H))
+                c = (dys.to(dtype), dhT)
                 for suffix, design in designs.items():
-                    if design is not None:
-                        k3.plan = design
+                    if suffix == " [wave]" and H > 384:
+                        continue
+                    k3.plan = design
                     with torch.no_grad():
                         ys, hT = k3.fused_gru_scan_inproj(*args)
                         ms = cuda_ms(lambda: k3.fused_gru_scan_inproj(*args), 5, 2)
@@ -344,18 +371,60 @@ def _k3(rng, cots, dev, out) -> dict:
                         ms = cuda_ms(lambda: k3.fused_gru_scan_inproj_backward(*args, ys, *c),
                                      3, 1)
                         out[f"K3b{form} {label}{suffix}"] = (ms, _hash(*g))
-                        if form == "" and suffix == "":
+                        if form == "" and suffix == "" and "B=10" not in label:
                             launches[label] = _kernel_launches(
                                 lambda: k3.fused_gru_scan_inproj_backward(*args, ys, *c))
-            finally:
-                if planner is not None:
-                    k3.plan = planner
-            lib = cs._cudnn_gru(*rest[:4], dev)
-            f_ms, b_ms, _ = cs._cudnn_yardstick([lib], [(x[:, 0], rest[4])],
-                                                [(dys[:, 0], dhT)], dtypes=(dtype,))
-            out[f"cuDNN GRU{form} fwd {label}"] = (f_ms, None)
-            out[f"cuDNN GRU{form} bwd {label}"] = (b_ms, None)
+                    del ys, hT, g
+                k3.plan = designs[""]
+                lib = cs._cudnn_gru(*rest[:4], dev)
+                f_ms, b_ms, _ = cs._cudnn_yardstick([lib], [(x[:, 0], rest[4])],
+                                                    [(dys[:, 0], dhT)], dtypes=(dtype,))
+                out[f"cuDNN GRU{form} fwd {label}"] = (f_ms, None)
+                out[f"cuDNN GRU{form} bwd {label}"] = (b_ms, None)
+    finally:
+        k3.plan = designs[""]
     return launches
+
+
+# Every K3 shape the paths launch where the sub band's designs compete
+# (T, Bb, In, H; backward too but for the stream's chunks): the sub band at
+# B = 1 to 10, a stream's 5-frame chunk (Bb = 257) and chip_smoke.py's
+# ragged cases outside the cluster design
+K3_SWEEP = tuple(
+    [(f"{name} B={B}", 163, 257 * B, In, 384, True) for B in range(1, 11)
+     for name, In in (("sb l0", 32), ("sb l1", 384))]
+    + [("stream sb l0", 5, 257, 32, 384, False), ("stream sb l1", 5, 257, 384, 384, False),
+       ("ragged 8-row tiles", 9, 1069, 33, 64, True)])
+
+
+def _k3_sweep(rng, cots, dev, out):
+    """K3f and K3b (f32) at every shape of ``K3_SWEEP`` in each design the
+    checkout has but the cluster design (``[block]``, ``[wave]``; their
+    order turned round between two passes, ``[.. 2]`` keys), and the
+    design its planner takes there (``K3 design ...`` keys, the design's
+    name in the ms field)."""
+    own = k3.plan
+    designs = {k: v for k, v in _k3_designs().items() if k in (" [block]", " [wave]")}
+    try:
+        for label, T, Bb, In, H, backward in K3_SWEEP:
+            p = own(Bb, In, H)
+            out[f"K3 design {label}"] = (getattr(p, "design", None)
+                                         or ("cluster" if p.cluster else "block"), None)
+            x, *rest = cs._gru_inputs(rng, dev, T, 1, Bb, In, H)
+            c = cots((T, 1, Bb, H), (1, Bb, H))
+            for rep, order in (("", list(designs)), (" 2", list(designs)[::-1])):
+                for suffix in order:
+                    k3.plan = designs[suffix]
+                    with torch.no_grad():
+                        ys, _ = k3.fused_gru_scan_inproj(x, *rest)
+                        out[f"K3f {label}{suffix}{rep}"] = (
+                            cuda_ms(lambda: k3.fused_gru_scan_inproj(x, *rest), 5, 1), None)
+                        if backward:
+                            out[f"K3b {label}{suffix}{rep}"] = (cuda_ms(
+                                lambda: k3.fused_gru_scan_inproj_backward(x, *rest, ys, *c), 2, 1),
+                                None)
+    finally:
+        k3.plan = own
 
 
 def _p2(rng, cots, dev, out):

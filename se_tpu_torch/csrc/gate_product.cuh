@@ -1,5 +1,6 @@
 // The gate product of the probes P2 (wavefront_lstm.cu) and P3's dots-only
-// mode (vpu_probe.cu), for Hopper (sm_90a): acc = a . W over a tile of
+// mode (vpu_probe.cu), and of K3's wave design at the sub band
+// (gru_inproj.cu), for Hopper (sm_90a): acc = a . W over a tile of
 // kTileRows batch rows, with W streamed through a shared-memory ring by
 // cp.async.bulk and multicast across a thread-block cluster.  It is the
 // product of the Pallas kernels of tools/wavefront_probe.py (:34-145, each
@@ -247,11 +248,22 @@ __device__ __forceinline__ void slab_products(const float* a, const float* w, in
   }
 }
 
+// The slab routine gate_product runs by default: slab_products.
+struct GateSlabs {
+  __device__ __forceinline__ void operator()(const float* a, const float* w, int ld,
+                                             const GateLane& me,
+                                             float (&acc)[kThreadRows][8]) const {
+    slab_products(a, w, ld, me, acc);
+  }
+};
+
 // The next kSlabs slabs of the ring, once arrived: their products into acc
-// (a points at their rows of a_s), then their release to the cluster.
-template <int kSlabs>
+// (a points at their rows of a_s; `products` runs one slab), then their
+// release to the cluster.
+template <int kSlabs, typename Products = GateSlabs>
 __device__ __forceinline__ void take_slabs(Ring& ring, const float* a, int ld, const GateLane& me,
-                                           bool active, float (&acc)[kThreadRows][8]) {
+                                           bool active, float (&acc)[kThreadRows][8],
+                                           Products products = Products()) {
   int s[kSlabs];
 #pragma unroll
   for (int i = 0; i < kSlabs; ++i) {
@@ -262,8 +274,8 @@ __device__ __forceinline__ void take_slabs(Ring& ring, const float* a, int ld, c
   if (active) {
 #pragma unroll
     for (int i = 0; i < kSlabs; ++i) {
-      slab_products(a + i * kSlabRows * kTileRows,
-                    ring.slabs + static_cast<size_t>(s[i]) * ring.slab, ld, me, acc);
+      products(a + i * kSlabRows * kTileRows,
+               ring.slabs + static_cast<size_t>(s[i]) * ring.slab, ld, me, acc);
     }
   }
   __syncwarp();
@@ -284,19 +296,24 @@ __device__ __forceinline__ void take_slabs(Ring& ring, const float* a, int ld, c
 // later than the others, mixed within each SM quarter, so that its warps
 // do not all wait at once.  With `active` false the slabs are waited for and released
 // without the products (a CTA without rows, or a P3 slot past the last
-// step).
+// step).  `products` runs one slab (default: slab_products; K3's backward
+// passes its own for the dh product, csrc/gru_inproj.cu).
+template <typename Products = GateSlabs>
 __device__ __forceinline__ void gate_product(Ring& ring, const float* a_s, int count, int ld,
                                              const GateLane& me, bool active,
-                                             float (&acc)[kThreadRows][8]) {
+                                             float (&acc)[kThreadRows][8],
+                                             Products products = Products()) {
   const int rows_a_slab = kSlabRows * kTileRows;
   int j = 0;
   const int warp = threadIdx.x / 32;  // an SM quarter runs warps q, q + 4, q + 8
   if ((warp + warp / 4) % 2 == 1 && count > 0) {
-    take_slabs<1>(ring, a_s, ld, me, active, acc);
+    take_slabs<1>(ring, a_s, ld, me, active, acc, products);
     j = 1;
   }
-  for (; j + 2 <= count; j += 2) take_slabs<2>(ring, a_s + j * rows_a_slab, ld, me, active, acc);
-  if (j < count) take_slabs<1>(ring, a_s + j * rows_a_slab, ld, me, active, acc);
+  for (; j + 2 <= count; j += 2) {
+    take_slabs<2>(ring, a_s + j * rows_a_slab, ld, me, active, acc, products);
+  }
+  if (j < count) take_slabs<1>(ring, a_s + j * rows_a_slab, ld, me, active, acc, products);
 }
 
 // W [K, 4H] (gate-major columns g H + u) laid out by the caller as

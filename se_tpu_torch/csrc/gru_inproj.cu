@@ -30,9 +30,26 @@
 // of T dependent steps, each a pass over W_hh[l] (3 MB at the full band,
 // 1.77 MB at the sub band) and, at the sub band, over W_ih[l].
 //
-// Two designs; the planner in Python (se_tpu_torch/ops/fused_gru_inproj.py
+// Three designs; the planner in Python (se_tpu_torch/ops/fused_gru_inproj.py
 // ::plan) picks one per shape, the one measured faster there, and passes
-// it to the entries below, which never switch at run time.
+// it to the entries below (one set per design), which never switch at run
+// time.
+//
+// The wave design (gru_wave_{fwd,bwd}_kernel), at the sub band from B = 5
+// (Bb = 257 B rows, In = 32 and 384, H = 384), on the gate product of
+// gate_product.cuh (P2's): a CTA owns 16 rows of one stack and all H (at
+// most 384) units, so B = 8 runs in one wave of 129 CTAs, in clusters of 2
+// that share each W slab by multicast from a cp.async.bulk ring; f32 FFMA
+// on 8 x 8 register tiles.  A GRU unit with its n gate split into an x part
+// and an h part has four accumulator columns, r, z, n_x and n_h, as the
+// LSTM's four gates: the wrapper lays out (W_ih; W_hh) as [k][u][4]
+// (W_ih's n in n_x, W_hh's in n_h; fused_gru_inproj.wave_layout), so
+// n = tanh(n_x + r n_h) comes straight from the accumulators.  Each gate's
+// sum runs over k in one chain, x then h (within rounding of the other
+// designs, not their bits).  The padding costs a third more FMAs (1.22
+// against 0.92 TFLOP a FullSubNet-GRU forward at B = 8).  The backward
+// recomputes the product per step and adds dhp . W_hh^T from a second
+// stretch of the ring (DhSlabs).
 //
 // The cluster design (gru_cluster_{fwd,bwd}_kernel), K2's (lstm_inproj.cu)
 // on the machinery of cluster_scan.cuh.  A cluster of N CTAs owns a tile
@@ -76,9 +93,10 @@
 //      next partials from landing before the sum has read this step's.
 //
 // The per-block design (gru_inproj_{fwd,bwd}_kernel<R, C>, K3's first), for the
-// shapes where it is faster (the sub band: 65 and more tiles, which the
-// cluster design runs in waves of 7 clusters, each wave the whole chain of
-// T steps: 38.6 and 83.2 ms a forward against 18.4 and 32.4, PERF.md).  One block per (stack l, tile of R batch
+// shapes where it is faster: the sub band at B = 1 to 4 and a stream's
+// chunk (Bb = 257), where its blocks of 4 or 8 rows all run at once and the
+// wave design's 16-row CTAs leave most SMs idle (B = 1: 7.5 against 10.8
+// ms a forward at sb l0; PERF.md §6).  One block per (stack l, tile of R batch
 // rows); the T loop runs inside the block, in chunks of C steps (the
 // largest of 8, 4, 2 whose buffers fit the block's 227 KB of shared memory
 // for this R).  Each block re-reads W_hh[l] from L2 every step, so R sets
@@ -134,6 +152,7 @@
 #include <cuda_bf16.h>
 
 #include "cluster_scan.cuh"
+#include "gate_product.cuh"
 
 namespace {
 
@@ -634,6 +653,386 @@ gru_cluster_bwd_kernel(const TS* __restrict__ x, const float* __restrict__ wih_t
   }
 }
 
+// ---- The wave design --------------------------------------------------------
+
+constexpr int kWaveMaxStages = 8;  // ring slabs at most
+
+// The shared memory of a wave-design CTA (gate_smem_bytes), or 0 unless
+// (In_p, N, stages) is a tiling these kernels take: N = 2 or 4, In_p = In
+// rounded up to a pair of slabs, H at most 384, a ring of 2 to 8 slabs
+// within the block's shared memory.  Forward: two operand buffers [x; h]
+// ([In_p + Hp][16] each); backward: one buffer [x; h_prev; dys] ([In_p +
+// 2 Hp][16]) and dhp [3 Hp][16].
+inline size_t wave_smem(bool backward, int In, int H, int In_p, int N, int stages) {
+  if (N != 2 && N != kMaxGateCluster) return 0;
+  if (H < 1 || padded_units(H) > kMaxWarps * kUnitsPerWarp || In < 1) return 0;
+  if (In_p != (In + 2 * kSlabRows - 1) / (2 * kSlabRows) * 2 * kSlabRows) return 0;
+  if (stages < 2 || stages > kWaveMaxStages) return 0;
+  const int Hp = padded_units(H);
+  const int buf = (backward ? In_p + 5 * Hp : 2 * (In_p + Hp)) * kTileRows;
+  const size_t bytes = gate_smem_bytes(stages, kSlabRows * 4 * Hp, buf);
+  return bytes <= kGateMaxSmem ? bytes : 0;
+}
+
+// dst[k][r] = src[r * ld + k] for r < rows, k < K (dst k-major, 16 columns):
+// f32 by cp.async (waited for by wait_copies), bf16 loaded, widened and
+// stored; the `count` threads from `first` share the elements.
+template <typename TS>
+__device__ __forceinline__ void stage_kmajor(float* dst, const TS* __restrict__ src, int rows,
+                                             int K, int ld, int first, int count) {
+  for (int i = threadIdx.x - first; i < rows * K; i += count) {
+    const int r = i / K, k = i % K;
+    if constexpr (kIsF32<TS>) {
+      copy_async(dst + k * kTileRows + r, src + static_cast<size_t>(r) * ld + k);
+    } else {
+      dst[k * kTileRows + r] = to_f32(src[static_cast<size_t>(r) * ld + k]);
+    }
+  }
+}
+
+__device__ __forceinline__ void zero_acc(float (&acc)[kThreadRows][8]) {
+#pragma unroll
+  for (int r = 0; r < kThreadRows; ++r) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+  }
+}
+
+// The forward's cell for the thread's 8 rows and 2 units, from the
+// accumulated (r, z, n_x, n_h) plus the folded bias (pallas_lstm.py:597-600,
+// :616): h in place, into the next buffer's h rows (h_s [Hp][16]) and into
+// ys (rows past `rows` and units past H unwritten).
+template <typename TS>
+__device__ __forceinline__ void gru_wave_cell(const float (&acc)[kThreadRows][8],
+                                              const float* __restrict__ bias,
+                                              float (&h)[kThreadRows][2], float* h_s,
+                                              TS* __restrict__ ys, const GateLane& me, int rows,
+                                              int H) {
+  const int units[2] = {me.ua, me.ub};
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const float4 b = __ldg(reinterpret_cast<const float4*>(bias) + units[j]);
+#pragma unroll
+    for (int r = 0; r < kThreadRows; ++r) {
+      const float rg = sigmoid_f32(acc[r][4 * j + 0] + b.x);
+      const float zg = sigmoid_f32(acc[r][4 * j + 1] + b.y);
+      const float ng = tanhf((acc[r][4 * j + 2] + b.z) + rg * (acc[r][4 * j + 3] + b.w));
+      h[r][j] = (1.0f - zg) * ng + zg * h[r][j];
+    }
+    float* hs = h_s + units[j] * kTileRows + me.r0;
+    *reinterpret_cast<float4*>(hs) = make_float4(h[0][j], h[1][j], h[2][j], h[3][j]);
+    *reinterpret_cast<float4*>(hs + 4) = make_float4(h[4][j], h[5][j], h[6][j], h[7][j]);
+    if (units[j] < H) {
+#pragma unroll
+      for (int r = 0; r < kThreadRows; ++r) {
+        if (me.r0 + r < rows) store_as(ys + static_cast<size_t>(me.r0 + r) * H + units[j], h[r][j]);
+      }
+    }
+  }
+}
+
+// The forward (K3f) in the wave design:
+//   x [T, L, Bb, In]; w [L][In_p + Hp][4 Hp] = (W_ih; W_hh) unit-major,
+//   columns (r, z, n_x, n_h) of each unit (W_ih's n in n_x, W_hh's in n_h,
+//   zero elsewhere and past In and H); bias [L][4 Hp] = (b_ih + b_hh on r
+//   and z, b_ih's n, b_hh's n); h0 [L, Bb, H] -> ys [T, L, Bb, H], hT.
+// A CTA owns 16 rows of one stack (blockIdx.y) and all its units; step t's
+// product reads the buffer [x[t]; h] and the cell writes h into the other
+// buffer, where x[t + 1] is copied meanwhile; one barrier of the consumer
+// warps ends the step.  h stays in registers for the cell.
+template <typename TS>
+__global__ void __launch_bounds__(kGateThreads, 1)
+gru_wave_fwd_kernel(const TS* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ bias, const float* __restrict__ h0,
+                    TS* __restrict__ ys, float* __restrict__ hT, int T, int L, int Bb, int In,
+                    int H, int In_p, int stages) {
+  extern __shared__ __align__(16) float smem[];
+  const int Hp = padded_units(H), ld = 4 * Hp, KB = In_p + Hp;
+  const int warps = Hp / kUnitsPerWarp, consumers = 32 * warps;
+  const int slab = kSlabRows * ld;
+  Ring ring = make_ring(smem, stages, slab, 2 * KB * kTileRows, warps);
+  float* buf = smem + static_cast<size_t>(stages) * slab;  // [2][KB][16]
+  const int l = blockIdx.y;
+  const int b0 = blockIdx.x * kTileRows;
+  const int rows = min(kTileRows, Bb - b0);  // <= 0: a CTA past the last tile
+  const int tid = threadIdx.x, warp = tid / 32;
+  const size_t state0 = static_cast<size_t>(l) * Bb + b0;  // row of h0/hT
+  const float* wl = w + static_cast<size_t>(l) * KB * ld;
+  const float* bl = bias + static_cast<size_t>(l) * ld;
+  auto x_rows = [&](int t) { return x + ((static_cast<size_t>(t) * L + l) * Bb + b0) * In; };
+
+  // buffer 0: x[0] and h0; zeros elsewhere (padding, rows past the batch)
+  for (int i = tid; i < 2 * KB * kTileRows; i += blockDim.x) buf[i] = 0.f;
+  __syncthreads();
+  stage_kmajor(buf, x_rows(0), rows, In, In, 0, blockDim.x);
+  stage_kmajor(buf + In_p * kTileRows, h0 + state0 * H, rows, H, H, 0, blockDim.x);
+  wait_copies();
+  gate_cluster_sync();  // the ring's barriers and the buffers, cluster-wide
+
+  const int n1 = KB / kSlabRows;
+  if (warp >= kMaxWarps) {  // the producer's warpgroup: one thread streams W
+    producer_regs();
+    if (tid == 32 * kMaxWarps) {
+      for (int t = 0; t < T; ++t) produce(ring, wl, n1);
+    }
+    __syncwarp();
+    gate_cluster_sync();
+    return;
+  }
+  consumer_regs();
+  if (warp < warps) {
+    const GateLane me;
+    const bool active = rows > 0;
+    const int units[2] = {me.ua, me.ub};
+    float h[kThreadRows][2];
+#pragma unroll
+    for (int r = 0; r < kThreadRows; ++r) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) h[r][j] = buf[(In_p + units[j]) * kTileRows + me.r0 + r];
+    }
+    float acc[kThreadRows][8];
+    for (int t = 0; t < T; ++t) {
+      const float* cur = buf + static_cast<size_t>(t & 1) * KB * kTileRows;
+      float* nxt = buf + static_cast<size_t>((t + 1) & 1) * KB * kTileRows;
+      if (t + 1 < T) stage_kmajor(nxt, x_rows(t + 1), rows, In, In, 0, consumers);
+      zero_acc(acc);
+      gate_product(ring, cur, n1, ld, me, active, acc);
+      gru_wave_cell(acc, bl, h, nxt + In_p * kTileRows,
+                    ys + ((static_cast<size_t>(t) * L + l) * Bb + b0) * H, me, rows, H);
+      wait_copies();
+      consumers_sync(consumers);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (units[j] >= H) continue;
+#pragma unroll
+      for (int r = 0; r < kThreadRows; ++r) {
+        if (me.r0 + r < rows) hT[(state0 + me.r0 + r) * H + units[j]] = h[r][j];
+      }
+    }
+  }
+  __syncwarp();
+  gate_cluster_sync();  // no CTA leaves while a peer may still copy into it or arrive on it
+}
+
+// The backward's dh product on the ring of W_hh^T: dh_prev[i] = sum over
+// the 3 Hp rows k' = g Hp + j of dhp[k'] W_hh[i][g H + j], the rows split
+// into four parts of Q = 3 Hp / 4 (part p: k' = p Q ..), laid out by the
+// wrapper as wt [Q][Hp][4] (row kq, unit i, part p: W_hh^T[p Q + kq][i]).
+// A thread's 64 accumulators hold its 8 rows x 2 units x 4 parts, so each
+// k of a slab serves the same 64 FMAs as the forward's product; the parts
+// are summed in a fixed order after the last slab.  `part` is Q x 16, the
+// floats between two parts of dhp [3 Hp][16].
+struct DhSlabs {
+  int part;
+  __device__ __forceinline__ void operator()(const float* a, const float* w, int ld,
+                                             const GateLane& me,
+                                             float (&acc)[kThreadRows][8]) const {
+#pragma unroll
+    for (int kk = 0; kk < kSlabRows; ++kk) {
+      const float4 wa = *reinterpret_cast<const float4*>(w + kk * ld + 4 * me.ua);
+      const float4 wb = *reinterpret_cast<const float4*>(w + kk * ld + 4 * me.ub);
+      const float wv[2][4] = {{wa.x, wa.y, wa.z, wa.w}, {wb.x, wb.y, wb.z, wb.w}};
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const float* ap = a + p * part + kk * kTileRows + me.r0;
+        const float4 a0 = *reinterpret_cast<const float4*>(ap);
+        const float4 a1 = *reinterpret_cast<const float4*>(ap + 4);
+        const float av[kThreadRows] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+        for (int r = 0; r < kThreadRows; ++r) {
+          acc[r][p] = fmaf(av[r], wv[0][p], acc[r][p]);
+          acc[r][4 + p] = fmaf(av[r], wv[1][p], acc[r][4 + p]);
+        }
+      }
+    }
+  }
+};
+
+// The backward's reverse scan (K3b's first pass) in the wave design: the
+// forward's w and bias, wt [L][3 Hp / 4][4 Hp] (DhSlabs), h0, ys, dys and
+// dhT -> dh0, dg [T, L, Bb, 3H] = (da_r, da_z, da_n) and dgn [T, L, Bb, H]
+// = da_n r, as the other designs write them.  Per step, in reverse: the
+// product of [x[t]; h_prev] (h_prev = ys[t-1], or h0) recomputes the
+// gates (the forward's product, the same slabs); the cell backward
+// (pallas_lstm.py:649-656) writes dg and dgn, dhp = (da_r, da_z, da_n r)
+// into dhp_s and keeps dh z in the thread's dh carry; a barrier; step
+// t-1's x, h_prev and dys are copied into the one buffer while the dh
+// product over the ring of W_hh^T adds dhp . W_hh^T to the carry; a barrier
+// ends the step.  The ring carries, each step, the forward's slabs then
+// W_hh^T's.
+template <typename TS>
+__global__ void __launch_bounds__(kGateThreads, 1)
+gru_wave_bwd_kernel(const TS* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ bias, const float* __restrict__ wt,
+                    const float* __restrict__ h0, const TS* __restrict__ ys,
+                    const TS* __restrict__ dys, const float* __restrict__ dhT,
+                    float* __restrict__ dh0, float* __restrict__ dg, float* __restrict__ dgn,
+                    int T, int L, int Bb, int In, int H, int In_p, int stages) {
+  extern __shared__ __align__(16) float smem[];
+  const int Hp = padded_units(H), ld = 4 * Hp, KB = In_p + Hp, Q = 3 * Hp / 4;
+  const int warps = Hp / kUnitsPerWarp, consumers = 32 * warps;
+  const int slab = kSlabRows * ld;
+  const int G = 3 * H;
+  Ring ring = make_ring(smem, stages, slab, (In_p + 5 * Hp) * kTileRows, warps);
+  float* buf = smem + static_cast<size_t>(stages) * slab;  // [In_p + 2 Hp][16]: x, h_prev, dys
+  float* dhp_s = buf + static_cast<size_t>(In_p + 2 * Hp) * kTileRows;  // [3 Hp][16]
+  const int l = blockIdx.y;
+  const int b0 = blockIdx.x * kTileRows;
+  const int rows = min(kTileRows, Bb - b0);
+  const int tid = threadIdx.x, warp = tid / 32;
+  const size_t state0 = static_cast<size_t>(l) * Bb + b0;  // row of h0/dhT/dh0
+  const float* wl = w + static_cast<size_t>(l) * KB * ld;
+  const float* bl = bias + static_cast<size_t>(l) * ld;
+  const float* wtl = wt + static_cast<size_t>(l) * Q * ld;
+  auto at = [&](int t) { return (static_cast<size_t>(t) * L + l) * Bb + b0; };  // row of [T, L, Bb]
+  // step t's x, h_prev and dys into the buffer (h_prev: ys[t-1], or h0)
+  auto stage_step = [&](int t, int first, int count) {
+    stage_kmajor(buf, x + at(t) * In, rows, In, In, first, count);
+    if (t > 0) {
+      stage_kmajor(buf + In_p * kTileRows, ys + at(t - 1) * H, rows, H, H, first, count);
+    } else {
+      stage_kmajor(buf + In_p * kTileRows, h0 + state0 * H, rows, H, H, first, count);
+    }
+    stage_kmajor(buf + (In_p + Hp) * kTileRows, dys + at(t) * H, rows, H, H, first, count);
+  };
+
+  for (int i = tid; i < (In_p + 5 * Hp) * kTileRows; i += blockDim.x) buf[i] = 0.f;
+  __syncthreads();
+  stage_step(T - 1, 0, blockDim.x);
+  wait_copies();
+  gate_cluster_sync();
+
+  const int n1 = KB / kSlabRows, n2 = Q / kSlabRows;
+  if (warp >= kMaxWarps) {  // the producer's warpgroup
+    producer_regs();
+    if (tid == 32 * kMaxWarps) {
+      for (int t = T - 1; t >= 0; --t) {
+        produce(ring, wl, n1);
+        produce(ring, wtl, n2);
+      }
+    }
+    __syncwarp();
+    gate_cluster_sync();
+    return;
+  }
+  consumer_regs();
+  if (warp < warps) {
+    const GateLane me;
+    const bool active = rows > 0;
+    const int units[2] = {me.ua, me.ub};
+    float dh[kThreadRows][2];
+#pragma unroll
+    for (int r = 0; r < kThreadRows; ++r) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        dh[r][j] = me.r0 + r < rows && units[j] < H
+                       ? dhT[(state0 + me.r0 + r) * H + units[j]] : 0.f;
+      }
+    }
+    float acc[kThreadRows][8];
+    for (int t = T - 1; t >= 0; --t) {
+      zero_acc(acc);
+      gate_product(ring, buf, n1, ld, me, active, acc);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int u = units[j];
+        const float4 b = __ldg(reinterpret_cast<const float4*>(bl) + u);
+#pragma unroll
+        for (int q = 0; q < kThreadRows; q += 4) {  // four rows at a time: fewer live values
+          float dr[4], dz[4], dn[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = q + i, row = me.r0 + r;
+            const float rg = sigmoid_f32(acc[r][4 * j + 0] + b.x);
+            const float zg = sigmoid_f32(acc[r][4 * j + 1] + b.y);
+            const float hpn = acc[r][4 * j + 3] + b.w;
+            const float ng = tanhf((acc[r][4 * j + 2] + b.z) + rg * hpn);
+            const float h_prev = buf[(In_p + u) * kTileRows + row];
+            const float d = buf[(In_p + Hp + u) * kTileRows + row] + dh[r][j];
+            const float da_z = d * (h_prev - ng) * zg * (1.0f - zg);
+            const float da_n = d * (1.0f - zg) * (1.0f - ng * ng);
+            const float da_r = da_n * hpn * rg * (1.0f - rg);
+            if (row < rows && u < H) {
+              float* o = dg + (at(t) + row) * G + u;
+              o[0] = da_r;
+              o[H] = da_z;
+              o[2 * H] = da_n;
+              dgn[(at(t) + row) * H + u] = da_n * rg;
+            }
+            dr[i] = da_r;
+            dz[i] = da_z;
+            dn[i] = da_n * rg;
+            dh[r][j] = d * zg;
+          }
+          float* o = dhp_s + u * kTileRows + me.r0 + q;
+          *reinterpret_cast<float4*>(o) = make_float4(dr[0], dr[1], dr[2], dr[3]);
+          *reinterpret_cast<float4*>(o + Hp * kTileRows) = make_float4(dz[0], dz[1], dz[2], dz[3]);
+          *reinterpret_cast<float4*>(o + 2 * Hp * kTileRows) =
+              make_float4(dn[0], dn[1], dn[2], dn[3]);
+        }
+      }
+      consumers_sync(consumers);  // dhp complete; the buffer read by every warp
+      if (t > 0) stage_step(t - 1, 0, consumers);
+      zero_acc(acc);
+      gate_product(ring, dhp_s, n2, ld, me, active, acc, DhSlabs{Q * kTileRows});
+#pragma unroll
+      for (int r = 0; r < kThreadRows; ++r) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          dh[r][j] += (acc[r][4 * j] + acc[r][4 * j + 1]) + (acc[r][4 * j + 2] + acc[r][4 * j + 3]);
+        }
+      }
+      wait_copies();
+      consumers_sync(consumers);  // step t-1's buffer in; dhp free
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (units[j] >= H) continue;
+#pragma unroll
+      for (int r = 0; r < kThreadRows; ++r) {
+        if (me.r0 + r < rows) dh0[(state0 + me.r0 + r) * H + units[j]] = dh[r][j];
+      }
+    }
+  }
+  __syncwarp();
+  gate_cluster_sync();
+}
+
+// Launches `kernel` on `ctas` CTAs a stack (a multiple of n) for L stacks
+// (gridDim.y), in clusters of n CTAs along x, kGateThreads threads and
+// `smem` bytes each.
+template <typename... Params, typename... Args>
+cudaError_t launch_wave(void (*kernel)(Params...), int n, int ctas, int L, size_t smem,
+                        cudaStream_t s, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kGateMaxSmem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3(ctas, L);
+  cfg.blockDim = dim3(kGateThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// CTAs a stack of the wave design: the 16-row tiles, rounded up to whole
+// clusters of N.
+int wave_ctas(int Bb, int N) {
+  const int tiles = (Bb + kTileRows - 1) / kTileRows;
+  return (tiles + N - 1) / N * N;
+}
+
 // ---- The per-block design's launch ----------------------------------------
 
 int scan_threads(int G) {
@@ -744,6 +1143,32 @@ int gru_fwd(const TS* x, const float* wih_t, const float* b_ih, const float* whh
                                          Bb, In, H, R, N, C));
 }
 
+// The backward's second pass over the scratch dg and dgn (the reverse
+// scan's output in every design): dx, dW_ih, dW_hh, db_ih and db_hh.
+template <typename TS>
+cudaError_t second_pass(const TS* x, const float* wih_t, const float* h0, const TS* ys, TS* dx,
+                        float* dwih_t, float* db_ih, float* dwhh_t, float* db_hh,
+                        const float* dg, const float* dgn, float* ws, int T, int L, int Bb,
+                        int In, int H, int ws_floats, cudaStream_t s) {
+  const int G = 3 * H;
+  cudaError_t err = launch_dx(dg, wih_t, dx, T, L, Bb, In, G, s);
+  if (err != cudaSuccess) return err;
+  const size_t wsf = static_cast<size_t>(ws_floats);
+  err = launch_dw(x, nullptr, dg, G, dwih_t, G, ws, wsf, T, L, Bb, In, G, 0, s);
+  if (err != cudaSuccess) return err;
+  err = launch_dw(ys, h0, dg, G, dwhh_t, G, ws, wsf, T, L, Bb, H, 2 * H, 1, s);  // r, z columns
+  if (err != cudaSuccess) return err;
+  err = launch_dw(ys, h0, dgn, H, dwhh_t + 2 * H, G, ws, wsf, T, L, Bb, H, H, 1, s);  // n columns
+  if (err != cudaSuccess) return err;
+  err = launch_dbias(dg, G, db_ih, G, ws, wsf, T, L, Bb, G, s);
+  if (err != cudaSuccess) return err;
+  err = launch_dbias(dgn, H, db_hh + 2 * H, G, ws, wsf, T, L, Bb, H, s);
+  if (err != cudaSuccess) return err;
+  // db_hh's r and z slices: the same sums as db_ih's
+  return cudaMemcpy2DAsync(db_hh, sizeof(float) * G, db_ih, sizeof(float) * G,
+                           sizeof(float) * 2 * H, L, cudaMemcpyDeviceToDevice, s);
+}
+
 template <typename TS>
 int gru_bwd(const TS* x, const float* wih_t, const float* b_ih, const float* whh_t,
             const float* b_hh, const float* h0, const TS* ys, const TS* dys,
@@ -753,7 +1178,6 @@ int gru_bwd(const TS* x, const float* wih_t, const float* b_ih, const float* whh
             void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int G = 3 * H;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!cluster) {
     err = block_bwd(x, wih_t, b_ih, whh_t, b_hh, h0, ys, dys, dhT, dh0, dg, dgn, T, L, Bb, In,
@@ -766,23 +1190,39 @@ int gru_bwd(const TS* x, const float* wih_t, const float* b_ih, const float* whh
                          N, C);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_dx(dg, wih_t, dx, T, L, Bb, In, G, s);
+  return static_cast<int>(second_pass(x, wih_t, h0, ys, dx, dwih_t, db_ih, dwhh_t, db_hh, dg,
+                                      dgn, ws, T, L, Bb, In, H, ws_floats, s));
+}
+
+template <typename TS>
+int wave_fwd(const TS* x, const float* w, const float* bias, const float* h0, TS* ys, float* hT,
+             int T, int L, int Bb, int In, int H, int In_p, int N, int stages, int device,
+             void* stream) {
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t wsf = static_cast<size_t>(ws_floats);
-  err = launch_dw(x, nullptr, dg, G, dwih_t, G, ws, wsf, T, L, Bb, In, G, 0, s);
+  const size_t smem = wave_smem(false, In, H, In_p, N, stages);
+  if (smem == 0 || T < 1 || Bb < 1 || L < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_wave(gru_wave_fwd_kernel<TS>, N, wave_ctas(Bb, N), L, smem,
+                                      static_cast<cudaStream_t>(stream), x, w, bias, h0, ys,
+                                      hT, T, L, Bb, In, H, In_p, stages));
+}
+
+template <typename TS>
+int wave_bwd(const TS* x, const float* w, const float* bias, const float* wt, const float* h0,
+             const TS* ys, const TS* dys, const float* dhT, const float* wih_t, TS* dx,
+             float* dwih_t, float* db_ih, float* dwhh_t, float* db_hh, float* dh0, float* dg,
+             float* dgn, float* ws, int T, int L, int Bb, int In, int H, int In_p, int N,
+             int stages, int ws_floats, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_dw(ys, h0, dg, G, dwhh_t, G, ws, wsf, T, L, Bb, H, 2 * H, 1, s);  // r, z columns
+  const size_t smem = wave_smem(true, In, H, In_p, N, stages);
+  if (smem == 0 || T < 1 || Bb < 1 || L < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = launch_wave(gru_wave_bwd_kernel<TS>, N, wave_ctas(Bb, N), L, smem, s, x, w, bias, wt,
+                    h0, ys, dys, dhT, dh0, dg, dgn, T, L, Bb, In, H, In_p, stages);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_dw(ys, h0, dgn, H, dwhh_t + 2 * H, G, ws, wsf, T, L, Bb, H, H, 1, s);  // n columns
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_dbias(dg, G, db_ih, G, ws, wsf, T, L, Bb, G, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_dbias(dgn, H, db_hh + 2 * H, G, ws, wsf, T, L, Bb, H, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // db_hh's r and z slices: the same sums as db_ih's
-  err = cudaMemcpy2DAsync(db_hh, sizeof(float) * G, db_ih, sizeof(float) * G,
-                          sizeof(float) * 2 * H, L, cudaMemcpyDeviceToDevice, s);
-  return static_cast<int>(err);
+  return static_cast<int>(second_pass(x, wih_t, h0, ys, dx, dwih_t, db_ih, dwhh_t, db_hh, dg,
+                                      dgn, ws, T, L, Bb, In, H, ws_floats, s));
 }
 
 }  // namespace
@@ -871,4 +1311,66 @@ extern "C" int se_gru_inproj_bwd_bf16(const __nv_bfloat16* x, const float* wih_t
   return gru_bwd(x, wih_t, b_ih, whh_t, b_hh, h0, ys, dys, dhT, dx, dwih_t, db_ih, dwhh_t,
                  db_hh, dh0, dg, dgn, ws, T, L, Bb, In, H, cluster, R, N, C, ws_floats, device,
                  stream);
+}
+
+// Launches the forward scan in the wave design on `stream` of `device`:
+// clusters of N (2 or 4) CTAs of 16 rows each, L stacks, a ring of
+// `stages` slabs; w [L][In_p + Hp][4 Hp] and bias [L][4 Hp] laid out by
+// the wrapper (gru_wave_fwd_kernel).  Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for a tiling the kernel does not take).
+extern "C" int se_gru_wave_fwd_f32(const float* x, const float* w, const float* bias,
+                                   const float* h0, float* ys, float* hT, int T, int L, int Bb,
+                                   int In, int H, int In_p, int N, int stages, int device,
+                                   void* stream) {
+  return wave_fwd(x, w, bias, h0, ys, hT, T, L, Bb, In, H, In_p, N, stages, device, stream);
+}
+
+// The bf16-stream forward in the wave design: x and ys bf16.
+extern "C" int se_gru_wave_fwd_bf16(const __nv_bfloat16* x, const float* w, const float* bias,
+                                    const float* h0, __nv_bfloat16* ys, float* hT, int T, int L,
+                                    int Bb, int In, int H, int In_p, int N, int stages,
+                                    int device, void* stream) {
+  return wave_fwd(x, w, bias, h0, ys, hT, T, L, Bb, In, H, In_p, N, stages, device, stream);
+}
+
+// Launches the backward in the wave design: the reverse scan
+// (gru_wave_bwd_kernel; wt [L][3 Hp / 4][4 Hp] laid out by the wrapper),
+// then the second pass as se_gru_inproj_bwd_f32's (wih_t [L, In, 3H] for
+// dx), all on `stream`.  Returns the first cudaError_t.
+extern "C" int se_gru_wave_bwd_f32(const float* x, const float* w, const float* bias,
+                                   const float* wt, const float* h0, const float* ys,
+                                   const float* dys, const float* dhT, const float* wih_t,
+                                   float* dx, float* dwih_t, float* db_ih, float* dwhh_t,
+                                   float* db_hh, float* dh0, float* dg, float* dgn, float* ws,
+                                   int T, int L, int Bb, int In, int H, int In_p, int N,
+                                   int stages, int ws_floats, int device, void* stream) {
+  return wave_bwd(x, w, bias, wt, h0, ys, dys, dhT, wih_t, dx, dwih_t, db_ih, dwhh_t, db_hh,
+                  dh0, dg, dgn, ws, T, L, Bb, In, H, In_p, N, stages, ws_floats, device, stream);
+}
+
+// The bf16-stream backward in the wave design: x, ys, dys and dx bf16.
+extern "C" int se_gru_wave_bwd_bf16(const __nv_bfloat16* x, const float* w, const float* bias,
+                                    const float* wt, const float* h0, const __nv_bfloat16* ys,
+                                    const __nv_bfloat16* dys, const float* dhT,
+                                    const float* wih_t, __nv_bfloat16* dx, float* dwih_t,
+                                    float* db_ih, float* dwhh_t, float* db_hh, float* dh0,
+                                    float* dg, float* dgn, float* ws, int T, int L, int Bb,
+                                    int In, int H, int In_p, int N, int stages, int ws_floats,
+                                    int device, void* stream) {
+  return wave_bwd(x, w, bias, wt, h0, ys, dys, dhT, wih_t, dx, dwih_t, db_ih, dwhh_t, db_hh,
+                  dh0, dg, dgn, ws, T, L, Bb, In, H, In_p, N, stages, ws_floats, device, stream);
+}
+
+// How many clusters of N CTAs of the f32 wave kernel (forward, or with
+// backward = 1 the reverse scan) with a ring of `stages` slabs fit on
+// `device` at once; minus a cudaError_t on an error (cudaErrorInvalidValue:
+// a tiling the kernels do not take).
+extern "C" int se_gru_wave_active_clusters(int backward, int In, int H, int In_p, int N,
+                                           int stages, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  const size_t smem = wave_smem(backward != 0, In, H, In_p, N, stages);
+  if (smem == 0) return -static_cast<int>(cudaErrorInvalidValue);
+  return backward ? gate_active_clusters(gru_wave_bwd_kernel<float>, N, smem)
+                  : gate_active_clusters(gru_wave_fwd_kernel<float>, N, smem);
 }

@@ -29,8 +29,8 @@ class Plan:
     ``R`` rows a cluster, ``U`` units a CTA (the last one fewer where N does
     not divide H), chunks of ``C`` steps, the CTA's W_hh slice ``resident``
     in shared memory (else read from L2 every step), ``smem`` bytes a
-    CTA.  ``cluster`` is False where K3 runs its per-block design instead
-    (``fused_gru_inproj.plan``); K2 always runs on clusters."""
+    CTA.  ``design`` is ``"cluster"``, the one design K1 and K2 have; K3
+    runs another at its sub band (``fused_gru_inproj.plan``)."""
 
     R: int
     N: int
@@ -39,7 +39,7 @@ class Plan:
     resident: bool
     smem: int
     tiles: int
-    cluster: bool = True
+    design: str = "cluster"
 
     def args(self) -> tuple:
         """The entries' tiling arguments ``(R, N, C, resident)``."""

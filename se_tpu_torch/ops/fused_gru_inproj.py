@@ -25,9 +25,11 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from dataclasses import dataclass
 
 import torch
 
+from ..probes import gate_product as gp
 from . import build
 from .cluster_plan import ROW_QUANTUM, Plan
 from .cluster_plan import plan as _cluster_plan
@@ -36,34 +38,132 @@ from .cluster_plan import plan as _cluster_plan
 # The most clusters a stack that K3 runs on clusters.  An H100 runs 7
 # clusters of 16 CTAs of ~220 KiB each at once (the occupancy query,
 # PERF.md); past that the clusters run in waves, each wave the whole chain
-# of T steps, and the per-block kernel, all of whose blocks run at once,
-# measured faster (FullSubNet-GRU's sub band, both directions, PERF.md §6).
+# of T steps, and the designs whose CTAs all run at once measured faster
+# (FullSubNet-GRU's sub band, both directions, PERF.md §6).
 CLUSTER_TILES = 7
+# The wave design's cluster: 2 CTAs share each W slab.  Clusters of 4 hold
+# 120 CTAs at once against 132 (gate_product.CLUSTERS_AT_ONCE), so they
+# never run in fewer waves, and P2 (the same product) ran no faster on 1
+# CTA than on 2 (PERF.md §6): the FFMA issue bounds it, not L2.
+WAVE_CLUSTER = 2
+WAVE_MAX_STAGES = 8  # the ring's slabs at most (csrc/gru_inproj.cu: kWaveMaxStages)
+# The wave design's fewest units (whole warps): one consumer warp an SM
+# quarter.  With fewer (the ragged H = 64) the ring's round trips are not
+# hidden and the per-block kernel measured faster (PERF.md §6).
+WAVE_MIN_UNITS = 4 * gp.UNITS_PER_WARP
+# The H100's SMs: the per-block kernel runs one block an SM, its blocks of
+# 4 rows or, where those outnumber the SMs, 8 (``row_tile`` in the source,
+# which asks the device).
+SMS = 132
 
 
-def plan(Bb: int, In: int, H: int, backward: bool = False) -> Plan:
-    """The design and tiling of a K3 launch (forward, or the backward's
-    reverse scan): :func:`cluster_plan.plan` at three gates, its tiles as
-    narrow as ``CLUSTER_TILES`` clusters allow (a step's FMA chain, not the
-    slice's reuse over rows, bounds it), run on clusters (``cluster``) where
-    the W_hh slice is resident and the tiles number at most
-    ``CLUSTER_TILES``: FullSubNet-GRU's full band.  Elsewhere (its sub band)
-    the per-block kernel, which picks its own tile and chunk (the tiling
-    fields then go unread)."""
+@dataclass(frozen=True)
+class WavePlan:
+    """A launch's tiling in the wave design (``csrc/gru_inproj.cu``, on
+    ``csrc/gate_product.cuh``): ``tiles`` row tiles of ``R`` = 16 rows a
+    stack, one a CTA with all ``Hp`` units (H rounded up to whole warps), in
+    ``clusters`` clusters of ``N`` CTAs over the L stacks, ``waves`` waves
+    of the clusters the card holds at once; x padded to ``In_p`` rows k; a
+    ring of ``stages`` W slabs; ``smem`` bytes a CTA."""
+
+    R: int
+    N: int
+    stages: int
+    In_p: int
+    Hp: int
+    tiles: int
+    clusters: int
+    waves: int
+    smem: int
+    design: str = "wave"
+
+    def args(self) -> tuple:
+        """The wave entries' tiling arguments ``(In_p, N, stages)``."""
+        return self.In_p, self.N, self.stages
+
+
+def wave_smem(In_p: int, Hp: int, stages: int, backward: bool) -> int:
+    """A wave-design CTA's shared memory (``wave_smem`` in the source): the
+    ring's ``stages`` slabs of 4 x 4 Hp floats; forward two operand
+    buffers [x; h] of ``In_p + Hp`` rows of 16 floats, backward one buffer
+    [x; h_prev; dys] (``In_p + 2 Hp`` rows) and dhp (``3 Hp`` rows); a full
+    and an empty mbarrier a slab."""
+    rows = In_p + 5 * Hp if backward else 2 * (In_p + Hp)
+    return 4 * (stages * gp.SLAB_ROWS * 4 * Hp + rows * gp.TILE_ROWS) + 16 * stages
+
+
+def wave_plan(Bb: int, In: int, H: int, backward: bool = False, L: int = 1) -> WavePlan:
+    """The wave design's tiling of a launch over ``L`` stacks of ``Bb`` rows
+    of ``In`` inputs and ``H`` units (at most ``gate_product.MAX_UNITS``):
+    tiles of 16 rows, clusters of ``WAVE_CLUSTER``, the deepest ring that
+    fits beside the buffers; raises where not even two slabs do."""
+    In_p, Hp = gp.padded(In, H)
+    stages = next((s for s in range(WAVE_MAX_STAGES, 1, -1)
+                   if wave_smem(In_p, Hp, s, backward) <= gp.MAX_SMEM), None)
+    if stages is None:
+        raise ValueError(f"no wave tiling fits In={In}, H={H} in {gp.MAX_SMEM} bytes")
+    R, N = gp.TILE_ROWS, WAVE_CLUSTER
+    tiles = -(-Bb // R)
+    clusters = L * -(-tiles // N)
+    return WavePlan(R, N, stages, In_p, Hp, tiles, clusters,
+                    -(-clusters // gp.CLUSTERS_AT_ONCE[N]), wave_smem(In_p, Hp, stages, backward))
+
+
+def block_tiles(Bb: int, L: int = 1) -> int:
+    """The per-block kernel's blocks: tiles of 4 rows, or of 8 where those
+    outnumber ``SMS`` (``row_tile`` in the source), over the L stacks."""
+    R = 8 if L * -(-Bb // 4) > SMS else 4
+    return L * -(-Bb // R)
+
+
+def cluster_tiling(Bb: int, In: int, H: int, backward: bool = False) -> Plan:
+    """The cluster design's tiling: :func:`cluster_plan.plan` at three
+    gates, its tiles as narrow as ``CLUSTER_TILES`` clusters allow (a step's
+    FMA chain, not the slice's reuse over rows, bounds it)."""
     rows = ROW_QUANTUM * -(-Bb // (ROW_QUANTUM * CLUSTER_TILES))  # for CLUSTER_TILES tiles
-    p = _cluster_plan(Bb, In, H, backward, gates=3, max_rows=rows)
-    return dataclasses.replace(p, cluster=p.resident and p.tiles <= CLUSTER_TILES)
+    return _cluster_plan(Bb, In, H, backward, gates=3, max_rows=rows)
 
 
-def active_clusters(Bb: int, In: int, H: int, backward: bool = False, device=None) -> int:
-    """How many clusters of :func:`plan`'s tiling in the cluster design fit
-    on the CUDA ``device`` at once (the runtime's occupancy query, whichever
-    design the plan picks; 0: none, and a cluster launch raises)."""
-    p = plan(Bb, In, H, backward)
+def plan(Bb: int, In: int, H: int, backward: bool = False, L: int = 1):
+    """The design and tiling of a K3 launch (forward, or the backward's
+    reverse scan) over ``L`` stacks, ``design`` one of:
+
+    - ``"cluster"``: :func:`cluster_tiling`, where the W_hh slice is
+      resident and the tiles number at most ``CLUSTER_TILES``:
+      FullSubNet-GRU's full band;
+    - ``"wave"`` (a :class:`WavePlan`) where the per-block kernel's blocks
+      would not all run at once (``block_tiles`` > ``SMS``) and H, rounded
+      up to whole warps, is ``WAVE_MIN_UNITS`` to ``gate_product.MAX_UNITS``:
+      the sub band at B = 5 and more (one wave up to B = 8, two at 9 and
+      10);
+    - ``"block"`` elsewhere, the per-block kernel, which picks its own tile
+      and chunk (the tiling fields unread): the sub band at B = 1 to 4 and
+      a stream's chunk, where its blocks of 4 or 8 rows all run at once and
+      the wave design's 16-row CTAs leave most of the card idle (PERF.md
+      §6)."""
+    p = cluster_tiling(Bb, In, H, backward)
+    if p.resident and p.tiles <= CLUSTER_TILES:
+        return p
+    if WAVE_MIN_UNITS - gp.UNITS_PER_WARP < H <= gp.MAX_UNITS and block_tiles(Bb, L) > SMS:
+        return wave_plan(Bb, In, H, backward, L)
+    return dataclasses.replace(p, design="block")
+
+
+def active_clusters(Bb: int, In: int, H: int, backward: bool = False, device=None,
+                    L: int = 1) -> int:
+    """How many clusters of :func:`plan`'s design and tiling (cluster or
+    wave) for ``L`` stacks fit on the CUDA ``device`` at once (the
+    runtime's occupancy query; 0: none, and the launch raises)."""
+    p = plan(Bb, In, H, backward, L)
+    if p.design == "block":
+        raise ValueError(f"K3 runs no clusters at Bb={Bb}, In={In}, H={H}: the per-block design")
     dev = torch.device("cuda") if device is None else torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     lib = _library()
-    n = lib.se_gru_inproj_active_clusters(int(backward), In, H, p.R, p.N, p.C, index)
+    if p.design == "wave":
+        n = lib.se_gru_wave_active_clusters(int(backward), In, H, *p.args(), index)
+    else:
+        n = lib.se_gru_inproj_active_clusters(int(backward), In, H, p.R, p.N, p.C, index)
     if n < 0:
         msg = lib.se_cuda_error_string(-n).decode()
         raise RuntimeError(f"K3 occupancy query failed: CUDA error {-n} ({msg})")
@@ -71,8 +171,48 @@ def active_clusters(Bb: int, In: int, H: int, backward: bool = False, device=Non
 
 
 def _tiling(p: Plan) -> tuple:
-    """The entries' design and tiling arguments ``(cluster, R, N, C)``."""
-    return int(p.cluster), p.R, p.N, p.C
+    """The cluster entries' design and tiling arguments ``(cluster, R, N, C)``
+    (cluster 0: the per-block kernel)."""
+    return int(p.design == "cluster"), p.R, p.N, p.C
+
+
+def wave_layout(w_ih_t, b_ih, w_hh_t, b_hh, In_p: int, Hp: int) -> tuple:
+    """``(w [L, In_p + Hp, 4 Hp], bias [L, 4 Hp])``, f32: the weights as
+    the wave kernels read them, each row's columns unit-major (``4 u + c``)
+    in the accumulator order c = (r, z, n_x, n_h).  Rows k < In hold W_ih's
+    r, z and n (n in n_x, 0 in n_h); rows In_p + i, i < H, hold W_hh's r,
+    z, 0 and n (n in n_h); zeros past In and H.  The bias folds ``b_ih +
+    b_hh`` on r and z and keeps ``b_ih``'s n (n_x) and ``b_hh``'s (n_h)
+    apart: n = tanh(n_x + r n_h)."""
+    L, In, G = w_ih_t.shape
+    H = G // 3
+    f32 = torch.float32
+    w = torch.zeros((L, In_p + Hp, Hp, 4), device=w_ih_t.device, dtype=f32)
+    wi = w_ih_t.to(f32).reshape(L, In, 3, H).transpose(2, 3)  # [L, k, unit, gate]
+    wh = w_hh_t.to(f32).reshape(L, H, 3, H).transpose(2, 3)
+    w[:, :In, :H, :3] = wi
+    w[:, In_p:In_p + H, :H, :2] = wh[..., :2]
+    w[:, In_p:In_p + H, :H, 3] = wh[..., 2]
+    bi, bh = b_ih.to(f32).reshape(L, 3, H), b_hh.to(f32).reshape(L, 3, H)
+    bias = torch.zeros((L, Hp, 4), device=w_ih_t.device, dtype=f32)
+    bias[:, :H, :2] = (bi[:, :2] + bh[:, :2]).transpose(1, 2)
+    bias[:, :H, 2] = bi[:, 2]
+    bias[:, :H, 3] = bh[:, 2]
+    return w.reshape(L, In_p + Hp, 4 * Hp), bias.reshape(L, 4 * Hp)
+
+
+def wave_transpose(w_hh_t, Hp: int) -> torch.Tensor:
+    """``wt [L, 3 Hp / 4, 4 Hp]``, f32: W_hh^T as the wave backward's dh
+    product reads it.  W_hh^T's 3 Hp rows k' = g Hp + j (gate g, unit j;
+    zero past H) fall into four parts of Q = 3 Hp / 4; row kq of wt holds,
+    for each unit i, the four parts' rows ``p Q + kq`` side by side (column
+    ``4 i + p``), so dh[i] = sum over p and kq of dhp[p Q + kq] wt[kq][4 i
+    + p]."""
+    L, H, _ = w_hh_t.shape
+    t = torch.zeros((L, 3, Hp, Hp), device=w_hh_t.device, dtype=torch.float32)  # [L, g, j, i]
+    t[:, :, :H, :H] = w_hh_t.to(torch.float32).reshape(L, H, 3, H).permute(0, 2, 3, 1)
+    Q = 3 * Hp // 4
+    return t.reshape(L, 4, Q, Hp).permute(0, 2, 3, 1).reshape(L, Q, 4 * Hp).contiguous()
 
 
 def _gates(x_t, w_ih_t, b_ih, h, w_hh_t, b_hh, H):
@@ -168,8 +308,15 @@ def _library():
             fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
             bwd.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
             fwd.restype = bwd.restype = ctypes.c_int
-        lib.se_gru_inproj_active_clusters.argtypes = [ctypes.c_int] * 7
-        lib.se_gru_inproj_active_clusters.restype = ctypes.c_int
+        for form in build.STREAM_FORMS.values():
+            fwd = getattr(lib, f"se_gru_wave_fwd_{form}")
+            bwd = getattr(lib, f"se_gru_wave_bwd_{form}")
+            fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+            bwd.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+            fwd.restype = bwd.restype = ctypes.c_int
+        for query in ("se_gru_inproj_active_clusters", "se_gru_wave_active_clusters"):
+            getattr(lib, query).argtypes = [ctypes.c_int] * 7
+            getattr(lib, query).restype = ctypes.c_int
     return lib
 
 
@@ -184,12 +331,16 @@ def _forward(x, w_ih_t, b_ih, w_hh_t, b_hh, h0):
     sdt, f32 = x.dtype, torch.float32
     ys = torch.empty((T, L, Bb, H), device=dev, dtype=sdt)
     hT = torch.empty((L, Bb, H), device=dev, dtype=f32)
-    build.cuda_launch(
-        _library(), f"se_gru_inproj_fwd_{build.STREAM_FORMS[sdt]}",
-        (x, w_ih_t, b_ih, w_hh_t, b_hh, h0), _INPUTS, (ys, hT),
-        (T, L, Bb, In, H, *_tiling(plan(Bb, In, H))), dev,
-        (sdt,) + (f32,) * 5,
-    )
+    p, form = plan(Bb, In, H, L=L), build.STREAM_FORMS[sdt]
+    if p.design == "wave":
+        w, bias = wave_layout(w_ih_t, b_ih, w_hh_t, b_hh, p.In_p, p.Hp)
+        build.cuda_launch(_library(), f"se_gru_wave_fwd_{form}", (x, w, bias, h0),
+                          ("x", "w", "bias", "h0"), (ys, hT), (T, L, Bb, In, H, *p.args()),
+                          dev, (sdt, f32, f32, f32))
+    else:
+        build.cuda_launch(_library(), f"se_gru_inproj_fwd_{form}",
+                          (x, w_ih_t, b_ih, w_hh_t, b_hh, h0), _INPUTS, (ys, hT),
+                          (T, L, Bb, In, H, *_tiling(p)), dev, (sdt,) + (f32,) * 5)
     build.count_launch(fused_gru_scan_inproj, sdt)
     return ys, hT
 
@@ -231,15 +382,22 @@ def fused_gru_scan_inproj_backward(x, w_ih_t, b_ih, w_hh_t, b_hh, h0, ys, dys, d
     dw_ih, db_ih = new(L, In, G), new(L, G)
     dw_hh, db_hh, dh0 = new(L, H, G), new(L, G), new(L, Bb, H)
     dg, dgn = new(T, L, Bb, G), new(T, L, Bb, H)
-    build.cuda_launch(
-        _library(), f"se_gru_inproj_bwd_{build.STREAM_FORMS[sdt]}",
-        (x, w_ih_t, b_ih, w_hh_t, b_hh, h0, ys, dys, dhT),
-        (*_INPUTS, "ys", "dys", "dhT"),
-        (dx, dw_ih, db_ih, dw_hh, db_hh, dh0, dg, dgn, build.dw_workspace(dev)),
-        (T, L, Bb, In, H, *_tiling(plan(Bb, In, H, backward=True)), build.DW_WORKSPACE_FLOATS),
-        dev,
-        (sdt,) + (f32,) * 5 + (sdt, sdt, f32),
-    )
+    outs = (dx, dw_ih, db_ih, dw_hh, db_hh, dh0, dg, dgn, build.dw_workspace(dev))
+    p, form = plan(Bb, In, H, backward=True, L=L), build.STREAM_FORMS[sdt]
+    if p.design == "wave":
+        w, bias = wave_layout(w_ih_t, b_ih, w_hh_t, b_hh, p.In_p, p.Hp)
+        wt = wave_transpose(w_hh_t, p.Hp)
+        build.cuda_launch(
+            _library(), f"se_gru_wave_bwd_{form}", (x, w, bias, wt, h0, ys, dys, dhT, w_ih_t),
+            ("x", "w", "bias", "wt", "h0", "ys", "dys", "dhT", "w_ih_t"), outs,
+            (T, L, Bb, In, H, *p.args(), build.DW_WORKSPACE_FLOATS), dev,
+            (sdt, f32, f32, f32, f32, sdt, sdt, f32, f32))
+    else:
+        build.cuda_launch(
+            _library(), f"se_gru_inproj_bwd_{form}",
+            (x, w_ih_t, b_ih, w_hh_t, b_hh, h0, ys, dys, dhT), (*_INPUTS, "ys", "dys", "dhT"),
+            outs, (T, L, Bb, In, H, *_tiling(p), build.DW_WORKSPACE_FLOATS), dev,
+            (sdt,) + (f32,) * 5 + (sdt, sdt, f32))
     build.count_launch(fused_gru_scan_inproj_backward, sdt)
     return dx, dw_ih, db_ih, dw_hh, db_hh, dh0
 
