@@ -118,7 +118,9 @@ in order; any failure ends the run with a nonzero exit and no result line:
    K1b launches exact;
 7. the train CLI, ``python -m se_tpu_torch.train_interface``, for the
    default DCCRN at full width: 2 epochs at ``--batch 4`` on 8 training and
-   4 validation utterances of 3 s with the native PESQ and STOI, in process
+   4 validation utterances of 3 s, a corpus that the port's builder
+   (``python -m se_tpu_torch.data.make_synth_corpus``, a subprocess) writes
+   through its synthesis and packing, with the native PESQ and STOI, in process
    (K1f and K1b launch counts, the run directory, the scores), a resume of
    its epoch 1 in a subprocess held to its epoch 2, ``Epoch_1_SCORES``
    held to a recomputation from ``chkpt_1.pt``, and meanwhile the CLI with
@@ -3052,19 +3054,30 @@ def phase_dp_check(future, cfg, sd, per_step: dict, device="cuda") -> list:
     return [r["launches"] for r in ranks]
 
 
-def _train_cli_data(workdir: Path, device: str, fs: int) -> tuple:
-    """Phase 7's data, 8 training and 4 validation utterances of 3 s
-    (``_utterances``, from SEED) written to ``workdir`` as ``[N, 2, T]``
-    files -> (the train CLI's arguments for 2 epochs at TRAIN_CLI_BATCH,
-    the validation array)."""
-    noisy, clean = _utterances(12, 3, fs)
-    for name, rows in (("train", slice(0, 8)), ("valid", slice(8, 12))):
-        np.save(workdir / f"{name}.npy", np.stack([noisy[rows], clean[rows]], 1))
-    common = ["--train-data", str(workdir / "train.npy"), "--valid-data",
-              str(workdir / "valid.npy"), "--batch", str(TRAIN_CLI_BATCH), "--max-epochs", "2",
+def _train_cli_data(workdir: Path, device: str) -> tuple:
+    """Phase 7's data: ``python -m se_tpu_torch.data.make_synth_corpus
+    <workdir>/corpus 4 4 1`` in a subprocess, as a user builds a corpus (the
+    noise and clean trees, ``generate_corpus``, ``pack_corpus``): 4 clean
+    files at SNRs 0 and 5 dB, 8 training rows, and 4 validation rows, of 3 s
+    -> (the train CLI's arguments for 2 epochs at TRAIN_CLI_BATCH on its
+    ``train.npy`` and ``valid.npy``, the validation array).  A failed build
+    fails the run."""
+    corpus = workdir / "corpus"
+    t0 = time.perf_counter()
+    built = subprocess.run([sys.executable, "-m", "se_tpu_torch.data.make_synth_corpus",
+                            str(corpus), "4", "4", "1"], cwd=REPO, capture_output=True, text=True)
+    build_s = time.perf_counter() - t0
+    assert built.returncode == 0, built.stderr[-3000:]
+    train, valid = (np.load(corpus / f"{name}.npy") for name in ("train", "valid"))
+    print(f"[train-cli] corpus from se_tpu_torch.data.make_synth_corpus in {build_s:.2f} s of "
+          f"host time: train {train.shape} {train.dtype}, valid {valid.shape} {valid.dtype}")
+    assert train.shape == (8, 2, 48000) and valid.shape == (4, 2, 48000), (train.shape, valid.shape)
+    assert np.isfinite(train).all() and np.isfinite(valid).all()
+    common = ["--train-data", str(corpus / "train.npy"), "--valid-data",
+              str(corpus / "valid.npy"), "--batch", str(TRAIN_CLI_BATCH), "--max-epochs", "2",
               "--job-dir", str(workdir / "models"), "--logs-dir", str(workdir / "logs"),
               "--device", device]
-    return common, np.load(workdir / "valid.npy")
+    return common, valid
 
 
 def _resume_copy(run: Path, suffix: str = "resumed") -> Path:
@@ -3122,7 +3135,7 @@ def _resume_summary(r: dict) -> str:
 
 def phase_train_cli(workdir: Path, device="cuda") -> None:
     """The train CLI on the card for the default ``Config`` at full width:
-    ``_train_cli_data``'s utterances, ``--batch 4 --max-epochs 2``, real
+    ``_train_cli_data``'s corpus, ``--batch 4 --max-epochs 2``, real
     PESQ (the native P.862.2) and STOI.  (1) ``train_interface.main`` in this
     process, every count set to 0 just before and read just after: K1f 2 x (4
     train steps + 2 validation batches), K1b 2 x 4, nothing else; the run's
@@ -3146,7 +3159,7 @@ def phase_train_cli(workdir: Path, device="cuda") -> None:
     t0 = time.perf_counter()
     cfg = Config()
     fs, batch = cfg.stft.fs, TRAIN_CLI_BATCH
-    common, valid = _train_cli_data(workdir, device, fs)
+    common, valid = _train_cli_data(workdir, device)
 
     # (1) the uninterrupted run
     _zero_counts()

@@ -4,3 +4,5 @@ Imports nothing of JAX or of the ``se_tpu`` package: it keeps its own
 copies of what it needs.  Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``.
 """
+
+from .config import Config, default_config, tutorial_config

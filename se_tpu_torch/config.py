@@ -10,9 +10,11 @@ accelerator switches two are copied under their own names:
 backward (``torch.utils.checkpoint``), trading that recompute for
 activation memory on the card as it did on the TPU.  The others (the
 Pallas LSTM switch, conv space-to-depth) have no meaning here and are not
-copied.  Nor is ``ParallelConfig``: a data-parallel run
-takes its ranks from torchrun's environment (``parallel/mesh.py``), not
-from a config.
+copied.  ``ObsConfig`` is copied: its media cadence gates the training
+loop's audio and spectrogram logs.  ``ParallelConfig`` is not: a
+data-parallel run takes its ranks from torchrun's environment
+(``parallel/mesh.py``), not from a config.  ``tutorial_config()`` and
+``default_config()`` give the JAX package's two named configurations.
 """
 
 from __future__ import annotations
@@ -113,6 +115,15 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class ObsConfig:
+    """Observability.  The reference hard-codes a 10-epoch audio cadence
+    (trainer.py:232-233); the training loop logs its validation audio and
+    spectrograms on the epochs that ``log_media_every`` divides, none at 0."""
+
+    log_media_every: int = 10
+
+
+@dataclass(frozen=True)
 class Config:
     model: str = "DCCRN"
     loss: str = "SDR"
@@ -127,6 +138,7 @@ class Config:
     crn: CrnConfig = field(default_factory=CrnConfig)
     fullsubnet: FullSubNetConfig = field(default_factory=FullSubNetConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    obs: ObsConfig = field(default_factory=ObsConfig)
 
     # Activation dtype of the network path; f32 matches the reference.
     compute_dtype: str = "float32"
@@ -187,3 +199,13 @@ class Config:
             "--------------------------------------------------------------\n",
         ]
         return "\n".join(lines)
+
+
+def tutorial_config() -> Config:
+    """The tutorial's configuration (the reference's SE_tutorials.ipynb):
+    CRN, E mask, MSE, the real LSTM."""
+    return Config(model="CRN", loss="MSE", lstm="real", masking_mode="E")
+
+
+def default_config() -> Config:
+    return Config()

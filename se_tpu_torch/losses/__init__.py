@@ -1,4 +1,5 @@
-from .core import mse, sdr, si_sdr, si_snr
+from .core import l2_norm, mse, remove_dc, sdr, sdr_linear, si_sdr, si_snr
 from .dispatch import main_loss, perceptual_loss
 
-__all__ = ["main_loss", "mse", "perceptual_loss", "sdr", "si_sdr", "si_snr"]
+__all__ = ["l2_norm", "main_loss", "mse", "perceptual_loss", "remove_dc", "sdr", "sdr_linear",
+           "si_sdr", "si_snr"]

@@ -7,10 +7,22 @@ from __future__ import annotations
 import torch
 
 
+def remove_dc(data: torch.Tensor) -> torch.Tensor:
+    """``data`` less its mean along the last axis."""
+    return data - torch.mean(data, dim=-1, keepdim=True)
+
+
 def l2_norm(s1: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
     """Inner product along the last axis, dim kept (a reference quirk:
     not a norm)."""
     return torch.sum(s1 * s2, dim=-1, keepdim=True)
+
+
+def sdr_linear(s1: torch.Tensor, s2: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """``<s1,s1>^2 / <s1-s2, s1-s2>^2``, averaged: :func:`sdr` before its log."""
+    sn = l2_norm(s1, s1)
+    sn_m_shn = l2_norm(s1 - s2, s1 - s2)
+    return torch.mean(sn**2 / (sn_m_shn**2 + eps))
 
 
 def sdr(s1: torch.Tensor, s2: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

@@ -43,6 +43,26 @@ def plot_spectrogram_to_numpy(
     return data
 
 
+def plot_mask_to_numpy(
+    mask, fs, n_fft, n_overlap, clim1=None, clim2=None, cmap="viridis"
+) -> np.ndarray:
+    """Mask image over ``[T, F]`` (reference: tools_for_model.py:1289-1312),
+    in a standard matplotlib colormap where the reference hand-typed its
+    own (write_on_tensorboard.py:17-316)."""
+    mask = np.asarray(mask)
+    fig, ax = plt.subplots(figsize=(12, 3))
+    im = ax.imshow(mask.T, aspect="auto", origin="lower", interpolation="none", cmap=cmap)
+    ax.set_xlabel("Time (frames)")
+    ax.set_ylabel("Frequency (bins)")
+    fig.tight_layout()
+    fig.colorbar(im, ax=ax)
+    if clim1 is not None:
+        im.set_clim(clim1, clim2)
+    data = fig2np(fig)
+    plt.close(fig)
+    return data
+
+
 def plot_error_to_numpy(
     estimated, target, fs, n_fft, n_overlap, mode=None, clim1=None, clim2=None,
     label=None,

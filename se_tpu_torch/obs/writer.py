@@ -2,9 +2,11 @@
 write_on_tensorboard.py:13-386).
 
 Scalars (train/val loss, the perceptual variant's two terms, PESQ/STOI),
-periodic audio triplets and the spectrogram image channel, which the
-validation loop logs every ``train.loop.MEDIA_EVERY`` epochs (10, the
-reference's hard-coded audio cadence, trainer.py:232-233).
+periodic audio triplets, and the spectrogram and mask image channels.  The
+validation loop logs the audio and the spectrograms every
+``Config.obs.log_media_every`` epochs (default 10, the reference's
+hard-coded audio cadence, trainer.py:232-233); as in the JAX package and
+the reference, nothing in the loop draws the masks.
 """
 
 from __future__ import annotations
@@ -118,6 +120,20 @@ class Writer:
             wavs["enhanced"], wavs["clean"], self.fs, self.n_fft, self.n_overlap
         )
         self._w.add_image("spec_error", err, step, dataformats="HWC")
+
+    def log_mask_spectrogram(self, mask_mag, mask_real, mask_imag, step):
+        """Mask images over ``[T, F]`` (reference: write_on_tensorboard.py:375-386)."""
+        if self._w is None:
+            return
+        from .plots import plot_mask_to_numpy
+
+        for name, m, clim in (
+            ("mask_mag", mask_mag, (0, 1.2)),
+            ("mask_real", mask_real, (-1.2, 1.2)),
+            ("mask_imag", mask_imag, (-1.2, 1.2)),
+        ):
+            img = plot_mask_to_numpy(np.asarray(m), self.fs, self.n_fft, self.n_overlap, *clim)
+            self._w.add_image(name, img, step, dataformats="HWC")
 
     def close(self):
         if self._w is not None:

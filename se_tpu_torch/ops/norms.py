@@ -45,9 +45,12 @@ def batch_norm_2d(
     ``shard.shard_context`` the statistics are the global batch's, and
     the gradient flows through them to every rank's rows.
     """
-    if train and shard.active() is not None:
-        # the global batch's statistics: its sum and count, then its
-        # centred sum of squares, each all-reduced over the group
+    if train:
+        # the batch's sum and count, then its centred sum of squares, each
+        # all-reduced inside shard.shard_context (the identity outside it).
+        # One formula in both contexts, so a group of one computes a single
+        # process's bits; on the card torch's mean (the sum times 1/n) parts
+        # from sum / n in the last bit, which Adam's first steps amplify
         sums = shard.all_reduce_sum(torch.cat([
             x.sum(dim=(0, 2, 3), dtype=torch.float32),
             _count(x, x.shape[1]),
@@ -57,13 +60,6 @@ def batch_norm_2d(
         xc = x - mean.to(x.dtype)[None, :, None, None]
         var = shard.all_reduce_sum(xc.square().sum(dim=(0, 2, 3), dtype=torch.float32)) / n
         unbiased = var * n / (n - 1).clamp(min=1)
-    elif train:
-        mean = x.mean(dim=(0, 2, 3), dtype=torch.float32)
-        xc = x - mean.to(x.dtype)[None, :, None, None]
-        var = xc.square().mean(dim=(0, 2, 3), dtype=torch.float32)
-        n = x.shape[0] * x.shape[2] * x.shape[3]
-        unbiased = var * n / max(n - 1, 1)
-    if train:
         new_mean = (1 - momentum) * running_mean + momentum * mean
         new_var = (1 - momentum) * running_var + momentum * unbiased
     else:

@@ -45,9 +45,6 @@ from .steps import eval_step, train_step
 MAX_PENDING_SCORES = 4
 # batches staged ahead on the device by the prefetch thread
 PREFETCH_DEPTH = 2
-# epochs between the validation's audio and spectrogram logs (the
-# reference's audio cadence, trainer.py:232-233)
-MEDIA_EVERY = 10
 
 
 def score_workers(batch: int, local_world: int = 1) -> int:
@@ -231,7 +228,9 @@ class Trainer:
         in the JAX loop) and the scores of every rank are gathered."""
         cfg = self.cfg
         sums, wsum = {}, 0
-        media_epoch = epoch % MEDIA_EVERY == 0
+        # the validation's audio and spectrograms, on ObsConfig's cadence
+        every = cfg.obs.log_media_every
+        media_epoch = every > 0 and epoch % every == 0
         last = None
         # global real rows per batch where the loader wrap-pads its tail
         counts = getattr(self.valid_loader, "valid_per_batch", None)

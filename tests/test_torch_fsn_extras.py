@@ -1,8 +1,10 @@
 """FullSubNet's optional pieces in the PyTorch port against the JAX package
 on the CPU: the forgetting-EMA norms (``forgetting_norm``,
 ``sband_forgetting_norm``, ``hybrid_norm``), the band dropping
-``reduce_complexity_separately``, and ``weight_init=True``'s init table
-(``apply_reference_weight_init``) for the LSTM and the GRU."""
+``reduce_complexity_separately``, ``weight_init=True``'s init table
+(``apply_reference_weight_init``) for the LSTM and the GRU, and ten Adam
+steps of a tiny FullSubNet against JAX's jitted ``make_train_step``
+(settling whether the first step's loss rise is the reference's own)."""
 
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from se_tpu_torch.models.factory import _TRUNCATED_STD
 from se_tpu_torch.ops import norms
 from se_tpu_torch.ops.unfold import reduce_complexity_separately
 from se_tpu_torch.utils.weights import random_fullsubnet_params, state_dict_from_jax
+from tests.torch_fsn_first_step import adam_losses
 
 EMA_TOL = 1e-6  # relative, elementwise
 ORTHO_TOL = 1e-5
@@ -160,3 +163,27 @@ def test_weight_init_matches_the_reference_table(seq):
     assert all(torch.equal(sd[k], again[k]) for k in sd)
     other = build_model(cfg, device="cpu", seed=1).state_dict()
     assert all(not torch.equal(sd[k], other[k]) for k in want)
+
+
+# --- ten Adam steps against JAX's --------------------------------------------------
+
+
+def test_ten_adam_steps_match_jax():
+    """A tiny FullSubNet (LSTM, dropout 0, MSE, lr 1e-3) from the same
+    weights (``random_fullsubnet_params`` through ``state_dict_from_jax``),
+    ten Adam steps on one fixed batch of 4 rows of 0.1 s: the port's
+    ``train_step`` against JAX's jitted ``make_train_step`` (its scan LSTM,
+    the reference's plain path on the CPU; ``tests/torch_fsn_first_step.py``,
+    which also runs them at full width).  The first three losses at rtol
+    1e-4, as ``tests/test_torch_parallel_2proc.py`` holds its FullSubNet
+    steps; all ten at 1e-3."""
+    rng = np.random.default_rng(12)
+    clean = (rng.standard_normal((4, 1600)) * 0.1).astype(np.float32)
+    noisy = (clean + rng.standard_normal(clean.shape) * 0.05).astype(np.float32)
+    got, want = adam_losses(noisy, clean, 10, stft=dict(fft_len=64, win_len=48),
+                            fb_model_hidden_size=32, sb_model_hidden_size=24, sb_num_neighbors=3,
+                            dropout=0.0)
+    print(f"FullSubNet losses, port: {got}; JAX: {want}")
+    assert np.isfinite(got).all() and len(got) == len(want) == 10
+    np.testing.assert_allclose(got[:3], want[:3], rtol=1e-4)
+    np.testing.assert_allclose(got, want, rtol=1e-3)
