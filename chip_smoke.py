@@ -16,11 +16,14 @@ in order; any failure ends the run with a nonzero exit and no result line:
    backward (K1b, train shapes) with the forward's cell-state stash, then
    the in-projection LSTM scan's forward (K2f) and backward (K2b) at CRN's
    enhance and train shapes, DCCRN's real-LSTM shapes, FullSubNet's four
-   LSTM layers (at B = 2, 10 and 8), two ragged cases (one where neither
-   the rows divide by the cluster's tile nor the units by its CTAs) and a
-   wide (4H = 2048, In = 257) case, each with the planner's tiling printed
-   (clusters, CTAs, rows, the W_hh slice resident or streamed, shared
-   bytes), then the in-projection GRU scan's forward (K3f) and
+   LSTM layers (at B = 2, 10 and 8), three ragged cases (one where neither
+   the rows divide by the cluster's tile nor the units by its CTAs, one of
+   two stacks in the wave design) and a wide (4H = 2048, In = 257) case,
+   each with the planner's design printed (thread-block clusters, with
+   their CTAs, rows, the W_hh slice resident or streamed and shared bytes;
+   from B = 3 at the sub band the wave design of 16-row CTAs, with its
+   tiles, waves and ring; and the occupancy query's clusters), then the
+   in-projection GRU scan's forward (K3f) and
    backward (K3b) at FullSubNet's four GRU layers (B = 2, 10 and 8) and four
    ragged cases, each with the planner's design printed (thread-block
    clusters, with their tiling; the wave design of 16-row CTAs, with its
@@ -29,8 +32,8 @@ in order; any failure ends the run with a nonzero exit and no result line:
    encoder's fused complex conv (K4) at its six
    stages (B = 10 and 8) and a ragged case, with one cuDNN conv beside it;
    the bf16-stream forms of K1 (DCCRN's enhance and train shapes) and K2
-   (CRN's, FullSubNet's sub band and full band, layer 0, and the two ragged
-   cases), each backward held on the
+   (CRN's, FullSubNet's sub band and full band, layer 0, and the three
+   ragged cases), each backward held on the
    kernel's own saved ys and cs, with the f32 form's time at the same shape
    and cuDNN's LSTM in bf16 beside them; the bf16 forms of K3 (FullSubNet-
    GRU's four layers at B = 2, 10 and 8, four ragged cases, each backward
@@ -39,7 +42,8 @@ in order; any failure ends the run with a nonzero exit and no result line:
    form's time and cuDNN's GRU or conv in bf16 beside them (K4's bound at
    the tensor cores' bf16 rate, its products being bf16); K2f and K2b with
    the bf16 cell-state stash (``cs_dtype=bfloat16``) in both stream forms at
-   CRN's train shape and the sub band's layer 0 at B = 2, the forward bit
+   CRN's train shape, the sub band's layer 0 at B = 2 and the ragged case
+   in the wave design, the forward bit
    for bit the f32 stash's but its stash rounded, each against its plain
    version, the gradients also against the f32 stash's within the
    reference's 5e-3 of each leaf's max, with both stashes' times;
@@ -48,7 +52,8 @@ in order; any failure ends the run with a nonzero exit and no result line:
    hop 300, from a nonzero state; K4 on the chunk and its cached frame),
    each chunk also as two calls with the state carried, with times;
    then the probes (P1 bound_probe, P2 wavefront_probe, P3 vpu_probe), each
-   against its plain version (P2 also against two K2 calls, at a ragged
+   against its plain version (P1's real mode also bit for bit against K2
+   on its cluster design; P2 also against two K2 calls, at a ragged
    tile, in two waves of clusters and twice for the same bits; P3's
    dots-only also at a step count its groups do not divide), then each
    probe's own entry point at the sub band's shape (B = 8, T = 163) with
@@ -624,20 +629,31 @@ def _cudnn_lstm(w_ih_t, bias, w_hh_t, dev):
 
 
 _K2B_NAMES = ("dx", "dw_ih_t", "dbias", "dw_hh_t", "dh0", "dc0")
+# K2's ragged case in the wave design: (label, T, L, Bb, In, H), two stacks
+# of 600 rows (38 tiles of 16, the last of 8), In = 20 padded to 24, H =
+# 200 padded to 224 units (seven consumer warps)
+_K2_RAGGED_WAVE = ("ragged wave, two stacks", 7, 2, 600, 20, 200)
 
 
-def _k2_tiling(Bb, In, H) -> str:
-    """The planner's choice for K2's forward and backward scans at a shape:
-    clusters x CTAs, rows a cluster, units a CTA, the W_hh slice resident or
-    streamed, chunk steps, shared bytes a CTA, and how many such clusters
-    the card runs at once."""
+def _k2_tiling(Bb, In, H, L=1) -> str:
+    """The planner's design for K2's forward and backward scans at a shape:
+    on clusters (clusters x CTAs, rows a cluster, units a CTA, the W_hh
+    slice resident or streamed, chunk steps, shared bytes a CTA, and how
+    many such clusters the card runs at once), or in waves of 16-row CTAs
+    (tiles, clusters of N, waves, ring slabs, x's padded rows, shared bytes
+    a CTA and the occupancy query's clusters at once)."""
     from se_tpu_torch.ops.fused_lstm_inproj import active_clusters, plan
 
     def one(backward):
-        p = plan(Bb, In, H, backward)
-        return (f"{p.tiles} x {p.N} CTAs, R={p.R}, U={p.U}, "
+        p = plan(Bb, In, H, backward, L)
+        fits = active_clusters(Bb, In, H, backward, L=L)
+        if p.design == "wave":
+            return (f"wave design, {p.tiles} tiles of {p.R} rows a stack in {p.clusters} clusters "
+                    f"of {p.N} CTAs, {p.waves} wave(s), ring of {p.stages} slabs, In_p={p.In_p}, "
+                    f"Hp={p.Hp}, {p.smem} B, {fits} clusters at once")
+        return (f"clusters, {p.tiles} x {p.N} CTAs, R={p.R}, U={p.U}, "
                 f"{'resident' if p.resident else 'streamed'}, C={p.C}, {p.smem} B, "
-                f"{active_clusters(Bb, In, H, backward)} clusters at once")
+                f"{fits} clusters at once")
 
     return f"forward {one(False)}; backward {one(True)}"
 
@@ -669,9 +685,9 @@ def phase_inproj_kernels() -> tuple:
     """fused_lstm_scan_inproj (K2f) and its backward (K2b): CRN's bottleneck
     at the enhance shape (T=483, L=1, Bb=8, In=512, H=128) and the train
     shape (Bb=10); DCCRN's real LSTM layers (In=1024 and 256, H=256) at
-    Bb=8 and 2; two ragged cases (T=7, L=3, Bb=5, In=24, H=32; T=7, L=2,
+    Bb=8 and 2; three ragged cases (T=7, L=3, Bb=5, In=24, H=32; T=7, L=2,
     Bb=37, In=20, H=44: two tiles of 20 rows, 6 CTAs of 8 units but the
-    last of 4); a wide case
+    last of 4; ``_K2_RAGGED_WAVE``, two stacks in the wave design); a wide case
     with 4H above the block's threads and an odd In (FullSubNet's full band:
     T=193, Bb=2, In=257, H=512).  Returns the K2f and K2b entries."""
     from se_tpu_torch.device import resolve_device
@@ -706,7 +722,7 @@ def phase_inproj_kernels() -> tuple:
         rel = {n: _max_err(g, w) / max(w.abs().max().item(), 1e-30)
                for n, g, w in zip(_K2B_NAMES, got, want_b)}
         bwd_abs = max(_max_err(g, w) for g, w in zip(got, want_b))
-        print(f"[k2] {label} T={T} L={L} Bb={Bb} In={In} H={H}: {_k2_tiling(Bb, In, H)}; "
+        print(f"[k2] {label} T={T} L={L} Bb={Bb} In={In} H={H}: {_k2_tiling(Bb, In, H, L)}; "
               f"forward max |kernel - plain| {fwd_errs}; backward max |kernel - plain| / "
               f"max |plain| {rel}, max abs {bwd_abs}")
         assert all(np.isfinite(v) and v <= KERNEL_TOL for v in fwd_errs.values()), (label, fwd_errs)
@@ -715,7 +731,7 @@ def phase_inproj_kernels() -> tuple:
         return args, ys, cs, cots, max(fwd_errs.values()), max(rel.values()), bwd_abs
 
     for case in (("ragged", 7, 3, 5, 24, 32), ("ragged tiles and units", 7, 2, 37, 20, 44),
-                 ("wide", 193, 1, 2, 257, 512)):
+                 _K2_RAGGED_WAVE, ("wide", 193, 1, 2, 257, 512)):
         check(*case)
     print("[k2] every case: ys, hT, cT bit-identical with and without the stash; "
           "two backward calls bit-identical")
@@ -921,7 +937,7 @@ def phase_bf16_kernels() -> tuple:
     B=8, backward B=10), at FullSubNet's sub band, layer 0 (In=32, H=384,
     Bb=2056, T=163, B=8: many rows, the W_hh slice resident) and full band,
     layer 0 (In=257, H=512, Bb=8: the slice streamed); K1 at a ragged case,
-    K2 at two.  Each backward is held
+    K2 at three (one ``_K2_RAGGED_WAVE``).  Each backward is held
     against the plain backward on the kernel's own saved ys and cs.  Times
     of the bf16 form, of the f32 form on the same values, of the plain
     version and of cuDNN's LSTM (bf16 if it takes it); bounds at bf16
@@ -1045,6 +1061,9 @@ def phase_bf16_kernels() -> tuple:
 
     check(k2, "K2 ragged T=7 L=3 Bb=5 In=24 H=32", *k2_case(7, 3, 5, 24, 32))
     check(k2, "K2 ragged tiles and units T=7 L=2 Bb=37 In=20 H=44", *k2_case(7, 2, 37, 20, 44))
+    _, T_w, L_w, Bb_w, In_w, H_w = _K2_RAGGED_WAVE
+    check(k2, f"K2 ragged wave T={T_w} L={L_w} Bb={Bb_w} In={In_w} H={H_w} "
+          f"({_k2_tiling(Bb_w, In_w, H_w, L_w)})", *k2_case(T_w, L_w, Bb_w, In_w, H_w))
     k2f, k2b = {}, {}
     for label, T, Bb_f, Bb_b, In, H in _K2_BF16:
         for kind, Bb in (("fwd", Bb_f), ("bwd", Bb_b)):
@@ -1100,9 +1119,11 @@ def phase_bf16_kernels() -> tuple:
     return k1f, k1b, k2f, k2b
 
 
-# K2's bf16 cell-state stash: (label, T, Bb, In, H) at CRN's train shape
-# and one sub-band layer (layer 0, B = 2: 2 x 257 rows)
-_K2_STASH = (("CRN", 483, 10, 512, 128), ("FullSubNet sb l0 B=2", 163, 514, 32, 384))
+# K2's bf16 cell-state stash: (label, T, L, Bb, In, H) at CRN's train
+# shape, one sub-band layer (layer 0, B = 2: 2 x 257 rows) and the ragged
+# wave case
+_K2_STASH = (("CRN", 483, 1, 10, 512, 128), ("FullSubNet sb l0 B=2", 163, 1, 514, 32, 384),
+             _K2_RAGGED_WAVE)
 # bf16 against f32 stash gradients, over each leaf's max: the reference's
 # own bound (tests/test_pallas_lstm.py::test_inproj_bf16_cs_stash_grads_close)
 STASH_GRAD_TOL = 5e-3
@@ -1135,13 +1156,13 @@ def phase_stash_kernels() -> tuple:
                              if g.dtype == f32}
     entries = {}
     for stream in (f32, bf16):
-        for label, T, Bb, In, H in _K2_STASH:
-            x, *rest = _inproj_inputs(rng, dev, T, 1, Bb, In, H)
+        for label, T, L, Bb, In, H in _K2_STASH:
+            x, *rest = _inproj_inputs(rng, dev, T, L, Bb, In, H)
             x = x.to(stream)
             dys, dhT, dcT = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
-                             for s in ((T, 1, Bb, H), (1, Bb, H), (1, Bb, H))]
+                             for s in ((T, L, Bb, H), (L, Bb, H), (L, Bb, H))]
             cots = (dys.to(stream), dhT, dcT)
-            tag = f"{label} T={T} Bb={Bb} In={In} H={H}, {str(stream)[6:]} stream"
+            tag = f"{label} T={T} L={L} Bb={Bb} In={In} H={H}, {str(stream)[6:]} stream"
             with torch.no_grad():
                 ys, cs, hT, cT = fwd(x, *rest, need_cs=True, cs_dtype=bf16)
                 ys32, cs32, hT32, cT32 = fwd(x, *rest, need_cs=True, cs_dtype=f32)
@@ -1176,7 +1197,7 @@ def phase_stash_kernels() -> tuple:
                     d = (d - torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
                          ).clamp_min(0)
                 vs32[n] = d.max().item() / max(w.float().abs().max().item(), 1e-30)
-            print(f"[stash] {tag} ({_k2_tiling(Bb, In, H)}): forward bit for bit the f32 "
+            print(f"[stash] {tag} ({_k2_tiling(Bb, In, H, L)}): forward bit for bit the f32 "
                   f"stash's, its stash that rounded; against plain: f32 {f_errs} (tolerance "
                   f"{KERNEL_TOL}), cs bf16 {cs_e}" + (f", ys bf16 {ys_e}" if ys_e else "")
                   + f"; backward against plain, f32 outputs over their max {b_rel} (tolerance "
@@ -1191,7 +1212,7 @@ def phase_stash_kernels() -> tuple:
             assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{tag}: not repeatable"
             assert all(torch.equal(a, b) for a, b in zip(got32, again32)), \
                 f"{tag}: the f32 stash's backward not repeatable"
-            if stream != f32 or label == "CRN":
+            if stream != f32 or not label.startswith("FullSubNet"):
                 continue
             # the sub band, f32 stream: the numbers of the kernels line
             with torch.no_grad():
@@ -1243,8 +1264,9 @@ _FSN_LAYERS = (("fb l0", 1, 257, 512), ("fb l1", 1, 512, 512),
 # the batches of the train paths besides the enhance batch of 8: the card
 # vs CPU step (2) and the 10 steps (the default batch, 10).  At B=10 the
 # last row tile is partial: 10 rows in tiles of 4 at the full band, 2570
-# in tiles of 16 at the sub band (K3's wave design, in two waves); at B=2
-# K3 runs the sub band on its per-block kernel
+# in tiles of 16 at the sub band (K2's and K3's wave design, in two
+# waves); at B=2 K3 runs the sub band on its per-block kernel, K2 on
+# clusters
 _FSN_TRAIN_BATCHES = (2, 10)
 
 
@@ -1827,13 +1849,14 @@ def _rel(got, want) -> float:
 def phase_probes() -> tuple:
     """The probes' kernels (P1-P3) against their plain versions on the card
     at small shapes and at the sub band's, P1's real mode bit for bit
-    against K2 there, P2 also against two K2 calls and in two waves, P3's
-    dots-only also at a ragged step count, then each probe's own entry
+    against K2 forced onto its cluster design there, P2 also against two
+    K2 calls and in two waves, P3's dots-only also at a ragged step count,
+    then each probe's own entry
     point (``main`` at B=8, T=163) with every launch count set to 0 just
     before and read just after; the plain versions and the library calls
     timed beside them.  Returns the P1, P2 and P3 entries."""
     from se_tpu_torch.device import resolve_device
-    from se_tpu_torch.ops.fused_lstm_inproj import fused_lstm_scan_inproj
+    from se_tpu_torch.ops import fused_lstm_inproj as k2
     from se_tpu_torch.probes import bound_probe, cuda_ms, gate_product, vpu_probe, wavefront_probe
 
     dev = resolve_device("cuda")
@@ -1868,12 +1891,19 @@ def phase_probes() -> tuple:
     print(f"[p1] bf16gates ys at T={T} Bb={Bb}: mean |kernel - plain| {off}, mean |plain real - "
           f"plain bf16gates| {gap} (must be at least {P1_BF16_SEPARATION}x the first)")
     assert off * P1_BF16_SEPARATION <= gap, (off, gap)
+    planner = k2.plan  # K2 forced onto its cluster design, P1's kernel
+    k2.plan = lambda Bb_, In_, H_, backward=False, L=1: k2.cluster_tiling(Bb_, In_, H_, backward)
+    try:
+        with torch.no_grad():
+            x, wih, b, whh, h0, c0 = full
+            k2_ys, (k2_h, k2_c) = k2.fused_lstm_scan_inproj(x[:, None], wih[None], b[None],
+                                                            whh[None], h0[None], c0[None])
+    finally:
+        k2.plan = planner
+    assert torch.equal(ys, k2_ys[:, 0]) and torch.equal(hT, k2_h[0]) and torch.equal(cT, k2_c[0])
+    print(f"[p1] real mode at T={T} Bb={Bb}: bit-identical with K2 on its cluster design "
+          f"({k2.cluster_tiling(Bb, In, H)})")
     with torch.no_grad():
-        x, wih, b, whh, h0, c0 = full
-        k2_ys, (k2_h, k2_c) = fused_lstm_scan_inproj(x[:, None], wih[None], b[None], whh[None],
-                                                     h0[None], c0[None])
-        assert torch.equal(ys, k2_ys[:, 0]) and torch.equal(hT, k2_h[0]) and torch.equal(cT, k2_c[0])
-        print(f"[p1] real mode at T={T} Bb={Bb}: bit-identical with K2")
         plain_ms = cuda_ms(lambda: bound_probe.reference("real", *full), 1, 1)
         lstm = _cudnn_lstm(wih[None], b[None], whh[None], dev)
         lib_ms = cuda_ms(lambda: lstm(x, (h0[None], c0[None])), 5, 1)

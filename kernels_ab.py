@@ -35,13 +35,19 @@ forward), and beside K2-bf16 at the two l1 layers cuDNN's bf16
 ``nn.LSTM`` and the plain versions.  It prints one line, ``AB <tag>
 {kernel: [ms, sha256 of its outputs or null]}``: equal hashes mean equal
 bits; then ``LAUNCHES <tag> {layer: [[kernel, us], ...]}``, each launch
-of one f32 K3b call at each layer in order (torch.profiler, the least of
+of one f32 K3b call at each layer and of one K2b call at the sub band's
+two layers (``K2b sb l0`` ...) in order (torch.profiler, the least of
 three calls), and each design of the checkout's K3 forced at each layer
 and form, its time and hash under ``K3f ... [cluster]``, ``[block]`` and,
 where the checkout has it, ``[wave]`` keys.  The family ``K3-sweep`` times
 K3f and K3b in the per-block and the wave design at every sub-band shape
 the paths launch (B = 1 to 10, a stream's chunk, the ragged H = 64 case;
 ``K3_SWEEP``) beside the design the planner takes there.
+Beside K2 at FullSubNet's four layers it times each design of the
+checkout's K2 forced (``[cluster]``, and ``[wave]`` at H = 384, where the
+checkout has the wave design), and the family ``K2-sweep`` times K2f and
+K2b in both designs at every sub-band shape (B = 1 to 10, a stream's
+chunk; ``K2_SWEEP``) beside the design the planner takes there.
 ``families`` (comma-separated, of ``FAMILIES``) limits the run to those;
 each family draws its inputs from its own generator, so a family's
 hashes are the same in a run of some families as in a run of all.
@@ -80,7 +86,8 @@ def _hash(*tensors) -> str:
     return m.hexdigest()[:16]
 
 
-FAMILIES = ("K1", "K2", "K4", "P1", "K2-bf16", "K3", "P2", "P3", "K2-cs16", "K3-sweep")
+FAMILIES = ("K1", "K2", "K4", "P1", "K2-bf16", "K3", "P2", "P3", "K2-cs16", "K3-sweep",
+            "K2-sweep")
 
 
 def main(tag: str, only: str = "") -> dict:
@@ -106,7 +113,7 @@ def main(tag: str, only: str = "") -> dict:
     launches = {}
     for family, run in (("K1", _k1), ("K2", _k2), ("K4", _k4), ("P1", _p1),
                         ("K2-bf16", _k2_bf16), ("K2-cs16", _k2_cs16), ("K3", _k3), ("P2", _p2),
-                        ("P3", _p3), ("K3-sweep", _k3_sweep)):
+                        ("P3", _p3), ("K3-sweep", _k3_sweep), ("K2-sweep", _k2_sweep)):
         if family in wanted:
             launches.update(run(*draws(family), dev, out) or {})
     print("AB", tag, json.dumps(out))
@@ -118,24 +125,101 @@ def main(tag: str, only: str = "") -> dict:
 K1_TILES = tuple((N, R) for N in (2, 4, 8, 16) for R in (4, 8, 16, 20))
 
 
-def _k2(rng, cots, dev, out):
-    """K2f and K2b at CRN, DCCRN's real LSTM and FullSubNet's four layers."""
-    for label, T, Bb, In, H in (("CRN", 483, 8, 512, 128), ("CRN train", 483, 10, 512, 128),
-                                ("DCCRN real l0", 483, 8, 1024, 256),
-                                ("DCCRN real l1", 483, 8, 256, 256),
-                                *FULLSUBNET_LSTM):
-        args = cs._inproj_inputs(rng, dev, T, 1, Bb, In, H)
-        with torch.no_grad():
-            ys, cs_, hT, cT = k2._forward(*args, need_cs=True)
+def _k2_designs() -> dict:
+    """``{key suffix: planner}``: the checkout's own K2 plan (``""``) and,
+    where the checkout has two designs (``fused_lstm_inproj.wave_plan``),
+    each forced: ``[cluster]`` (``cluster_tiling``) and ``[wave]``."""
+    planner = k2.plan
+    designs = {"": planner}
+    if hasattr(k2, "wave_plan"):
+        designs[" [cluster]"] = lambda Bb, In, H, backward=False, L=1: k2.cluster_tiling(
+            Bb, In, H, backward)
+        designs[" [wave]"] = lambda Bb, In, H, backward=False, L=1: k2.wave_plan(
+            Bb, In, H, backward, L)
+    return designs
+
+
+def _k2(rng, cots, dev, out) -> dict:
+    """K2f and K2b at CRN, DCCRN's real LSTM and FullSubNet's four layers,
+    the last also in each design forced (``_k2_designs``; the wave design
+    only at H <= 384); returns each launch of one K2b call in the
+    checkout's design at the sub band's two layers (``K2b sb l0`` ...)."""
+    designs = _k2_designs()
+    launches = {}
+    try:
+        for label, T, Bb, In, H in (("CRN", 483, 8, 512, 128), ("CRN train", 483, 10, 512, 128),
+                                    ("DCCRN real l0", 483, 8, 1024, 256),
+                                    ("DCCRN real l1", 483, 8, 256, 256),
+                                    *FULLSUBNET_LSTM):
+            args = cs._inproj_inputs(rng, dev, T, 1, Bb, In, H)
             c = cots((T, 1, Bb, H), (1, Bb, H), (1, Bb, H))
-            if label != "CRN train":
-                ms = cuda_ms(lambda: k2.fused_lstm_scan_inproj(*args), 10 if label == "CRN" else 5, 2)
-                out[f"K2f {label}"] = (ms, _hash(ys, hT, cT))
-            if label != "CRN":
-                g = k2.fused_lstm_scan_inproj_backward(*args, ys, cs_, *c)
-                ms = cuda_ms(lambda: k2.fused_lstm_scan_inproj_backward(*args, ys, cs_, *c),
-                             10 if label == "CRN train" else 3, 1)
-                out[f"K2b {label}"] = (ms, _hash(*g))
+            for suffix, design in designs.items():
+                if suffix and (label.startswith(("CRN", "DCCRN")) or
+                               (suffix == " [wave]" and H > 384)):
+                    continue
+                k2.plan = design
+                with torch.no_grad():
+                    ys, cs_, hT, cT = k2._forward(*args, need_cs=True)
+                    if label != "CRN train":
+                        ms = cuda_ms(lambda: k2.fused_lstm_scan_inproj(*args),
+                                     10 if label == "CRN" else 5, 2)
+                        out[f"K2f {label}{suffix}"] = (ms, _hash(ys, hT, cT))
+                    if label != "CRN":
+                        g = k2.fused_lstm_scan_inproj_backward(*args, ys, cs_, *c)
+                        ms = cuda_ms(lambda: k2.fused_lstm_scan_inproj_backward(*args, ys, cs_, *c),
+                                     10 if label == "CRN train" else 3, 1)
+                        out[f"K2b {label}{suffix}"] = (ms, _hash(*g))
+                        if suffix == "" and label.startswith("sb"):
+                            launches[f"K2b {label}"] = _kernel_launches(
+                                lambda: k2.fused_lstm_scan_inproj_backward(*args, ys, cs_, *c))
+                        del g
+                    del ys, cs_
+            k2.plan = designs[""]
+    finally:
+        k2.plan = designs[""]
+    return launches
+
+
+# Every K2 shape of FullSubNet's sub band where the two designs compete (T,
+# Bb, In, H; backward too but for the stream's chunks): B = 1 to 10 and a
+# stream's 5-frame chunk (Bb = 257)
+K2_SWEEP = tuple(
+    [(f"{name} B={B}", 163, 257 * B, In, 384, True) for B in range(1, 11)
+     for name, In in (("sb l0", 32), ("sb l1", 384))]
+    + [("stream sb l0", 5, 257, 32, 384, False), ("stream sb l1", 5, 257, 384, 384, False)])
+
+
+def _k2_sweep(rng, cots, dev, out):
+    """K2f and K2b (f32) at every shape of ``K2_SWEEP`` in each design the
+    checkout has forced (``[cluster]``, ``[wave]``; their order turned round
+    between two passes, ``[.. 2]`` keys), and the design its planner takes
+    there (``K2 design ...`` keys, the design's name in the ms field; a
+    checkout with one design: its plan alone, ``cluster``)."""
+    designs = _k2_designs()
+    own = designs.pop("")
+    designs = designs or {"": own}
+    try:
+        for label, T, Bb, In, H, backward in K2_SWEEP:
+            for kind in (False, True) if backward else (False,):
+                p = own(Bb, In, H, kind)
+                out[f"K2 design {label}{' bwd' if kind else ''}"] = (
+                    getattr(p, "design", "cluster"), None)
+            args = cs._inproj_inputs(rng, dev, T, 1, Bb, In, H)
+            c = cots((T, 1, Bb, H), (1, Bb, H), (1, Bb, H))
+            for rep, order in (("", list(designs)), (" 2", list(designs)[::-1])):
+                for suffix in order:
+                    k2.plan = designs[suffix]
+                    with torch.no_grad():
+                        ys, cs_, _, _ = k2._forward(*args, need_cs=True)
+                        out[f"K2f {label}{suffix}{rep}"] = (
+                            cuda_ms(lambda: k2.fused_lstm_scan_inproj(*args), 5, 1), None)
+                        if backward:
+                            out[f"K2b {label}{suffix}{rep}"] = (cuda_ms(
+                                lambda: k2.fused_lstm_scan_inproj_backward(*args, ys, cs_, *c),
+                                2, 1), None)
+                        del ys, cs_
+    finally:
+        k2.plan = own
 
 
 def _k2_bf16(rng, cots, dev, out):

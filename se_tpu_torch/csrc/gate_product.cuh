@@ -1,6 +1,6 @@
 // The gate product of the probes P2 (wavefront_lstm.cu) and P3's dots-only
-// mode (vpu_probe.cu), and of K3's wave design at the sub band
-// (gru_inproj.cu), for Hopper (sm_90a): acc = a . W over a tile of
+// mode (vpu_probe.cu), and of K2's and K3's wave design at the sub band
+// (lstm_inproj.cu, gru_inproj.cu), for Hopper (sm_90a): acc = a . W over a tile of
 // kTileRows batch rows, with W streamed through a shared-memory ring by
 // cp.async.bulk and multicast across a thread-block cluster.  It is the
 // product of the Pallas kernels of tools/wavefront_probe.py (:34-145, each
@@ -365,18 +365,100 @@ int gate_active_clusters(void (*kernel)(Params...), int n, size_t smem) {
   return clusters;
 }
 
-// Launches `kernel` on `ctas` CTAs (a multiple of n) in clusters of n, with
-// kGateThreads threads and `smem` bytes each.
+constexpr int kWaveMaxStages = 8;  // ring slabs at most
+
+// ---- The wave design of K2 and K3 (lstm_inproj.cu, gru_inproj.cu) ----------
+
+// The shared memory of a wave-design CTA (gate_smem_bytes), or 0 unless
+// (In_p, N, stages) is a tiling these kernels take: N = 2 or 4, In_p = In
+// rounded up to a pair of slabs, H at most 384, a ring of 2 to 8 slabs
+// within the block's shared memory.  Forward: two operand buffers [x; h]
+// ([In_p + Hp][16] each); backward In_p + 5 Hp rows of 16: K3's buffer
+// [x; h_prev; dys] (In_p + 2 Hp) and dhp (3 Hp), K2's buffer [x; h_prev]
+// (In_p + Hp) and dgates (4 Hp; dys and the stash go to registers).
+inline size_t wave_smem(bool backward, int In, int H, int In_p, int N, int stages) {
+  if (N != 2 && N != kMaxGateCluster) return 0;
+  if (H < 1 || padded_units(H) > kMaxWarps * kUnitsPerWarp || In < 1) return 0;
+  if (In_p != (In + 2 * kSlabRows - 1) / (2 * kSlabRows) * 2 * kSlabRows) return 0;
+  if (stages < 2 || stages > kWaveMaxStages) return 0;
+  const int Hp = padded_units(H);
+  const int buf = (backward ? In_p + 5 * Hp : 2 * (In_p + Hp)) * kTileRows;
+  const size_t bytes = gate_smem_bytes(stages, kSlabRows * 4 * Hp, buf);
+  return bytes <= kGateMaxSmem ? bytes : 0;
+}
+
+// dst[k][r] = src[r * ld + k] for r < rows, k < K (dst k-major, 16 columns):
+// f32 by cp.async (waited for by wait_copies), bf16 loaded, widened and
+// stored; the `count` threads from `first` share the elements.
+template <typename TS>
+__device__ __forceinline__ void stage_kmajor(float* dst, const TS* __restrict__ src, int rows,
+                                             int K, int ld, int first, int count) {
+  for (int i = threadIdx.x - first; i < rows * K; i += count) {
+    const int r = i / K, k = i % K;
+    if constexpr (kIsF32<TS>) {
+      copy_async(dst + k * kTileRows + r, src + static_cast<size_t>(r) * ld + k);
+    } else {
+      dst[k * kTileRows + r] = to_f32(src[static_cast<size_t>(r) * ld + k]);
+    }
+  }
+}
+
+__device__ __forceinline__ void zero_acc(float (&acc)[kThreadRows][8]) {
+#pragma unroll
+  for (int r = 0; r < kThreadRows; ++r) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+  }
+}
+
+// A backward's dh product on the ring of W_hh^T: dh_prev[i] = sum over
+// the gate-gradient rows k' = g Hp + j (K3: 3 Hp of dhp, K2: 4 Hp of
+// dgates) of a[k'] W_hh[i][g H + j], the rows split into four parts of Q
+// (K3: 3 Hp / 4; K2: Hp, a part a gate; part p: k' = p Q ..), laid out by
+// the wrapper as wt [Q][Hp][4] (row kq, unit i, part p: W_hh^T[p Q +
+// kq][i]).  A thread's 64 accumulators hold its 8 rows x 2 units x 4 parts,
+// so each k of a slab serves the same 64 FMAs as the forward's product; the
+// parts are summed in a fixed order after the last slab.  `part` is Q x
+// 16, the floats between two parts of a [4 Q][16].
+struct DhSlabs {
+  int part;
+  __device__ __forceinline__ void operator()(const float* a, const float* w, int ld,
+                                             const GateLane& me,
+                                             float (&acc)[kThreadRows][8]) const {
+#pragma unroll
+    for (int kk = 0; kk < kSlabRows; ++kk) {
+      const float4 wa = *reinterpret_cast<const float4*>(w + kk * ld + 4 * me.ua);
+      const float4 wb = *reinterpret_cast<const float4*>(w + kk * ld + 4 * me.ub);
+      const float wv[2][4] = {{wa.x, wa.y, wa.z, wa.w}, {wb.x, wb.y, wb.z, wb.w}};
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const float* ap = a + p * part + kk * kTileRows + me.r0;
+        const float4 a0 = *reinterpret_cast<const float4*>(ap);
+        const float4 a1 = *reinterpret_cast<const float4*>(ap + 4);
+        const float av[kThreadRows] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+        for (int r = 0; r < kThreadRows; ++r) {
+          acc[r][p] = fmaf(av[r], wv[0][p], acc[r][p]);
+          acc[r][4 + p] = fmaf(av[r], wv[1][p], acc[r][4 + p]);
+        }
+      }
+    }
+  }
+};
+
+// Launches `kernel` on `ctas` CTAs a stack (a multiple of n) for L stacks
+// (gridDim.y), in clusters of n CTAs along x, kGateThreads threads and
+// `smem` bytes each.
 template <typename... Params, typename... Args>
-cudaError_t launch_gate_clusters(void (*kernel)(Params...), int n, int ctas, size_t smem,
-                                 cudaStream_t s, Args... args) {
+cudaError_t launch_wave(void (*kernel)(Params...), int n, int ctas, int L, size_t smem,
+                        cudaStream_t s, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kGateMaxSmem));
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
-  cfg.gridDim = dim3(ctas);
+  cfg.gridDim = dim3(ctas, L);
   cfg.blockDim = dim3(kGateThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
@@ -389,6 +471,21 @@ cudaError_t launch_gate_clusters(void (*kernel)(Params...), int n, int ctas, siz
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// CTAs a stack of the wave design: the 16-row tiles, rounded up to whole
+// clusters of N.
+inline int wave_ctas(int Bb, int N) {
+  const int tiles = (Bb + kTileRows - 1) / kTileRows;
+  return (tiles + N - 1) / N * N;
+}
+
+// Launches `kernel` on `ctas` CTAs (a multiple of n) in clusters of n, with
+// kGateThreads threads and `smem` bytes each.
+template <typename... Params, typename... Args>
+cudaError_t launch_gate_clusters(void (*kernel)(Params...), int n, int ctas, size_t smem,
+                                 cudaStream_t s, Args... args) {
+  return launch_wave(kernel, n, ctas, 1, smem, s, args...);
 }
 
 }  // namespace

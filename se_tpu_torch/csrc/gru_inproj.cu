@@ -655,49 +655,6 @@ gru_cluster_bwd_kernel(const TS* __restrict__ x, const float* __restrict__ wih_t
 
 // ---- The wave design --------------------------------------------------------
 
-constexpr int kWaveMaxStages = 8;  // ring slabs at most
-
-// The shared memory of a wave-design CTA (gate_smem_bytes), or 0 unless
-// (In_p, N, stages) is a tiling these kernels take: N = 2 or 4, In_p = In
-// rounded up to a pair of slabs, H at most 384, a ring of 2 to 8 slabs
-// within the block's shared memory.  Forward: two operand buffers [x; h]
-// ([In_p + Hp][16] each); backward: one buffer [x; h_prev; dys] ([In_p +
-// 2 Hp][16]) and dhp [3 Hp][16].
-inline size_t wave_smem(bool backward, int In, int H, int In_p, int N, int stages) {
-  if (N != 2 && N != kMaxGateCluster) return 0;
-  if (H < 1 || padded_units(H) > kMaxWarps * kUnitsPerWarp || In < 1) return 0;
-  if (In_p != (In + 2 * kSlabRows - 1) / (2 * kSlabRows) * 2 * kSlabRows) return 0;
-  if (stages < 2 || stages > kWaveMaxStages) return 0;
-  const int Hp = padded_units(H);
-  const int buf = (backward ? In_p + 5 * Hp : 2 * (In_p + Hp)) * kTileRows;
-  const size_t bytes = gate_smem_bytes(stages, kSlabRows * 4 * Hp, buf);
-  return bytes <= kGateMaxSmem ? bytes : 0;
-}
-
-// dst[k][r] = src[r * ld + k] for r < rows, k < K (dst k-major, 16 columns):
-// f32 by cp.async (waited for by wait_copies), bf16 loaded, widened and
-// stored; the `count` threads from `first` share the elements.
-template <typename TS>
-__device__ __forceinline__ void stage_kmajor(float* dst, const TS* __restrict__ src, int rows,
-                                             int K, int ld, int first, int count) {
-  for (int i = threadIdx.x - first; i < rows * K; i += count) {
-    const int r = i / K, k = i % K;
-    if constexpr (kIsF32<TS>) {
-      copy_async(dst + k * kTileRows + r, src + static_cast<size_t>(r) * ld + k);
-    } else {
-      dst[k * kTileRows + r] = to_f32(src[static_cast<size_t>(r) * ld + k]);
-    }
-  }
-}
-
-__device__ __forceinline__ void zero_acc(float (&acc)[kThreadRows][8]) {
-#pragma unroll
-  for (int r = 0; r < kThreadRows; ++r) {
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-  }
-}
-
 // The forward's cell for the thread's 8 rows and 2 units, from the
 // accumulated (r, z, n_x, n_h) plus the folded bias (pallas_lstm.py:597-600,
 // :616): h in place, into the next buffer's h rows (h_s [Hp][16]) and into
@@ -814,40 +771,6 @@ gru_wave_fwd_kernel(const TS* __restrict__ x, const float* __restrict__ w,
   __syncwarp();
   gate_cluster_sync();  // no CTA leaves while a peer may still copy into it or arrive on it
 }
-
-// The backward's dh product on the ring of W_hh^T: dh_prev[i] = sum over
-// the 3 Hp rows k' = g Hp + j of dhp[k'] W_hh[i][g H + j], the rows split
-// into four parts of Q = 3 Hp / 4 (part p: k' = p Q ..), laid out by the
-// wrapper as wt [Q][Hp][4] (row kq, unit i, part p: W_hh^T[p Q + kq][i]).
-// A thread's 64 accumulators hold its 8 rows x 2 units x 4 parts, so each
-// k of a slab serves the same 64 FMAs as the forward's product; the parts
-// are summed in a fixed order after the last slab.  `part` is Q x 16, the
-// floats between two parts of dhp [3 Hp][16].
-struct DhSlabs {
-  int part;
-  __device__ __forceinline__ void operator()(const float* a, const float* w, int ld,
-                                             const GateLane& me,
-                                             float (&acc)[kThreadRows][8]) const {
-#pragma unroll
-    for (int kk = 0; kk < kSlabRows; ++kk) {
-      const float4 wa = *reinterpret_cast<const float4*>(w + kk * ld + 4 * me.ua);
-      const float4 wb = *reinterpret_cast<const float4*>(w + kk * ld + 4 * me.ub);
-      const float wv[2][4] = {{wa.x, wa.y, wa.z, wa.w}, {wb.x, wb.y, wb.z, wb.w}};
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        const float* ap = a + p * part + kk * kTileRows + me.r0;
-        const float4 a0 = *reinterpret_cast<const float4*>(ap);
-        const float4 a1 = *reinterpret_cast<const float4*>(ap + 4);
-        const float av[kThreadRows] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-        for (int r = 0; r < kThreadRows; ++r) {
-          acc[r][p] = fmaf(av[r], wv[0][p], acc[r][p]);
-          acc[r][4 + p] = fmaf(av[r], wv[1][p], acc[r][4 + p]);
-        }
-      }
-    }
-  }
-};
 
 // The backward's reverse scan (K3b's first pass) in the wave design: the
 // forward's w and bias, wt [L][3 Hp / 4][4 Hp] (DhSlabs), h0, ys, dys and
@@ -997,40 +920,6 @@ gru_wave_bwd_kernel(const TS* __restrict__ x, const float* __restrict__ w,
   }
   __syncwarp();
   gate_cluster_sync();
-}
-
-// Launches `kernel` on `ctas` CTAs a stack (a multiple of n) for L stacks
-// (gridDim.y), in clusters of n CTAs along x, kGateThreads threads and
-// `smem` bytes each.
-template <typename... Params, typename... Args>
-cudaError_t launch_wave(void (*kernel)(Params...), int n, int ctas, int L, size_t smem,
-                        cudaStream_t s, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kGateMaxSmem));
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  cfg.gridDim = dim3(ctas, L);
-  cfg.blockDim = dim3(kGateThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = n;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-// CTAs a stack of the wave design: the 16-row tiles, rounded up to whole
-// clusters of N.
-int wave_ctas(int Bb, int N) {
-  const int tiles = (Bb + kTileRows - 1) / kTileRows;
-  return (tiles + N - 1) / N * N;
 }
 
 // ---- The per-block design's launch ----------------------------------------

@@ -29,8 +29,9 @@ class Plan:
     ``R`` rows a cluster, ``U`` units a CTA (the last one fewer where N does
     not divide H), chunks of ``C`` steps, the CTA's W_hh slice ``resident``
     in shared memory (else read from L2 every step), ``smem`` bytes a
-    CTA.  ``design`` is ``"cluster"``, the one design K1 and K2 have; K3
-    runs another at its sub band (``fused_gru_inproj.plan``)."""
+    CTA.  ``design`` is ``"cluster"``, the one design K1 has; K2 and K3
+    run others at their sub band (``fused_lstm_inproj.plan``,
+    ``fused_gru_inproj.plan``)."""
 
     R: int
     N: int

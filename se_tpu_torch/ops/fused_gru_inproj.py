@@ -25,11 +25,18 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from dataclasses import dataclass
 
 import torch
 
 from ..probes import gate_product as gp
+from ..probes.gate_product import (  # noqa: F401 (the wave design's tiling, shared with K2)
+    WAVE_CLUSTER,
+    WAVE_MAX_STAGES,
+    WAVE_MIN_UNITS,
+    WavePlan,
+    wave_plan,
+    wave_smem,
+)
 from . import build
 from .cluster_plan import ROW_QUANTUM, Plan
 from .cluster_plan import plan as _cluster_plan
@@ -41,72 +48,10 @@ from .cluster_plan import plan as _cluster_plan
 # of T steps, and the designs whose CTAs all run at once measured faster
 # (FullSubNet-GRU's sub band, both directions, PERF.md §6).
 CLUSTER_TILES = 7
-# The wave design's cluster: 2 CTAs share each W slab.  Clusters of 4 hold
-# 120 CTAs at once against 132 (gate_product.CLUSTERS_AT_ONCE), so they
-# never run in fewer waves, and P2 (the same product) ran no faster on 1
-# CTA than on 2 (PERF.md §6): the FFMA issue bounds it, not L2.
-WAVE_CLUSTER = 2
-WAVE_MAX_STAGES = 8  # the ring's slabs at most (csrc/gru_inproj.cu: kWaveMaxStages)
-# The wave design's fewest units (whole warps): one consumer warp an SM
-# quarter.  With fewer (the ragged H = 64) the ring's round trips are not
-# hidden and the per-block kernel measured faster (PERF.md §6).
-WAVE_MIN_UNITS = 4 * gp.UNITS_PER_WARP
 # The H100's SMs: the per-block kernel runs one block an SM, its blocks of
 # 4 rows or, where those outnumber the SMs, 8 (``row_tile`` in the source,
 # which asks the device).
 SMS = 132
-
-
-@dataclass(frozen=True)
-class WavePlan:
-    """A launch's tiling in the wave design (``csrc/gru_inproj.cu``, on
-    ``csrc/gate_product.cuh``): ``tiles`` row tiles of ``R`` = 16 rows a
-    stack, one a CTA with all ``Hp`` units (H rounded up to whole warps), in
-    ``clusters`` clusters of ``N`` CTAs over the L stacks, ``waves`` waves
-    of the clusters the card holds at once; x padded to ``In_p`` rows k; a
-    ring of ``stages`` W slabs; ``smem`` bytes a CTA."""
-
-    R: int
-    N: int
-    stages: int
-    In_p: int
-    Hp: int
-    tiles: int
-    clusters: int
-    waves: int
-    smem: int
-    design: str = "wave"
-
-    def args(self) -> tuple:
-        """The wave entries' tiling arguments ``(In_p, N, stages)``."""
-        return self.In_p, self.N, self.stages
-
-
-def wave_smem(In_p: int, Hp: int, stages: int, backward: bool) -> int:
-    """A wave-design CTA's shared memory (``wave_smem`` in the source): the
-    ring's ``stages`` slabs of 4 x 4 Hp floats; forward two operand
-    buffers [x; h] of ``In_p + Hp`` rows of 16 floats, backward one buffer
-    [x; h_prev; dys] (``In_p + 2 Hp`` rows) and dhp (``3 Hp`` rows); a full
-    and an empty mbarrier a slab."""
-    rows = In_p + 5 * Hp if backward else 2 * (In_p + Hp)
-    return 4 * (stages * gp.SLAB_ROWS * 4 * Hp + rows * gp.TILE_ROWS) + 16 * stages
-
-
-def wave_plan(Bb: int, In: int, H: int, backward: bool = False, L: int = 1) -> WavePlan:
-    """The wave design's tiling of a launch over ``L`` stacks of ``Bb`` rows
-    of ``In`` inputs and ``H`` units (at most ``gate_product.MAX_UNITS``):
-    tiles of 16 rows, clusters of ``WAVE_CLUSTER``, the deepest ring that
-    fits beside the buffers; raises where not even two slabs do."""
-    In_p, Hp = gp.padded(In, H)
-    stages = next((s for s in range(WAVE_MAX_STAGES, 1, -1)
-                   if wave_smem(In_p, Hp, s, backward) <= gp.MAX_SMEM), None)
-    if stages is None:
-        raise ValueError(f"no wave tiling fits In={In}, H={H} in {gp.MAX_SMEM} bytes")
-    R, N = gp.TILE_ROWS, WAVE_CLUSTER
-    tiles = -(-Bb // R)
-    clusters = L * -(-tiles // N)
-    return WavePlan(R, N, stages, In_p, Hp, tiles, clusters,
-                    -(-clusters // gp.CLUSTERS_AT_ONCE[N]), wave_smem(In_p, Hp, stages, backward))
 
 
 def block_tiles(Bb: int, L: int = 1) -> int:

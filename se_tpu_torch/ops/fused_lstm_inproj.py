@@ -8,8 +8,10 @@ the ``[T, Bb, 4H]`` projection never exists in device memory.  As there,
 the plain call (inference) writes no cell-state stash; when an input needs
 a gradient, the call goes through a ``torch.autograd.Function`` whose
 forward also writes the stash ``cs`` and whose backward recomputes the
-gates from ``(x, h_prev)``.  The kernels' design and what bounds them are
-described at the top of their source.
+gates from ``(x, h_prev)``.  :func:`plan` picks one of the source's two
+designs per shape (thread-block clusters, or waves of 16-row CTAs on the
+gate product at the sub band's many rows); the designs and what bounds
+them are described at the top of the source.
 
 Two forms, as the Pallas kernel has: f32, and the bf16-stream form, in
 which ``x``, ``ys``, their cotangent ``dys`` and the gradient ``dx`` are
@@ -36,6 +38,8 @@ import os
 
 import torch
 
+from ..probes import gate_product as gp
+from ..probes.gate_product import wave_plan
 from . import build
 from .cluster_plan import MAX_SMEM, Plan, cell_threads, smem_bytes  # noqa: F401 (K2's tiling)
 from .cluster_plan import plan as _cluster_plan
@@ -58,25 +62,85 @@ def _stash_dtype(cs_dtype):
     return cs_dtype
 
 
-def plan(Bb: int, In: int, H: int, backward: bool = False) -> Plan:
-    """The tiling of a K2 launch (forward, or the backward's reverse scan):
-    :func:`cluster_plan.plan` at four gates.  The W_hh slice is resident
-    wherever a tile of 4 rows fits beside it, else streamed from L2."""
+# The wave design is taken where it busies at least this many CTAs (16-row
+# tiles over the L stacks), a third of the H100's 132 SMs, and H, rounded
+# up to whole warps, is WAVE_MIN_UNITS to gate_product.MAX_UNITS.  Its
+# step costs the same whatever the rows, so with fewer CTAs the cluster
+# design, which runs few rows in few waves, measured faster: FullSubNet's
+# sub band at B = 1 and 2 (17 and 33 CTAs) and a stream's chunk, both
+# layers and directions but sb l1's forward at B = 2 (19.3 against 20.1 ms
+# on clusters); the wave design from B = 3 (49 CTAs; PERF.md §6).
+WAVE_MIN_CTAS = 44
+
+
+def cluster_tiling(Bb: int, In: int, H: int, backward: bool = False) -> Plan:
+    """The cluster design's tiling of a K2 launch (forward, or the
+    backward's reverse scan): :func:`cluster_plan.plan` at four gates.  The
+    W_hh slice is resident wherever a tile of 4 rows fits beside it, else
+    streamed from L2."""
     return _cluster_plan(Bb, In, H, backward, gates=4)
 
 
-def active_clusters(Bb: int, In: int, H: int, backward: bool = False, device=None) -> int:
-    """How many clusters of :func:`plan`'s tiling fit on the CUDA ``device``
-    at once (the runtime's occupancy query; 0: none, and a launch raises)."""
-    p = plan(Bb, In, H, backward)
+def plan(Bb: int, In: int, H: int, backward: bool = False, L: int = 1):
+    """The design and tiling of a K2 launch over ``L`` stacks, ``design``
+    one of:
+
+    - ``"wave"`` (a ``gate_product.WavePlan``, K3's wave tiling) where its 16-row
+      tiles over the L stacks number ``WAVE_MIN_CTAS`` or more and H,
+      rounded up to whole warps, is ``WAVE_MIN_UNITS`` to
+      ``gate_product.MAX_UNITS``: FullSubNet's sub band from B = 3;
+    - ``"cluster"``: :func:`cluster_tiling` elsewhere: CRN, DCCRN's real
+      LSTM, the full band (H = 512), the sub band at B = 1 and 2 and a
+      stream's chunk."""
+    if (gp.WAVE_MIN_UNITS - gp.UNITS_PER_WARP < H <= gp.MAX_UNITS
+            and L * -(-Bb // gp.TILE_ROWS) >= WAVE_MIN_CTAS):
+        return wave_plan(Bb, In, H, backward, L)
+    return cluster_tiling(Bb, In, H, backward)
+
+
+def active_clusters(Bb: int, In: int, H: int, backward: bool = False, device=None,
+                    L: int = 1) -> int:
+    """How many clusters of :func:`plan`'s design and tiling fit on the CUDA
+    ``device`` at once (the runtime's occupancy query; 0: none, and a
+    launch raises)."""
+    p = plan(Bb, In, H, backward, L)
     dev = torch.device("cuda") if device is None else torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     lib = _library()
-    n = lib.se_lstm_inproj_active_clusters(int(backward), In, H, *p.args(), index)
+    if p.design == "wave":
+        n = lib.se_lstm_wave_active_clusters(int(backward), In, H, *p.args(), index)
+    else:
+        n = lib.se_lstm_inproj_active_clusters(int(backward), In, H, *p.args(), index)
     if n < 0:
         msg = lib.se_cuda_error_string(-n).decode()
         raise RuntimeError(f"K2 occupancy query failed: CUDA error {-n} ({msg})")
     return n
+
+
+def wave_layout(w_ih_t, bias, w_hh_t, In_p: int, Hp: int) -> tuple:
+    """``(w [L, In_p + Hp, 4 Hp], bias [L, 4 Hp])``, f32: the weights as
+    the wave kernels read them, each row's columns unit-major (``4 u + g``,
+    gates i, f, g, o): rows k < In hold W_ih, rows In_p + i, i < H, W_hh;
+    zeros past In and H.  The bias is the combined ``b_ih + b_hh`` the
+    wrapper receives, in the same column order."""
+    L, In, _ = w_ih_t.shape
+    H = w_hh_t.shape[1]
+    w = torch.zeros((L, In_p + Hp, 4 * Hp), device=w_ih_t.device, dtype=torch.float32)
+    w[:, :In] = gp.unit_major(w_ih_t.float(), Hp)
+    w[:, In_p:In_p + H] = gp.unit_major(w_hh_t.float(), Hp)
+    return w, gp.unit_major(bias.float(), Hp).contiguous()
+
+
+def wave_transpose(w_hh_t, Hp: int) -> torch.Tensor:
+    """``wt [L, Hp, 4 Hp]``, f32: W_hh^T as the wave backward's dh product
+    reads it.  W_hh^T's 4 Hp rows k' = g Hp + j (gate g, unit j; zero past
+    H) fall into four parts of Hp rows, one a gate; row j of wt holds, for
+    each unit i, the four gates' rows side by side (column ``4 i + g``), so
+    dh[i] = sum over g and j of dgates[g Hp + j] wt[j][4 i + g]."""
+    L, H, _ = w_hh_t.shape
+    t = torch.zeros((L, 4, Hp, Hp), device=w_hh_t.device, dtype=torch.float32)  # [L, g, j, i]
+    t[:, :, :H, :H] = w_hh_t.float().reshape(L, H, 4, H).permute(0, 2, 3, 1)
+    return t.permute(0, 2, 3, 1).reshape(L, Hp, 4 * Hp).contiguous()
 
 
 def _gates(x_t, w_ih_t, bias, h, w_hh_t):
@@ -185,9 +249,15 @@ def _library():
                 bwd = getattr(lib, f"se_lstm_inproj_bwd_{form}{stash}")
                 fwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
                 bwd.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-                fwd.restype = bwd.restype = ctypes.c_int
+                wfwd = getattr(lib, f"se_lstm_wave_fwd_{form}{stash}")
+                wbwd = getattr(lib, f"se_lstm_wave_bwd_{form}{stash}")
+                wfwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+                wbwd.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+                fwd.restype = bwd.restype = wfwd.restype = wbwd.restype = ctypes.c_int
         lib.se_lstm_inproj_active_clusters.argtypes = [ctypes.c_int] * 8
         lib.se_lstm_inproj_active_clusters.restype = ctypes.c_int
+        lib.se_lstm_wave_active_clusters.argtypes = [ctypes.c_int] * 7
+        lib.se_lstm_wave_active_clusters.restype = ctypes.c_int
     return lib
 
 
@@ -212,11 +282,16 @@ def _forward(x, w_ih_t, bias, w_hh_t, h0, c0, need_cs, cs_dtype=None):
     # no stash, no stash form: the inference launch is the f32-stash entry's
     stash = _STASH_FORMS[cs_dtype] if need_cs else ""
     cs = torch.empty((T, L, Bb, H), device=dev, dtype=cs_dtype) if need_cs else None
-    build.cuda_launch(
-        _library(), f"se_lstm_inproj_fwd_{build.STREAM_FORMS[sdt]}{stash}",
-        (x, w_ih_t, bias, w_hh_t, h0, c0), _INPUTS, (ys, cs, hT, cT),
-        (T, L, Bb, In, H, *plan(Bb, In, H).args()), dev, (sdt,) + (f32,) * 5,
-    )
+    p, form = plan(Bb, In, H, L=L), build.STREAM_FORMS[sdt]
+    if p.design == "wave":
+        w, b = wave_layout(w_ih_t, bias, w_hh_t, p.In_p, p.Hp)
+        build.cuda_launch(_library(), f"se_lstm_wave_fwd_{form}{stash}", (x, w, b, h0, c0),
+                          ("x", "w", "bias", "h0", "c0"), (ys, cs, hT, cT),
+                          (T, L, Bb, In, H, *p.args()), dev, (sdt,) + (f32,) * 4)
+    else:
+        build.cuda_launch(_library(), f"se_lstm_inproj_fwd_{form}{stash}",
+                          (x, w_ih_t, bias, w_hh_t, h0, c0), _INPUTS, (ys, cs, hT, cT),
+                          (T, L, Bb, In, H, *p.args()), dev, (sdt,) + (f32,) * 5)
     build.count_launch(fused_lstm_scan_inproj, sdt, stash)
     return ys, cs, hT, cT
 
@@ -229,7 +304,7 @@ def fused_lstm_scan_inproj_backward(x, w_ih_t, bias, w_hh_t, h0, c0, ys, cs, dys
     :data:`CS_STASH_DTYPE`), float32 or bfloat16.
 
     CPU tensors run the plain version.  CUDA tensors launch the backward
-    kernels (the reverse scan on :func:`plan`'s tiling, then the
+    kernels (the reverse scan in :func:`plan`'s design, then the
     deterministic dx product and dW_ih, dW_hh and dbias reductions over an
     f32 ``[T, L, Bb, 4H]`` dgates scratch buffer) on the current stream, or
     raise: contiguous only; x, ys and dys all
@@ -267,17 +342,27 @@ def fused_lstm_scan_inproj_backward(x, w_ih_t, bias, w_hh_t, h0, c0, ys, cs, dys
     dx = torch.empty((T, L, Bb, In), device=dev, dtype=sdt)
     dw_ih, db, dw_hh = new(L, In, G), new(L, G), new(L, H, G)
     dh0, dc0, scratch = new(L, Bb, H), new(L, Bb, H), new(T, L, Bb, G)
-    tiling = plan(Bb, In, H, backward=True)
-    # [L, 4H, H], read only by the dh pass of a streamed slice (else unread)
-    w_hh = w_hh_t if tiling.resident else w_hh_t.transpose(1, 2).contiguous()
-    build.cuda_launch(
-        _library(), f"se_lstm_inproj_bwd_{build.STREAM_FORMS[sdt]}{stash}",
-        (x, w_ih_t, bias, w_hh_t, w_hh, h0, c0, ys, cs, dys, dhT, dcT),
-        ("x", "w_ih_t", "bias", "w_hh_t", "w_hh", "h0", "c0", "ys", "cs", "dys", "dhT", "dcT"),
-        (dx, dw_ih, db, dw_hh, dh0, dc0, scratch, build.dw_workspace(dev)),
-        (T, L, Bb, In, H, *tiling.args(), build.DW_WORKSPACE_FLOATS),
-        dev, (sdt,) + (f32,) * 6 + (sdt, cs_dtype, sdt, f32, f32),
-    )
+    outs = (dx, dw_ih, db, dw_hh, dh0, dc0, scratch, build.dw_workspace(dev))
+    p, form = plan(Bb, In, H, backward=True, L=L), build.STREAM_FORMS[sdt]
+    if p.design == "wave":
+        w, b = wave_layout(w_ih_t, bias, w_hh_t, p.In_p, p.Hp)
+        wt = wave_transpose(w_hh_t, p.Hp)
+        build.cuda_launch(
+            _library(), f"se_lstm_wave_bwd_{form}{stash}",
+            (x, w, b, wt, h0, c0, ys, cs, dys, dhT, dcT, w_ih_t),
+            ("x", "w", "bias", "wt", "h0", "c0", "ys", "cs", "dys", "dhT", "dcT", "w_ih_t"),
+            outs, (T, L, Bb, In, H, *p.args(), build.DW_WORKSPACE_FLOATS), dev,
+            (sdt,) + (f32,) * 5 + (sdt, cs_dtype, sdt, f32, f32, f32))
+    else:
+        # [L, 4H, H], read only by the dh pass of a streamed slice (else unread)
+        w_hh = w_hh_t if p.resident else w_hh_t.transpose(1, 2).contiguous()
+        build.cuda_launch(
+            _library(), f"se_lstm_inproj_bwd_{form}{stash}",
+            (x, w_ih_t, bias, w_hh_t, w_hh, h0, c0, ys, cs, dys, dhT, dcT),
+            ("x", "w_ih_t", "bias", "w_hh_t", "w_hh", "h0", "c0", "ys", "cs", "dys", "dhT", "dcT"),
+            outs, (T, L, Bb, In, H, *p.args(), build.DW_WORKSPACE_FLOATS),
+            dev, (sdt,) + (f32,) * 6 + (sdt, cs_dtype, sdt, f32, f32),
+        )
     build.count_launch(fused_lstm_scan_inproj_backward, sdt, stash)
     return dx, dw_ih, db, dw_hh, dh0, dc0
 
@@ -307,8 +392,8 @@ class _FusedLstmScanInproj(torch.autograd.Function):
 def fused_lstm_scan_inproj(x, w_ih_t, bias, w_hh_t, h0, c0, *, cs_dtype=None):
     """Same signature and result as :func:`fused_lstm_scan_inproj_reference`.
 
-    CPU tensors run the plain version.  CUDA tensors launch the kernel on
-    :func:`plan`'s tiling on the current stream, or raise: contiguous only, x float32 or bfloat16
+    CPU tensors run the plain version.  CUDA tensors launch the kernel in
+    :func:`plan`'s design on the current stream, or raise: contiguous only, x float32 or bfloat16
     (the bf16-stream form: ys bfloat16), the rest float32.  Each launch adds
     one to ``fused_lstm_scan_inproj.launches`` (f32) or ``.launches_bf16``.
     When gradients are on

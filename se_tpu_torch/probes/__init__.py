@@ -1,7 +1,7 @@
 """The port's own tools that ask what bounds the recurrence on the card,
 each a hand-written kernel with a plain PyTorch version:
 
-- ``bound_probe`` (P1): the in-projection LSTM forward (K2) with its
+- ``bound_probe`` (P1): the in-projection LSTM forward (K2's cluster design) with its
   per-step gate math swapped;
 - ``wavefront_probe`` (P2): two stacked LSTM layers in one kernel, layer 2
   one step behind layer 1, against two K2 calls;

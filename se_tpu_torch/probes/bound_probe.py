@@ -3,11 +3,12 @@
     python -m se_tpu_torch.probes.bound_probe [B] [T]
 
 Counterpart of ``tools/bound_probe.py``.  It times the in-projection LSTM
-forward kernel that FullSubNet's sub band runs (K2, ``csrc/lstm_inproj.cu``,
-on K2's own tiling) at the sub band's first layer (B * 257 rows, In = 32,
-H = 384, T frames), with its per-step gate math swapped at compile time:
+forward kernel of K2's cluster design (``csrc/lstm_inproj.cu``, on K2's
+cluster tiling, ``fused_lstm_inproj.cluster_tiling``) at the sub band's
+first layer (B * 257 rows, In = 32, H = 384, T frames), with its per-step
+gate math swapped at compile time:
 
-  real       the LSTM's gate math: the very kernel K2 launches
+  real       the LSTM's gate math: the very kernel K2 launches in that design
   bf16gates  gate pre-activations, exp, the sigmoid's sum and quotient, and
              tanh rounded to bf16; the carry stays f32
   polyswap   the transcendentals replaced by multiplies: the same slicing
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 from ..ops import build
-from ..ops.fused_lstm_inproj import plan
+from ..ops.fused_lstm_inproj import cluster_tiling
 from . import cuda_ms, sizes
 
 MODES = ("real", "bf16gates", "polyswap", "nogates")
@@ -99,7 +100,8 @@ def run(mode, x, wih, b, whh, h0, c0):
     ys, hT, cT = new(T, Bb, H), new(Bb, H), new(Bb, H)
     build.cuda_launch(_library(), "se_lstm_inproj_probe_f32", (x, wih, b, whh, h0, c0),
                       ("x", "wih", "b", "whh", "h0", "c0"), (ys, hT, cT),
-                      (T, Bb, In, H, MODES.index(mode), *plan(Bb, In, H).args()), x.device)
+                      (T, Bb, In, H, MODES.index(mode), *cluster_tiling(Bb, In, H).args()),
+                      x.device)
     run.launches += 1
     return ys, hT, cT
 
@@ -126,7 +128,7 @@ def main(argv=None) -> dict:
     per_utt, In, H = SUB_BAND
     Bb = B * per_utt
     args = inputs(T, Bb, In, H, resolve_device("cuda"))
-    tiling = plan(Bb, In, H)
+    tiling = cluster_tiling(Bb, In, H)
     times = {}
     with torch.inference_mode():
         for mode in MODES:

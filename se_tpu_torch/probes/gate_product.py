@@ -1,6 +1,8 @@
-"""The tiling and the weight layout of the probes' gate product
-(``csrc/gate_product.cuh``): P2's wavefront kernel
-(``csrc/wavefront_lstm.cu``) and P3's dots-only mode (``csrc/vpu_probe.cu``).
+"""The tiling and the weight layout of the gate product
+(``csrc/gate_product.cuh``): the probes' P2's wavefront kernel
+(``csrc/wavefront_lstm.cu``) and P3's dots-only mode (``csrc/vpu_probe.cu``),
+and the wave design of K2 and K3 (``csrc/lstm_inproj.cu``,
+``csrc/gru_inproj.cu``; :func:`wave_plan`).
 
 A CTA holds ``TILE_ROWS`` batch rows and three warpgroups of consumer
 warps, 32 units a warp (H at most ``MAX_UNITS``), beside the producer's
@@ -15,6 +17,7 @@ check the tiling they are given against the same shared-memory formula
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -35,8 +38,73 @@ CLUSTER_SIZES = (4, 2)
 CLUSTERS_AT_ONCE = {2: 66, 4: 30}
 
 
+# The wave design's cluster: 2 CTAs share each W slab.  Clusters of 4 hold
+# 120 CTAs at once against 132 (CLUSTERS_AT_ONCE), so they never run in
+# fewer waves, and P2 (the same product) ran no faster on 1 CTA than on 2
+# (PERF.md §6): the FFMA issue bounds it, not L2.
+WAVE_CLUSTER = 2
+WAVE_MAX_STAGES = 8  # the ring's slabs at most (csrc/gate_product.cuh: kWaveMaxStages)
+# The wave design's fewest units (whole warps): one consumer warp an SM
+# quarter.  With fewer (K3's ragged H = 64) the ring's round trips are not
+# hidden and the per-block kernel measured faster (PERF.md §6).
+WAVE_MIN_UNITS = 4 * UNITS_PER_WARP
+
+
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+@dataclass(frozen=True)
+class WavePlan:
+    """A launch's tiling in the wave design of K2 and K3 (on
+    ``csrc/gate_product.cuh``): ``tiles`` row tiles of ``R`` = 16 rows a
+    stack, one a CTA with all ``Hp`` units (H rounded up to whole warps), in
+    ``clusters`` clusters of ``N`` CTAs over the L stacks, ``waves`` waves
+    of the clusters the card holds at once; x padded to ``In_p`` rows k; a
+    ring of ``stages`` W slabs; ``smem`` bytes a CTA."""
+
+    R: int
+    N: int
+    stages: int
+    In_p: int
+    Hp: int
+    tiles: int
+    clusters: int
+    waves: int
+    smem: int
+    design: str = "wave"
+
+    def args(self) -> tuple:
+        """The wave entries' tiling arguments ``(In_p, N, stages)``."""
+        return self.In_p, self.N, self.stages
+
+
+def wave_smem(In_p: int, Hp: int, stages: int, backward: bool) -> int:
+    """A wave-design CTA's shared memory (``wave_smem`` in the source): the
+    ring's ``stages`` slabs of 4 x 4 Hp floats; forward two operand
+    buffers [x; h] of ``In_p + Hp`` rows of 16 floats, backward ``In_p + 5
+    Hp`` rows (K3: one buffer [x; h_prev; dys] and dhp's 3 Hp rows; K2: [x;
+    h_prev] and the dgates' 4 Hp rows); a full and an empty mbarrier a
+    slab."""
+    rows = In_p + 5 * Hp if backward else 2 * (In_p + Hp)
+    return 4 * (stages * SLAB_ROWS * 4 * Hp + rows * TILE_ROWS) + 16 * stages
+
+
+def wave_plan(Bb: int, In: int, H: int, backward: bool = False, L: int = 1) -> WavePlan:
+    """The wave design's tiling of a launch over ``L`` stacks of ``Bb`` rows
+    of ``In`` inputs and ``H`` units (at most ``MAX_UNITS``): tiles of 16
+    rows, clusters of ``WAVE_CLUSTER``, the deepest ring that fits beside
+    the buffers; raises where not even two slabs do."""
+    In_p, Hp = padded(In, H)
+    stages = next((s for s in range(WAVE_MAX_STAGES, 1, -1)
+                   if wave_smem(In_p, Hp, s, backward) <= MAX_SMEM), None)
+    if stages is None:
+        raise ValueError(f"no wave tiling fits In={In}, H={H} in {MAX_SMEM} bytes")
+    R, N = TILE_ROWS, WAVE_CLUSTER
+    tiles = _cdiv(Bb, R)
+    clusters = L * _cdiv(tiles, N)
+    return WavePlan(R, N, stages, In_p, Hp, tiles, clusters,
+                    _cdiv(clusters, CLUSTERS_AT_ONCE[N]), wave_smem(In_p, Hp, stages, backward))
 
 
 def padded(In: int, H: int) -> tuple:

@@ -21,7 +21,7 @@ prints each op's time, its nanoseconds per element and its share of its
 bound (:func:`bound_ms`: for the elementwise ops, their own MUFU and FP32
 instructions, ``PIPE_COUNTS``, at their pipes' rates), and, at the same
 volume, the time of the whole recurrence step (the bound probe's ``real``
-mode, the kernel K2 runs).
+mode, K2's cluster kernel).
 """
 
 from __future__ import annotations
